@@ -1,0 +1,159 @@
+"""Core layers (counterpart of the plain path of ``esn_tpu/nn/layers.py``).
+
+NCHW tensors; parameters stay f32 and are cast to the activation dtype
+where they meet it, as in the reference. Attribute names follow torch
+(``weight``/``bias``/``running_mean``/``running_var``);
+``esn_tpu_torch.convert`` maps them to the reference's
+``kernel``/``scale``/``bias``/``mean``/``var``/``alpha``.
+"""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import initializers as init
+from ..ops import convolution as C
+
+IntOr2 = Union[int, Tuple[int, int]]
+
+
+def _pair(v: IntOr2) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def _copy_(dst: torch.Tensor, src: torch.Tensor) -> None:
+    with torch.no_grad():
+        dst.copy_(src)
+
+
+class Conv(nn.Module):
+    """2D convolution, OIHW weight, Kaiming fan-out init."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: IntOr2, *,
+                 stride: IntOr2 = 1, padding: IntOr2 = 0, dilation: IntOr2 = 1,
+                 groups: int = 1, bias: bool = True):
+        super().__init__()
+        if in_ch % groups or out_ch % groups:
+            raise ValueError(f"channels {in_ch}->{out_ch} not divisible by "
+                             f"groups={groups}")
+        self.in_ch, self.out_ch, self.groups = in_ch, out_ch, groups
+        self.kernel = _pair(kernel)
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                               *self.kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _copy_(self.weight, init.kaiming_normal("fan_out")(
+            generator, self.weight.shape))
+        if self.bias is not None:
+            fan_in = self.kernel[0] * self.kernel[1] * self.in_ch // self.groups
+            _copy_(self.bias, init.bias_for_fan_in(fan_in)(
+                generator, self.bias.shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return C.conv2d(x, self.weight, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups, bias=self.bias)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d with the reference's numerics.
+
+    Eval applies ``x*scale + offset`` in the input dtype with f32-computed
+    per-channel ``scale``/``offset``. Train normalises with the batch's
+    biased variance (moments in f32, centred on the running mean) and moves
+    the running stats by ``momentum`` toward the batch mean and the
+    unbiased variance.
+    """
+
+    def __init__(self, num_features: int, *, momentum: float = 0.1,
+                 eps: float = 1e-5, affine: bool = True):
+        super().__init__()
+        self.num_features, self.momentum, self.eps = num_features, momentum, eps
+        self.affine = affine
+        c = num_features
+        self.weight = nn.Parameter(torch.ones(c)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(c)) if affine else None
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        c = self.num_features
+        if self.affine:
+            _copy_(self.weight, init.ones(generator, (c,)))
+            _copy_(self.bias, init.zeros(generator, (c,)))
+        _copy_(self.running_mean, init.zeros(generator, (c,)))
+        _copy_(self.running_var, init.ones(generator, (c,)))
+
+    def _affine(self, mean: torch.Tensor, var: torch.Tensor):
+        scale = torch.rsqrt(var.float() + self.eps)
+        if self.affine:
+            scale = scale * self.weight
+            return scale, self.bias - mean * scale
+        return scale, -mean * scale
+
+    def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Eval-mode BN as f32 per-channel ``(scale, offset)``."""
+        return self._affine(self.running_mean, self.running_var)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            rm = self.running_mean
+            xf = x.float() - rm[:, None, None]
+            d = xf.mean(dim=(0, 2, 3))
+            m2 = xf.square().mean(dim=(0, 2, 3))
+            mean = rm + d
+            var = torch.clamp(m2 - d.square(), min=0.0)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            unbiased = var * (n / max(n - 1, 1))
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * rm + m * mean.detach())
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased.detach())
+            scale, offset = self._affine(mean, var)
+        else:
+            scale, offset = self.eval_affine()
+        return (x * scale.to(x.dtype)[:, None, None]
+                + offset.to(x.dtype)[:, None, None])
+
+
+class PReLU(nn.Module):
+    """PReLU with 1 (torch default) or per-channel slopes, init 0.25."""
+
+    def __init__(self, num_parameters: int = 1, init_value: float = 0.25):
+        super().__init__()
+        self.init_value = init_value
+        self.weight = nn.Parameter(torch.full((num_parameters,), init_value))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _copy_(self.weight, torch.full(self.weight.shape, self.init_value))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.weight.to(x.dtype)
+        if a.numel() > 1:
+            a = a[:, None, None]
+        return torch.where(x >= 0, x, a * x)
+
+
+class Dropout(nn.Module):
+    """Element dropout; identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.rate, self.training)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0, 6)

@@ -1,0 +1,110 @@
+"""Build and load the hand-written CUDA kernels.
+
+All of ``esn_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``esn_tpu_torch/build/`` under a name keyed by a hash
+of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the file. Nothing is built at import: the first kernel launch
+builds, and a process without ``nvcc`` that never launches a kernel
+never needs it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+# -Xptxas=-v puts each kernel's registers, shared memory and spills in the
+# build log
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libesn_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels of esn_tpu_torch are built at first use")
+
+
+class BuildInfo(NamedTuple):
+    """What ``build`` did: the library, seconds, compiler log, and whether
+    it compiled (False: a build of the same sources was there)."""
+    path: Path
+    seconds: float
+    log: str
+    built: bool
+
+
+def build() -> BuildInfo:
+    """Compile the library unless a build of the same sources exists."""
+    out = library_path()
+    if out.exists():
+        return BuildInfo(out, 0.0, "", built=False)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    return BuildInfo(out, seconds, log, built=True)
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call in this process)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.esn_cuda_error_string.argtypes = [i32]
+        lib.esn_cuda_error_string.restype = ctypes.c_char_p
+        lib.esn_dsconv_forward.argtypes = [vp] * 8 + [i32] * 13 + [vp]
+        lib.esn_dsconv_forward.restype = i32
+        lib.esn_resize_argmax.argtypes = [vp, vp] + [i32] * 6 + [vp]
+        lib.esn_resize_argmax.restype = i32
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        msg = library().esn_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

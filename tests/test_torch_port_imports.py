@@ -1,0 +1,53 @@
+"""The port stands alone: importing all of ``esn_tpu_torch`` and running a
+Fast-SCNN predict on the CPU loads neither ``jax`` nor ``esn_tpu``.
+
+Checked in a fresh interpreter, since this test process imports both
+packages for the parity tests.
+"""
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import torch
+import esn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(esn_tpu_torch.__path__,
+                                               "esn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from esn_tpu_torch.models import build_model
+from esn_tpu_torch.ops import kernels
+from esn_tpu_torch.train.step import make_predict_step
+model = build_model("fastscnn", 19, generator=torch.Generator().manual_seed(0))
+images = torch.randn((1, 3, 64, 128), generator=torch.Generator().manual_seed(1))
+pred = make_predict_step(model)(images)
+print(json.dumps({
+    "modules": names,
+    "pred": [list(pred.shape), str(pred.dtype)],
+    "launches": kernels.LAUNCHES,
+    "loaded": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "esn_tpu")),
+}))
+"""
+
+
+def test_port_imports_no_jax_and_predicts_on_cpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["loaded"] == []
+    for name in ("esn_tpu_torch.convert", "esn_tpu_torch.models.fastscnn",
+                 "esn_tpu_torch.ops.kernels.dsconv",
+                 "esn_tpu_torch.ops.kernels.resize_argmax",
+                 "esn_tpu_torch.train.step", "esn_tpu_torch.utils.params"):
+        assert name in out["modules"]
+    assert out["pred"] == [[1, 64, 128], "torch.int32"]
+    # a CPU tensor runs the plain versions: no kernel launched
+    assert out["launches"] == {"dsconv": 0, "resize_argmax": 0}
