@@ -4,23 +4,37 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``esn_tpu_torch/csrc``, checks each kernel
-against its plain PyTorch version at the shapes Fast-SCNN's predict gives
-it (bf16 and f32, plus an odd-size case), then runs Fast-SCNN-19 predict
-at batch 8, 3x1024x2048, bf16 through the port's entry points
-(``build_model`` + ``make_predict_step``) and checks its output, the
-kernels' launch counts and its agreement with the same model run on the
-plain versions. Exits non-zero on any failure, and when no CUDA device is
-present. The last line of standard output is one JSON object; the line
-before it lists the kernels: ``ms``/``plain_ms`` per predict (for
-``fused_dsconv`` the sum of its four layers' bf16 times, each timed at
-its own shape), and for ``resize_argmax`` ``max_abs_err`` is
-the largest gap between the f32 upsampled logits of the classes that the
-kernel and the plain version chose. Details go to
-``chiprun_out/chip_smoke.json``.
+against its plain PyTorch version at the shapes Fast-SCNN's predict and
+train step give it (plus odd-size cases), then drives two paths through
+the port's entry points, each with the launch counts from zero:
+
+- predict: Fast-SCNN-19 at batch 8, 3x1024x2048, bf16
+  (``build_model`` + ``make_predict_step``): output, launch counts,
+  agreement with the same model on the plain versions, img/s;
+- train: five steps of Fast-SCNN-19 at batch 8, 3x1024x2048, bf16
+  (``build_model`` + ``build_optimizer("adam")`` +
+  ``build_schedule("poly")`` + ``make_train_step(fwd_method=
+  "logits_lowres")`` with the fused resize-CE loss): one ``resize_ce``
+  forward and backward launch per step, a falling loss, moving BN
+  statistics, one f32 step against the plain versions, ms/step.
+
+Exits non-zero on any failure, and when no CUDA device is present. The
+last line of standard output is one JSON object; the line before it lists
+the kernels. ``ms``/``plain_ms``: for ``fused_dsconv`` the sum of its
+four layers' bf16 times per predict, each timed at its own shape; for
+``resize_argmax`` its time per predict; for ``resize_ce_sums`` forward +
+backward per train step. ``max_abs_err``: for ``resize_argmax`` the
+largest gap between the f32 upsampled logits of the classes that the
+kernel and the plain version chose; for ``resize_ce_sums`` the largest
+difference of dz. ``launches`` for ``resize_ce_sums`` counts forward and
+backward launches together. Details go to ``chip_smoke.json`` in the
+output directory beside this script.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
+import functools
 import json
 import math
 import subprocess
@@ -57,6 +71,21 @@ PREDICT_MISMATCH_MAX = {"float32": 1e-4, "bfloat16": 0.05}
 # 0.121, i.e. 0.25 against a std of 2.06 (bound ~2x).
 LOWRES_DIFF_MAX = {"float32": 5e-5, "bfloat16": 0.25}
 VAR_FLOOR = 0.01
+# resize_ce_sums (K3) against its plain version, f32, TF32 off:
+# |dS| <= RESIZE_CE_SUM_REL * |S| (and N alike): both sum f32 terms over
+# up to 16.7M pixels, in other orders (the kernel in double per block);
+# dz rel-L2 <= RESIZE_CE_DZ_REL, as tests/test_pallas_resize_ce.py.
+RESIZE_CE_SUM_REL, RESIZE_CE_DZ_REL = 1e-5, 1e-4
+# train: one f32 step (TF32 off) with the kernel vs the plain versions
+# from the same copied model and optimizer: the loss within
+# TRAIN_LOSS_REL; per-leaf gradient rel-L2 within TRAIN_GRAD_REL (the two
+# differ only in the loss tail's dz, 1e-6-level, carried back through
+# cuDNN's f32 backward, which sums in its own order), plus TRAIN_GRAD_ABS
+# for the leaves whose exact gradient is 0 (a BN bias whose shift the next
+# train-mode BN removes; their f32 gradients are ~1e-9 of noise).
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_ABS = 1e-5, 1e-3, 1e-6
+TRAIN_STEPS, TRAIN_TOTAL_STEPS, TRAIN_LR = 5, 1000, 4.5e-4
+IGNORE = 255
 
 
 class SmokeFailure(RuntimeError):
@@ -180,6 +209,87 @@ def kernel_phase(torch, F, K):
     return dsconv_rows, argmax_rows
 
 
+def resize_ce_value_and_grad(torch, fn, z, lab, cw, r, eps):
+    zz = z.clone().requires_grad_()
+    s, n = fn(zz, lab, cw, r=r, ignore_index=IGNORE, label_smoothing=eps)
+    (s / torch.clamp(n, min=1e-8)).backward()
+    return s.detach(), n.detach(), zz.grad
+
+
+def resize_ce_case(K, torch, gen, shape, r, eps, weighted, timed=False,
+                   all_ignored=False):
+    """K3 against its plain version: S, N, the loss and dz; for the main
+    shape also bit-identity over two launches and the times of forward
+    and backward (CUDA events) of each."""
+    b, h, w, c = shape
+    z = torch.randn(shape, generator=gen, device="cuda")
+    lab = torch.randint(0, c, (b, h * r, w * r), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    drop = torch.rand(lab.shape, generator=gen, device="cuda") < 0.05
+    lab = torch.where(drop | all_ignored, torch.full_like(lab, IGNORE), lab)
+    cw = (torch.rand((c,), generator=gen, device="cuda") + 0.5
+          if weighted else None)
+    s, n, dz = resize_ce_value_and_grad(torch, K.resize_ce_sums, z, lab, cw,
+                                        r, eps)
+    s0, n0, dz0 = resize_ce_value_and_grad(torch, K.resize_ce_sums_ref, z,
+                                           lab, cw, r, eps)
+    torch.cuda.synchronize()
+    loss, loss0 = float(s / max(float(n), 1e-8)), float(s0 / max(float(n0),
+                                                                 1e-8))
+    dz_norm = float(torch.linalg.norm(dz0))
+    dz_rel = float(torch.linalg.norm(dz - dz0)) / max(dz_norm, 1e-30)
+    row = {"shape": list(shape), "r": r, "label_smoothing": eps,
+           "weighted": weighted, "S": float(s), "plain_S": float(s0),
+           "N": float(n), "plain_N": float(n0), "loss": loss,
+           "plain_loss": loss0, "dz_max_abs_err": float((dz - dz0).abs().max()),
+           "dz_rel_l2": dz_rel}
+    if all_ignored:
+        ok = (float(s) == 0.0 and float(n) == 0.0 and math.isfinite(loss)
+              and float(dz.abs().max()) == 0.0)
+    else:
+        ok = (abs(float(s - s0)) <= RESIZE_CE_SUM_REL * abs(float(s0))
+              and abs(float(n - n0)) <= RESIZE_CE_SUM_REL * abs(float(n0))
+              and dz_rel <= RESIZE_CE_DZ_REL)
+    row["within_tol"] = bool(ok)
+    if timed:
+        again = resize_ce_value_and_grad(torch, K.resize_ce_sums, z, lab, cw,
+                                         r, eps)
+        row["bit_identical"] = all(bool(torch.equal(x, y)) for x, y in
+                                   zip((s, n, dz), again))
+        for name, fn in (("", K.resize_ce_sums),
+                         ("plain_", K.resize_ce_sums_ref)):
+            zz = z.clone().requires_grad_()
+            kw = dict(r=r, ignore_index=IGNORE, label_smoothing=eps)
+            with torch.no_grad():
+                row[f"{name}fwd_ms"] = cuda_ms(lambda: fn(z, lab, cw, **kw))
+            ss, nn_ = fn(zz, lab, cw, **kw)
+            loss_t = ss / torch.clamp(nn_, min=1e-8)
+            row[f"{name}bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                loss_t, zz, retain_graph=True))
+            row[f"{name}ms"] = row[f"{name}fwd_ms"] + row[f"{name}bwd_ms"]
+    return row
+
+
+def resize_ce_phase(torch, K):
+    """K3 at the train step's shape and at odd shapes, f32, TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = [resize_ce_case(K, torch, gen, (BATCH, 128, 256, CLASSES), 8, 0.0,
+                           True, timed=True),
+            resize_ce_case(K, torch, gen, (2, 13, 21, CLASSES), 3, 0.1, False),
+            resize_ce_case(K, torch, gen, (1, 9, 7, 5), 16, 0.0, True),
+            resize_ce_case(K, torch, gen, (1, 8, 8, CLASSES), 8, 0.0, True,
+                           all_ignored=True)]
+    rows[0]["layer"] = "train loss tail"
+    for row in rows:
+        print("kernel", json.dumps(row))
+    check(all(r["within_tol"] for r in rows),
+          f"resize_ce_sums outside tolerance: {rows}")
+    check(rows[0]["bit_identical"], "resize_ce_sums: two launches differ")
+    return rows
+
+
 def smooth_images(torch, F, gen, n, hw):
     """Seeded image-like batch: a random field at 1/32 resolution, upsampled,
     plus a little pixel noise, so images differ in their global means (iid
@@ -196,6 +306,7 @@ def seeded_model(torch, F, build_model, BatchNorm, seed: int):
     momentum 1 over a seeded batch, with each variance floored at
     VAR_FLOOR (random weights leave near-dead channels whose tiny batch
     variance would scale them by up to 1/sqrt(eps))."""
+    from esn_tpu_torch.nn import set_dropout_generator
     gen = torch.Generator().manual_seed(seed)
     model = build_model("fastscnn", CLASSES, device="cuda", generator=gen)
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
@@ -205,6 +316,8 @@ def seeded_model(torch, F, build_model, BatchNorm, seed: int):
             bn.bias.copy_(torch.randn(bn.bias.shape, generator=gen) * 0.1)
             bn.momentum = 1.0
         calib = smooth_images(torch, F, gen, 4, (512, 1024)).cuda()
+        set_dropout_generator(model, torch.Generator(device="cuda")
+                              .manual_seed(seed))    # the train-mode pass
         model.train()
         model(calib.contiguous(memory_format=torch.channels_last))
         for bn in bns:
@@ -215,14 +328,16 @@ def seeded_model(torch, F, build_model, BatchNorm, seed: int):
 
 @contextlib.contextmanager
 def plain_versions(K):
-    """Route the model's kernel calls to the kernels' plain versions (the
-    model looks both up in ``esn_tpu_torch.ops.kernels`` at call time)."""
-    saved = K.fused_dsconv, K.resize_argmax
-    K.fused_dsconv, K.resize_argmax = K.dsconv_ref, K.resize_argmax_ref
+    """Route the model's and the loss's kernel calls to the kernels' plain
+    versions (both look them up in ``esn_tpu_torch.ops.kernels`` at call
+    time)."""
+    saved = K.fused_dsconv, K.resize_argmax, K.resize_ce_sums
+    K.fused_dsconv, K.resize_argmax, K.resize_ce_sums = (
+        K.dsconv_ref, K.resize_argmax_ref, K.resize_ce_sums_ref)
     try:
         yield
     finally:
-        K.fused_dsconv, K.resize_argmax = saved
+        K.fused_dsconv, K.resize_argmax, K.resize_ce_sums = saved
 
 
 def compare_with_plain(torch, F, K, model, make_predict_step, images, dtype):
@@ -287,7 +402,8 @@ def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step):
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     print("predict launches", json.dumps(launches))
-    check(launches == {"dsconv": 4, "resize_argmax": 1},
+    check(launches == {"dsconv": 4, "resize_argmax": 1, "resize_ce_fwd": 0,
+                       "resize_ce_bwd": 0},
           f"launch counts per predict {launches}")
     check(tuple(pred.shape) == (BATCH, *IMAGE_HW) and pred.dtype == torch.int32,
           f"predict output {tuple(pred.shape)} {pred.dtype}")
@@ -327,6 +443,163 @@ def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step):
             "peak_gb": peak_gb, "batch": BATCH}
 
 
+def learnable_labels(torch, F, gen, n, hw):
+    """Seeded labels a network can fit: the argmax of a smooth random
+    19-class field (1/16 resolution, upsampled), with a band of ignored
+    rows across the middle."""
+    low = torch.randn((n, CLASSES, hw[0] // 16, hw[1] // 16), generator=gen,
+                      device=gen.device)
+    field = F.interpolate(low, size=hw, mode="bilinear", align_corners=False)
+    labels = field.argmax(1).to(torch.int32)
+    del field
+    labels[:, hw[0] // 2 - 16:hw[0] // 2 + 16] = IGNORE
+    return labels
+
+
+def class_weights(torch, labels):
+    """``1 / ln(1.10 + p_c)`` from the labels' class histogram: the
+    reference's formula (esn_tpu/data/inform.py), written out here."""
+    hist = torch.bincount(labels[labels != IGNORE].long(),
+                          minlength=CLASSES).double()
+    return (1.0 / torch.log(1.10 + hist / hist.sum())).float()
+
+
+def train_step(torch, model, opt, cw, dtype):
+    """The default of train.py on a resize-tail model, through the port's
+    entry points: class-weighted CE through logits_lowres (the loss owns
+    the x8 upsample), poly lr on ``opt``; dropout masks from a seeded
+    generator on the card."""
+    from esn_tpu_torch.train.losses import fused_resize_ce_spec
+    from esn_tpu_torch.train.schedules import build_schedule
+    from esn_tpu_torch.train.step import make_train_step
+    fused, method = fused_resize_ce_spec(model, "ce")
+    loss = functools.partial(fused, num_classes=CLASSES, class_weights=cw,
+                             ignore_index=IGNORE)
+    return make_train_step(
+        model, loss, opt,
+        schedule=build_schedule("poly", TRAIN_LR, TRAIN_TOTAL_STEPS),
+        compute_dtype=dtype, fwd_method=method,
+        generator=torch.Generator(device="cuda").manual_seed(3))
+
+
+def train_setup(torch, F):
+    """Fast-SCNN-19 on the card (port init, seed 0), adam, and one seeded
+    batch: smooth images, learnable labels, their class weights."""
+    from esn_tpu_torch.models import build_model
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    model = build_model("fastscnn", CLASSES, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    opt = build_optimizer("adam", model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = smooth_images(torch, F, gen, BATCH, IMAGE_HW)
+    labels = learnable_labels(torch, F, gen, BATCH, IMAGE_HW)
+    return model, opt, {"image": images, "label": labels}, class_weights(
+        torch, labels)
+
+
+def compare_train_step(torch, K, model, opt, batch, cw):
+    """One f32 step (TF32 off) from copies of the same model and optimizer,
+    with the kernel and with the plain versions: loss and per-leaf
+    gradients."""
+    runs = {}
+    for which in ("kernel", "plain"):
+        m = copy.deepcopy(model)
+        o = type(opt)(m.parameters())
+        o.load_state_dict(opt.state_dict())
+        step = train_step(torch, m, o, cw, torch.float32)
+        with plain_versions(K) if which == "plain" else contextlib.nullcontext():
+            loss = float(step(batch)["loss"])
+        runs[which] = (loss, {n: p.grad.detach().clone()
+                              for n, p in m.named_parameters()})
+        del m, o, step
+    (loss, grads), (loss0, grads0) = runs["kernel"], runs["plain"]
+    diff = {n: float(torch.linalg.norm(grads[n] - g0))
+            for n, g0 in grads0.items()}
+    norm = {n: float(torch.linalg.norm(g0)) for n, g0 in grads0.items()}
+    excess = {n: diff[n] - TRAIN_GRAD_REL * norm[n] - TRAIN_GRAD_ABS
+              for n in diff}
+    worst = max(excess, key=excess.get)
+    rel = {n: diff[n] / norm[n] for n in diff if norm[n] > 1e3 * TRAIN_GRAD_ABS}
+    worst_rel = max(rel, key=rel.get)
+    row = {"dtype": "float32", "loss": loss, "plain_loss": loss0,
+           "loss_rel_diff": abs(loss - loss0) / abs(loss0),
+           "loss_rel_max": TRAIN_LOSS_REL, "grad_rel_l2_max": rel[worst_rel],
+           "grad_rel_l2_worst_leaf": worst_rel,
+           "grad_rel_bound": TRAIN_GRAD_REL, "grad_abs_bound": TRAIN_GRAD_ABS,
+           "worst_leaf_by_bound": worst, "worst_leaf_diff": diff[worst],
+           "worst_leaf_norm": norm[worst]}
+    print("train step vs plain", json.dumps(row))
+    check(row["loss_rel_diff"] <= TRAIN_LOSS_REL and excess[worst] <= 0,
+          f"train step disagrees with its plain versions: {row}")
+    return row
+
+
+def timed_steps(torch, step, batch, iters: int = 10) -> float:
+    """Seconds per train step over ``iters`` steps after one warm-up step,
+    host clock, synchronised."""
+    step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def train_phase(torch, F, K, BatchNorm):
+    """Fast-SCNN-19 training at bf16 b8 3x1024x2048 through the port's
+    entry points: launch counts, a falling loss over five steps on one
+    batch, BN running stats that move, the f32 step against the plain
+    versions, and the step's time with the kernel and with the plain
+    versions."""
+    model, opt, batch, cw = train_setup(torch, F)
+    torch.backends.cudnn.allow_tf32 = False
+    compared = compare_train_step(torch, K, model, opt, batch, cw)
+    torch.backends.cudnn.allow_tf32 = True    # the library default again
+
+    step = train_step(torch, model, opt, cw, torch.bfloat16)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    stats0 = [m.running_mean.clone() for m in bns]
+    # the main path, five steps, with the launch counts from zero
+    K.reset_launches()
+    losses = [float(step(batch)["loss"]) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print("train launches", json.dumps(launches))
+    print("train losses", json.dumps(losses))
+    check(launches == {"dsconv": 0, "resize_argmax": 0,
+                       "resize_ce_fwd": TRAIN_STEPS,
+                       "resize_ce_bwd": TRAIN_STEPS},
+          f"launch counts over {TRAIN_STEPS} train steps {launches}")
+    check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    moved = sum(not torch.equal(m.running_mean, m0)
+                for m, m0 in zip(bns, stats0))
+    check(moved == len(bns), f"BN running stats moved in {moved} of "
+          f"{len(bns)} layers")
+
+    # kernel against plain versions, in turns: plain, kernel, kernel, plain
+    torch.cuda.reset_peak_memory_stats()
+    times = {"kernel": [], "plain": []}
+    peak = {}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        with plain_versions(K) if which == "plain" else contextlib.nullcontext():
+            times[which].append(timed_steps(torch, step, batch))
+        peak[which] = max(peak.get(which, 0.0),
+                          torch.cuda.max_memory_allocated() / 1e9)
+    ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
+    img_s = {k: BATCH / (v / 1e3) for k, v in ms.items()}
+    print(f"train bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: "
+          f"{img_s['kernel']:.2f} img/s ({ms['kernel']:.3f} ms/step) with "
+          f"the kernel, {img_s['plain']:.2f} img/s ({ms['plain']:.3f} "
+          f"ms/step) with the plain versions; peak {peak['kernel']:.2f} GB "
+          f"vs {peak['plain']:.2f} GB")
+    return {"launches": launches, "losses": losses, "bn_layers_moved": moved,
+            "compared": compared, "ms_per_step": ms, "img_per_s": img_s,
+            "peak_gb": peak, "batch": BATCH, "class_weights": cw.tolist()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -360,8 +633,10 @@ def main() -> int:
     (out_dir / "ptxas.log").write_text(info.log)
 
     dsconv_rows, argmax_rows = kernel_phase(torch, F, K)
+    ce_rows = resize_ce_phase(torch, K)
     result = predict_phase(torch, F, K, build_model, BatchNorm,
                            make_predict_step)
+    trained = train_phase(torch, F, K, BatchNorm)
 
     ds_main = [r for r in dsconv_rows
                if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
@@ -381,6 +656,13 @@ def main() -> int:
          "launches": result["launches"]["resize_argmax"],
          "max_abs_err": tail["max_abs_err"],
          "ms": tail["ms"], "plain_ms": tail["plain_ms"]},
+        {"name": "resize_ce_sums", "route": "cuda",
+         "source": "esn_tpu_torch/csrc/resize_ce.cu",
+         "replaces": "esn_tpu/ops/pallas/resize_ce.py:199,237",
+         "launches": (trained["launches"]["resize_ce_fwd"]
+                      + trained["launches"]["resize_ce_bwd"]),
+         "max_abs_err": ce_rows[0]["dz_max_abs_err"],
+         "ms": ce_rows[0]["ms"], "plain_ms": ce_rows[0]["plain_ms"]},
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -388,7 +670,8 @@ def main() -> int:
         {"nvidia_smi": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_seconds": info.seconds,
          "dsconv": dsconv_rows, "resize_argmax": argmax_rows,
-         "predict": result, "kernels": kernels, "device": device}, indent=1))
+         "resize_ce_sums": ce_rows, "predict": result, "train": trained,
+         "kernels": kernels, "device": device}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -18,10 +18,18 @@ stats ``mean``/``var``    ``running_mean/var``   as is
 
 Leaves are numpy arrays on the reference side and CPU tensors on the
 port's; values are copied bit for bit.
+
+Training state crosses too: any params-shaped tree (gradients, Adam
+moments) maps by the same rules (:func:`params_state_dict`,
+:func:`params_tree`), and an optax ``adam`` state (``ScaleByAdamState``
+``count``/``mu``/``nu``, inside the reference's
+``add_decayed_weights``/``scale_by_adam``/``scale_by_learning_rate``
+chain) loads into a ``torch.optim.Adam`` (:func:`load_adam_state`) and
+comes back out (:func:`adam_state`).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Set, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +63,7 @@ def to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                                      f"HWIO, got shape {arr.shape}")
                 arr = arr.transpose(3, 2, 0, 1)
             key = ".".join([*mod, names[leaf]])
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
 
 
@@ -64,6 +72,11 @@ def to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     ``num_batches_tracked`` entries, if any, are dropped."""
     bn_modules = {k.rsplit(".", 1)[0] for k in state_dict
                   if k.endswith(".running_mean")}
+    return _to_variables(state_dict, bn_modules)
+
+
+def _to_variables(state_dict: Mapping[str, torch.Tensor],
+                  bn_modules: Set[str]) -> Dict[str, Dict]:
     variables: Dict[str, Dict] = {"params": {}, "stats": {}}
     for key, value in state_dict.items():
         mod, name = key.rsplit(".", 1)
@@ -85,5 +98,70 @@ def to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
         node = variables[coll]
         for part in mod.split("."):
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.array(arr, copy=True, order="C")
     return variables
+
+
+def params_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A params-shaped reference tree (gradients, Adam moments) -> CPU
+    tensors keyed by the port's parameter names, in the port's layout."""
+    return to_state_dict({"params": tree})
+
+
+def params_tree(named: Mapping[str, torch.Tensor],
+                model: torch.nn.Module) -> Dict[str, Any]:
+    """Tensors keyed by ``model``'s parameter names -> a params-shaped
+    reference tree (numpy leaves, reference layout)."""
+    bn_modules = {name for name, m in model.named_modules()
+                  if hasattr(m, "running_mean")}
+    return _to_variables(named, bn_modules)["params"]
+
+
+def _find_adam(opt_state: Any) -> Any:
+    """The ``ScaleByAdamState`` (anything with count/mu/nu) in a chain."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module, opt_state: Any) -> None:
+    """Load the optax adam state in ``opt_state`` (its ``count``, ``mu``,
+    ``nu``) into ``optimizer``, a ``torch.optim.Adam`` over
+    ``model.parameters()`` in their order: per parameter ``step`` =
+    count, ``exp_avg`` = mu, ``exp_avg_sq`` = nu."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (count/mu/nu) in the optimizer state")
+    mu, nu = params_state_dict(adam.mu), params_state_dict(adam.nu)
+    count = float(np.asarray(adam.count))
+    sd = optimizer.state_dict()
+    names = [name for name, _ in model.named_parameters()]
+    if sorted(sd["param_groups"][0]["params"]) != list(range(len(names))):
+        raise ValueError("optimizer must hold model.parameters() in order, "
+                         "in one param group")
+    sd["state"] = {i: {"step": torch.tensor(count), "exp_avg": mu[name],
+                       "exp_avg_sq": nu[name]}
+                   for i, name in enumerate(names)}
+    optimizer.load_state_dict(sd)
+
+
+def adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module
+               ) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
+    """``(count, mu, nu)`` of a ``torch.optim.Adam`` over
+    ``model.parameters()``, as reference trees (numpy leaves)."""
+    params = dict(model.named_parameters())
+    state = optimizer.state
+    count = {int(state[p]["step"]) for p in params.values()}
+    if len(count) != 1:
+        raise ValueError(f"parameters at different Adam steps: {count}")
+    mu = params_tree({n: state[p]["exp_avg"] for n, p in params.items()},
+                     model)
+    nu = params_tree({n: state[p]["exp_avg_sq"] for n, p in params.items()},
+                     model)
+    return count.pop(), mu, nu

@@ -8,6 +8,8 @@ submodule attribute names equal the reference's scope names, so a
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -29,6 +31,11 @@ class SegModel(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
         return self
+
+    def run(self, x: torch.Tensor, method: Optional[str] = None):
+        """The forward, or the named forward ``method`` (e.g.
+        ``"logits_lowres"``), as the reference's ``apply(..., method=)``."""
+        return (getattr(self, method) if method else self)(x)
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Class-map prediction ``(N, H, W)`` int32 for images ``(N, C, H, W)``.

@@ -8,10 +8,9 @@ where they meet it, as in the reference. Attribute names follow torch
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from . import initializers as init
@@ -141,14 +140,38 @@ class PReLU(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Element dropout; identity in eval mode."""
+    """Element dropout; identity in eval mode and at rate 0.
+
+    In training the mask comes from ``self.generator``, an explicit
+    ``torch.Generator`` on the tensor's device (the reference draws from
+    the step's ``"dropout"`` rng); the train step sets it. Training with
+    a positive rate and no generator raises, as the reference does
+    without a ``"dropout"`` rng. Kept values are scaled by ``1/keep``.
+    """
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout(x, self.rate, self.training)
+        if not self.training or self.rate <= 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training needs a generator: set "
+                               "it with set_dropout_generator or train "
+                               "through make_train_step")
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Give every Dropout of ``model`` the generator its masks come from."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ process: a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
-LAUNCHES = {"dsconv": 0, "resize_argmax": 0}
+LAUNCHES = {"dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
+            "resize_ce_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -20,3 +21,4 @@ def reset_launches() -> None:
 
 from .dsconv import dsconv_ref, fold_bn, fused_dsconv  # noqa: E402,F401
 from .resize_argmax import resize_argmax, resize_argmax_ref  # noqa: E402,F401
+from .resize_ce import resize_ce_sums, resize_ce_sums_ref  # noqa: E402,F401

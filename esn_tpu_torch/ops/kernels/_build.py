@@ -84,6 +84,17 @@ def build() -> BuildInfo:
     return BuildInfo(out, seconds, log, built=True)
 
 
+_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (argtypes, restype) of each C entry point of the library
+SIGNATURES = {
+    "esn_cuda_error_string": ([_I32], ctypes.c_char_p),
+    "esn_dsconv_forward": ([_VP] * 8 + [_I32] * 13 + [_VP], _I32),
+    "esn_resize_argmax": ([_VP, _VP] + [_I32] * 6 + [_VP], _I32),
+    "esn_resize_ce_fwd_blocks": ([_I32] * 4, _I32),
+    "esn_resize_ce_fwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),
+    "esn_resize_ce_bwd": ([_VP] * 5 + [_I32] * 6 + [_F32, _VP], _I32),
+}
+
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -92,13 +103,9 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build().path))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.esn_cuda_error_string.argtypes = [i32]
-        lib.esn_cuda_error_string.restype = ctypes.c_char_p
-        lib.esn_dsconv_forward.argtypes = [vp] * 8 + [i32] * 13 + [vp]
-        lib.esn_dsconv_forward.restype = i32
-        lib.esn_resize_argmax.argtypes = [vp, vp] + [i32] * 6 + [vp]
-        lib.esn_resize_argmax.restype = i32
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
         _LIB = lib
     return _LIB
 

@@ -1,0 +1,67 @@
+"""Device-time profile of the Fast-SCNN-19 train step on one CUDA card.
+
+    python3 -m esn_tpu_torch.tools.profile_train
+
+Run from the repo root. Uses ``chip_smoke.py``'s training setup (bf16,
+batch 8, 3x1024x2048, seeded smooth images and learnable labels, class
+weights from their histogram, adam + poly, weighted CE through
+``logits_lowres``) and profiles 5 train steps with the kernel, then 5 with
+the plain versions, each after one untraced warm-up step. For each it
+prints the host-clock ms per step with the profiler on and, from 5 more
+steps, with it off (synchronised), the summed device time of the CUDA
+kernels per step, the device idle share, and the kernels by device time.
+The step runs on one stream, so its kernels do not overlap: the idle
+share is ``1 - device time / wall time``, against the wall time with the
+profiler off (the profiler's own host cost lengthens the traced wall).
+Exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import contextlib
+import subprocess
+import sys
+from pathlib import Path
+
+from .profile_predict import STEPS, TOP, _device_us, profile
+
+REPO = Path(__file__).resolve().parents[2]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    import torch.nn.functional as F
+
+    import chip_smoke as S
+    from esn_tpu_torch.ops import kernels as K
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip())
+    print("torch", torch.__version__, "cuda", torch.version.cuda)
+    model, opt, batch, cw = S.train_setup(torch, F)
+    step = S.train_step(torch, model, opt, cw, torch.bfloat16)
+    for label in ("kernel", "plain"):
+        ctx = (S.plain_versions(K) if label == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            wall_ms, device_ms, kernels = profile(torch, step, batch)
+            quiet_wall_ms = 1e3 * S.timed_steps(torch, step, batch, STEPS)
+        if device_ms <= 0:
+            print(f"profile_train: no device time traced ({label})",
+                  file=sys.stderr)
+            return 1
+        print(f"== {label}: wall {quiet_wall_ms:.3f} ms/step (profiler "
+              f"on: {wall_ms:.3f}), device kernel time {device_ms:.3f} "
+              f"ms/step, idle share {1 - device_ms / quiet_wall_ms:.3f}")
+        for e in kernels[:TOP]:
+            print(f"{_device_us(e) / STEPS / 1e3:9.3f} ms "
+                  f"{e.count // STEPS:4d}x  {e.key[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,142 @@
-"""Step builders (counterpart of ``esn_tpu/train/step.py``); the predict
-step so far."""
+"""Step builders (counterpart of ``esn_tpu/train/step.py``).
+
+The reference's ``TrainState`` (``train/state.py``) has no counterpart:
+the model holds the parameters and the BN running statistics, the
+``torch.optim`` optimizer holds its state, and :class:`TrainStep` holds
+the step count. The reference's pure step returns a new state; here the
+step updates the parameters, the optimizer state and the running
+statistics in place.
+"""
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..nn import SegModel
+from ..nn import SegModel, set_dropout_generator
 from ..ops.classify import argmax_lastdim
 from ..ops.resize import resize_bilinear
+
+_MASK63 = (1 << 63) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finaliser."""
+    x &= (1 << 64) - 1
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    return x ^ (x >> 31)
+
+
+def fold_in(seed: int, *data: int) -> int:
+    """A seed derived from ``seed`` and the integers ``data`` (the role of
+    ``jax.random.fold_in``; not its bits)."""
+    x = _mix64(seed)
+    for d in data:
+        x = _mix64(x ^ _mix64(d + 0x9E3779B97F4A7C15))
+    return x & _MASK63
+
+
+class TrainStep:
+    """``step(batch) -> {"loss", "lr"}``; see :func:`make_train_step`.
+    ``count`` is the number of steps taken (the schedule's step)."""
+
+    def __init__(self, model: SegModel, loss_fn: Callable,
+                 optimizer: torch.optim.Optimizer, *,
+                 schedule: Optional[Callable[[int], float]],
+                 compute_dtype: torch.dtype, grad_accum: int,
+                 fwd_method: Optional[str],
+                 generator: Optional[torch.Generator]):
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum={grad_accum} must be >= 1")
+        self.model, self.loss_fn, self.optimizer = model, loss_fn, optimizer
+        self.schedule, self.compute_dtype = schedule, compute_dtype
+        self.grad_accum, self.fwd_method = grad_accum, fwd_method
+        self.seed = None if generator is None else generator.initial_seed()
+        self.device = next(model.parameters()).device
+        self.count = 0
+
+    def _loss(self, images: torch.Tensor, labels: torch.Tensor,
+              *rng_data: int) -> torch.Tensor:
+        if self.seed is not None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(fold_in(self.seed, self.count, *rng_data))
+            set_dropout_generator(self.model, gen)
+        x = images.to(device=self.device, dtype=self.compute_dtype,
+                      memory_format=torch.channels_last)
+        logits = self.model.run(x, self.fwd_method)
+        return self.loss_fn(logits.float().permute(0, 2, 3, 1), labels)
+
+    def __call__(self, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor | float]:
+        self.model.train()
+        images = batch["image"]
+        labels = batch["label"].to(device=self.device, dtype=torch.int32)
+        self.optimizer.zero_grad(set_to_none=True)
+        ga = self.grad_accum
+        if ga == 1:
+            loss = self._loss(images, labels)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            b = images.shape[0]
+            if b % ga:
+                raise ValueError(f"batch {b} not divisible by "
+                                 f"grad_accum={ga}")
+            mb = b // ga
+            loss = torch.zeros((), device=self.device)
+            # microbatches in order: each BN update sees the last one's
+            # running stats, as the reference's scan threads them
+            for i in range(ga):
+                sl = slice(i * mb, (i + 1) * mb)
+                li = self._loss(images[sl], labels[sl], i)
+                li.backward()
+                loss = loss + li.detach()
+            loss = loss / ga
+            for group in self.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is not None:
+                        p.grad.div_(ga)
+        metrics: Dict[str, torch.Tensor | float] = {"loss": loss}
+        if self.schedule is not None:
+            lr = float(self.schedule(self.count))
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            metrics["lr"] = lr
+        self.optimizer.step()
+        self.count += 1
+        return metrics
+
+
+def make_train_step(model: SegModel, loss_fn: Callable,
+                    optimizer: torch.optim.Optimizer, *,
+                    schedule: Optional[Callable[[int], float]] = None,
+                    compute_dtype: torch.dtype = torch.float32,
+                    grad_accum: int = 1, fwd_method: Optional[str] = None,
+                    generator: Optional[torch.Generator] = None) -> TrainStep:
+    """Build ``step(batch) -> metrics`` for batches ``{"image": (N, C, H,
+    W) float, "label": (N, H, W) int}``.
+
+    Each call puts the model in train mode, casts the images to
+    ``compute_dtype`` in ``channels_last`` (parameters stay f32), casts the
+    labels once to int32, runs the forward (``fwd_method``, e.g.
+    ``"logits_lowres"`` paired with ``losses.resize_cross_entropy``),
+    ``loss_fn(logits NHWC f32, labels)``, one backward (``grad_accum``
+    microbatches in order, gradients averaged), sets the optimizer's lr
+    to ``schedule(count)`` at the current count (starting at 0) and steps
+    the optimizer. BN running stats update in place. Dropout masks come
+    from a generator seeded from ``generator``'s seed, the step count and
+    the microbatch index (the reference folds them into its rng).
+    Metrics: ``loss`` (a device scalar; the microbatch mean under
+    accumulation) and ``lr``.
+
+    ``remat`` has no counterpart yet: ``torch.utils.checkpoint`` re-runs
+    the forward, and BN here updates its running stats in place, so a
+    plain checkpoint would update them twice a step.
+    """
+    return TrainStep(model, loss_fn, optimizer, schedule=schedule,
+                     compute_dtype=compute_dtype, grad_accum=grad_accum,
+                     fwd_method=fwd_method, generator=generator)
 
 
 def make_predict_step(model: SegModel, *,

@@ -20,7 +20,7 @@ from esn_tpu.train.step import make_predict_step as jax_make_predict_step
 from esn_tpu_torch import convert
 from esn_tpu_torch.models import available_models, build_model
 from esn_tpu_torch.models.blocks import DSConv
-from esn_tpu_torch.nn import BatchNorm
+from esn_tpu_torch.nn import BatchNorm, set_dropout_generator
 from esn_tpu_torch.train.step import make_predict_step
 from esn_tpu_torch.utils import count_params
 
@@ -61,6 +61,7 @@ def _calibrate_bn(model, images):
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for bn in bns:
         bn.momentum = 1.0
+    set_dropout_generator(model, torch.Generator().manual_seed(0))
     model.train()
     with torch.no_grad():
         model(images)

@@ -178,3 +178,25 @@ def test_fused_resize_argmax_eligibility(shape, out_hw, eligible):
     assert tail.shape == (1, *out_hw) and tail.dtype == torch.int32
     if eligible:
         assert torch.equal(out, tail)
+
+
+def test_ctypes_signatures_match_the_c_sources():
+    """Every ``extern "C"`` entry point of ``csrc/*.cu`` has the argtypes
+    that ``_build`` gives ctypes, parameter by parameter (ctypes does not
+    check a call's arity against the C function)."""
+    import ctypes
+    import re
+    from esn_tpu_torch.ops.kernels import _build
+    c_types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    found = {}
+    for src in _build.SRC_DIR.glob("*.cu"):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C"\s+[\w\s\*]+?\b(\w+)\s*\(([^)]*)\)',
+                             text):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            found[m.group(1)] = [
+                ctypes.c_void_p if "*" in p else c_types[p.split()[0]]
+                for p in params]
+    assert set(found) == set(_build.SIGNATURES)
+    for name, (argtypes, _) in _build.SIGNATURES.items():
+        assert found[name] == argtypes, name

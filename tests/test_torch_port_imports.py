@@ -46,8 +46,12 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
     for name in ("esn_tpu_torch.convert", "esn_tpu_torch.models.fastscnn",
                  "esn_tpu_torch.ops.kernels.dsconv",
                  "esn_tpu_torch.ops.kernels.resize_argmax",
+                 "esn_tpu_torch.ops.kernels.resize_ce",
+                 "esn_tpu_torch.train.losses", "esn_tpu_torch.train.optimizers",
+                 "esn_tpu_torch.train.schedules",
                  "esn_tpu_torch.train.step", "esn_tpu_torch.utils.params"):
         assert name in out["modules"]
     assert out["pred"] == [[1, 64, 128], "torch.int32"]
     # a CPU tensor runs the plain versions: no kernel launched
-    assert out["launches"] == {"dsconv": 0, "resize_argmax": 0}
+    assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
+                               "resize_ce_fwd": 0, "resize_ce_bwd": 0}
