@@ -5,12 +5,15 @@
 
 Builds the CUDA kernels from ``esn_tpu_torch/csrc``, checks each kernel
 against its plain PyTorch version at the shapes Fast-SCNN's predict and
-train step give it (plus odd-size cases), then drives two paths through
-the port's entry points, each with the launch counts from zero:
+train step and CGNet's predict give it (plus odd-size cases), then drives
+three paths through the port's entry points, each with the launch counts
+from zero:
 
 - predict: Fast-SCNN-19 at batch 8, 3x1024x2048, bf16
   (``build_model`` + ``make_predict_step``): output, launch counts,
   agreement with the same model on the plain versions, img/s;
+- predict: CGNet-19 (M=3, N=21) the same way: 22 ``cgblock`` launches and
+  one ``resize_argmax`` launch per predict;
 - train: five steps of Fast-SCNN-19 at batch 8, 3x1024x2048, bf16
   (``build_model`` + ``build_optimizer("adam")`` +
   ``build_schedule("poly")`` + ``make_train_step(fwd_method=
@@ -23,7 +26,9 @@ last line of standard output is one JSON object; the line before it lists
 the kernels. ``ms``/``plain_ms``: for ``fused_dsconv`` the sum of its
 four layers' bf16 times per predict, each timed at its own shape; for
 ``resize_argmax`` its time per predict; for ``resize_ce_sums`` forward +
-backward per train step. ``max_abs_err``: for ``resize_argmax`` the
+backward per train step; for ``fused_cgblock_pre`` its bf16 time per
+CGNet predict (2 launches at the stage2 shape, 20 at stage3's); its
+``launches`` are CGNet's. ``max_abs_err``: for ``resize_argmax`` the
 largest gap between the f32 upsampled logits of the classes that the
 kernel and the plain version chose; for ``resize_ce_sums`` the largest
 difference of dz. ``launches`` for ``resize_ce_sums`` counts forward and
@@ -85,6 +90,30 @@ RESIZE_CE_SUM_REL, RESIZE_CE_DZ_REL = 1e-5, 1e-4
 # train-mode BN removes; their f32 gradients are ~1e-9 of noise).
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_ABS = 1e-5, 1e-3, 1e-6
 TRAIN_STEPS, TRAIN_TOTAL_STEPS, TRAIN_LR = 5, 1000, 4.5e-4
+# fused_cgblock_pre (K4) against its plain version. j: f32 (TF32 off):
+# |kernel - plain| <= 1e-4 + 1e-4 |plain| (f32 sums in other orders);
+# bf16: j rounds to bf16, the plain version also rounds loc/sur (the
+# kernel does not), and y can round the other way where the two f32
+# reduce sums straddle a rounding boundary: one bf16 rounding of a value
+# as large as the largest |j|, atol = 2^-7 max|j|, rtol = 2^-7.
+# Sums: |d| <= CGBLOCK_SUM_REL * sum|j| per (n, c): f32 association; in
+# bf16 the kernel sums the f32 j, the plain version the rounded j.
+CGBLOCK_SUM_REL = {"float32": 1e-5, "bfloat16": 4e-3}
+# bf16 also against cgblock_pre_kernel_rounding, which rounds where the
+# kernel rounds (y before the taps, j once, sums over the f32 j), on inputs
+# whose reduce and its affine are exact in f32 (x, w1, a1, b1 on a dyadic
+# grid), so y is the same on both sides. j then differs only where the two
+# f32 orders of the tap sums put j on the other side of a bf16 rounding:
+# at most CGBLOCK_BF16_DIFFER of the elements (plus 2, for the small
+# shapes), each by one bf16 step (+ 2^-16 max|j| where j cancels to near
+# 0); sums within CGBLOCK_SUM_REL["float32"]. A skipped y rounding or a
+# truncated j moves 38-50% of the elements (measured against the Pallas
+# kernel in interpret mode at (2,40,64,128) d=4).
+CGBLOCK_BF16_DIFFER = 1e-3
+# CGNet-19 at batch 8: the two CG-block shapes of predict and their
+# launches per predict (stage2: 2 blocks, stage3: 20)
+CGBLOCK_MAIN = [("stage2", (BATCH, 256, 512, 64), 2, 2),
+                ("stage3", (BATCH, 128, 256, 128), 4, 20)]
 IGNORE = 255
 
 
@@ -209,6 +238,90 @@ def kernel_phase(torch, F, K):
     return dsconv_rows, argmax_rows
 
 
+def cgblock_args(torch, gen, shape, dtype):
+    """Seeded K4 inputs; in bf16, x, w1, a1 and b1 on a dyadic grid (the
+    reduce and its affine exact in f32)."""
+    n, h, w, c = shape
+    half, dev = c // 2, "cuda"
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    uni = lambda *s: torch.rand(s, generator=gen, device=dev)   # noqa: E731
+    q = ((lambda t, k: torch.round(t * k) / k) if dtype == torch.bfloat16
+         else (lambda t, k: t))
+    return (q(rnd(*shape), 8).to(dtype),
+            q(rnd(c, half) * 0.3 / math.sqrt(c / 64), 32),
+            q(rnd(half) * 0.1 + 1.0, 16), q(rnd(half) * 0.1, 256),
+            uni(half) * 0.3 + 0.1, rnd(3, 3, half) * 0.3,
+            rnd(3, 3, half) * 0.3, rnd(c) * 0.1 + 1.0, rnd(c) * 0.1,
+            uni(c) * 0.3 + 0.1)
+
+
+
+def cgblock_case(K, torch, gen, shape, d, dtype):
+    """K4 against its plain version: j, the sums, bit-identity over two
+    launches, and the time of each (CUDA events)."""
+    args = cgblock_args(torch, gen, shape, dtype)
+    j, s = K.fused_cgblock_pre(*args, d=d)
+    j2, s2 = K.fused_cgblock_pre(*args, d=d)
+    j0, s0 = K.cgblock_pre_ref(*args, d=d)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    check(j.shape == j0.shape and j.dtype == dtype and s.shape == s0.shape,
+          f"cgblock {shape} shape {tuple(j.shape)} vs {tuple(j0.shape)}")
+    err = (j.float() - j0.float()).abs()
+    if name == "float32":
+        atol = rtol = 1e-4
+    else:
+        atol, rtol = 2.0 ** -7 * float(j0.float().abs().max()), 2.0 ** -7
+    excess = float((err - atol - rtol * j0.float().abs()).max())
+    scale = j0.float().abs().sum((1, 2))
+    sum_rel = float(((s - s0).abs() / scale).max())
+    row = {"shape": list(shape), "d": d, "dtype": name,
+           "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
+           "sum_rel_err": sum_rel, "sum_rel_tol": CGBLOCK_SUM_REL[name],
+           "within_tol": excess <= 0 and sum_rel <= CGBLOCK_SUM_REL[name]}
+    if name == "bfloat16":
+        differ, far, emul_sum_rel = K.bf16_rounding_gap(
+            j, s, *K.cgblock_pre_kernel_rounding(*args, d=d))
+        allowed = 2 + CGBLOCK_BF16_DIFFER * j.numel()
+        row.update(emul_differ=differ, emul_differ_allowed=allowed,
+                   emul_far=far, emul_sum_rel_err=emul_sum_rel)
+        row["within_tol"] &= (differ <= allowed and far == 0 and emul_sum_rel
+                              <= CGBLOCK_SUM_REL["float32"])
+    row.update(
+        bit_identical=bool(torch.equal(j, j2) and torch.equal(s, s2)),
+        ms=cuda_ms(lambda: K.fused_cgblock_pre(*args, d=d)),
+        plain_ms=cuda_ms(lambda: K.cgblock_pre_ref(*args, d=d)))
+    return row
+
+
+def cgblock_phase(torch, K):
+    """K4 at CGNet predict's two shapes and at odd shapes (odd H/W,
+    d >= H/2 with half = 12, d = 1, and C = 18, whose pixels are not whole
+    16-byte vectors), bf16 and f32, TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    odd = [("odd", (2, 13, 21, 64), 2), ("odd", (1, 9, 7, 24), 4),
+           ("odd", (2, 16, 20, 24), 1),
+           ("odd", (2, 11, 13, 18), 3)]   # C*itemsize not a multiple of 16
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for layer, shape, d, *per_predict in CGBLOCK_MAIN + odd:
+            row = cgblock_case(K, torch, gen, shape, d, dtype)
+            row["layer"] = layer
+            if per_predict:
+                row["launches_per_predict"] = per_predict[0]
+            rows.append(row)
+            print("kernel", json.dumps(row))
+    torch.backends.cudnn.allow_tf32 = True    # the library default again
+    check(all(r["within_tol"] for r in rows),
+          f"fused_cgblock_pre outside tolerance: "
+          f"{[r for r in rows if not r['within_tol']]}")
+    check(all(r["bit_identical"] for r in rows),
+          "fused_cgblock_pre: two launches differ")
+    return rows
+
+
 def resize_ce_value_and_grad(torch, fn, z, lab, cw, r, eps):
     zz = z.clone().requires_grad_()
     s, n = fn(zz, lab, cw, r=r, ignore_index=IGNORE, label_smoothing=eps)
@@ -300,15 +413,16 @@ def smooth_images(torch, F, gen, n, hw):
     return x + 0.1 * torch.randn((n, 3, *hw), generator=gen, device=gen.device)
 
 
-def seeded_model(torch, F, build_model, BatchNorm, seed: int):
-    """Fast-SCNN-19 on the card: port init from a seeded generator, BN
-    affines drawn from it too, running stats from one train pass at
-    momentum 1 over a seeded batch, with each variance floored at
+def seeded_model(torch, F, build_model, BatchNorm, seed: int,
+                 arch: str = "fastscnn"):
+    """``arch`` (19 classes) on the card: port init from a seeded
+    generator, BN affines drawn from it too, running stats from one train
+    pass at momentum 1 over a seeded batch, with each variance floored at
     VAR_FLOOR (random weights leave near-dead channels whose tiny batch
     variance would scale them by up to 1/sqrt(eps))."""
     from esn_tpu_torch.nn import set_dropout_generator
     gen = torch.Generator().manual_seed(seed)
-    model = build_model("fastscnn", CLASSES, device="cuda", generator=gen)
+    model = build_model(arch, CLASSES, device="cuda", generator=gen)
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     with torch.no_grad():
         for bn in bns:
@@ -331,13 +445,17 @@ def plain_versions(K):
     """Route the model's and the loss's kernel calls to the kernels' plain
     versions (both look them up in ``esn_tpu_torch.ops.kernels`` at call
     time)."""
-    saved = K.fused_dsconv, K.resize_argmax, K.resize_ce_sums
-    K.fused_dsconv, K.resize_argmax, K.resize_ce_sums = (
-        K.dsconv_ref, K.resize_argmax_ref, K.resize_ce_sums_ref)
+    names = {"fused_dsconv": K.dsconv_ref, "resize_argmax": K.resize_argmax_ref,
+             "resize_ce_sums": K.resize_ce_sums_ref,
+             "fused_cgblock_pre": K.cgblock_pre_ref}
+    saved = {name: getattr(K, name) for name in names}
+    for name, plain in names.items():
+        setattr(K, name, plain)
     try:
         yield
     finally:
-        K.fused_dsconv, K.resize_argmax, K.resize_ce_sums = saved
+        for name, kernel in saved.items():
+            setattr(K, name, kernel)
 
 
 def compare_with_plain(torch, F, K, model, make_predict_step, images, dtype):
@@ -362,7 +480,8 @@ def compare_with_plain(torch, F, K, model, make_predict_step, images, dtype):
         near_ties = bool((gap <= 2 * delta + ARGMAX_GAP[name] * mag)
                          [mismatch].all())
     std = float(y_plain.float().std())
-    row = {"dtype": name, "batch": images.shape[0],
+    row = {"model": type(model).__name__, "dtype": name,
+           "batch": images.shape[0],
            "mismatch_rate": float(mismatch.float().mean()),
            "mismatch_max": PREDICT_MISMATCH_MAX[name],
            "lowres_logit_max_abs_diff": delta,
@@ -388,8 +507,13 @@ def timed_predict(torch, predict, images, iters: int = 10) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step):
-    model = seeded_model(torch, F, build_model, BatchNorm, seed=0)
+def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step,
+                  arch, want_launches):
+    """``arch`` predict at bf16 b8 3x1024x2048: the launch counts of one
+    predict (``want_launches``), the class map, agreement with the plain
+    versions in bf16 and f32, img/s with the kernels and with the plain
+    versions, peak memory."""
+    model = seeded_model(torch, F, build_model, BatchNorm, seed=0, arch=arch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = smooth_images(torch, F, gen, BATCH, IMAGE_HW)
     predict = make_predict_step(model, compute_dtype=torch.bfloat16)
@@ -401,17 +525,16 @@ def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step):
     pred = predict(images)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    print("predict launches", json.dumps(launches))
-    check(launches == {"dsconv": 4, "resize_argmax": 1, "resize_ce_fwd": 0,
-                       "resize_ce_bwd": 0},
-          f"launch counts per predict {launches}")
+    print(f"{arch} predict launches", json.dumps(launches))
+    check(launches == want_launches,
+          f"{arch}: launch counts per predict {launches}")
     check(tuple(pred.shape) == (BATCH, *IMAGE_HW) and pred.dtype == torch.int32,
           f"predict output {tuple(pred.shape)} {pred.dtype}")
     lo, hi = int(pred.min()), int(pred.max())
     check(0 <= lo and hi < CLASSES, f"predict classes in [{lo}, {hi}]")
     n_classes = int((torch.bincount(pred.flatten().long(),
                                     minlength=CLASSES) > 0).sum())
-    print(f"predict output int32 {tuple(pred.shape)}, classes in "
+    print(f"{arch} predict output int32 {tuple(pred.shape)}, classes in "
           f"[{lo}, {hi}], {n_classes} seen")
 
     compared = [compare_with_plain(torch, F, K, model, make_predict_step,
@@ -433,7 +556,7 @@ def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
     img_s = {k: BATCH / (v / 1e3) for k, v in ms.items()}
-    print(f"predict bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: "
+    print(f"{arch} predict bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: "
           f"{img_s['kernel']:.2f} img/s ({ms['kernel']:.3f} ms/batch) with "
           f"the kernels, {img_s['plain']:.2f} img/s ({ms['plain']:.3f} "
           f"ms/batch) with the plain versions; peak {peak_gb:.2f} GB")
@@ -569,7 +692,7 @@ def train_phase(torch, F, K, BatchNorm):
     print("train losses", json.dumps(losses))
     check(launches == {"dsconv": 0, "resize_argmax": 0,
                        "resize_ce_fwd": TRAIN_STEPS,
-                       "resize_ce_bwd": TRAIN_STEPS},
+                       "resize_ce_bwd": TRAIN_STEPS, "cgblock": 0},
           f"launch counts over {TRAIN_STEPS} train steps {launches}")
     check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
@@ -634,14 +757,23 @@ def main() -> int:
 
     dsconv_rows, argmax_rows = kernel_phase(torch, F, K)
     ce_rows = resize_ce_phase(torch, K)
-    result = predict_phase(torch, F, K, build_model, BatchNorm,
-                           make_predict_step)
+    cg_rows = cgblock_phase(torch, K)
+    result = predict_phase(
+        torch, F, K, build_model, BatchNorm, make_predict_step, "fastscnn",
+        {"dsconv": 4, "resize_argmax": 1, "resize_ce_fwd": 0,
+         "resize_ce_bwd": 0, "cgblock": 0})
     trained = train_phase(torch, F, K, BatchNorm)
+    cgnet = predict_phase(
+        torch, F, K, build_model, BatchNorm, make_predict_step, "cgnet",
+        {"dsconv": 0, "resize_argmax": 1, "resize_ce_fwd": 0,
+         "resize_ce_bwd": 0, "cgblock": 22})
 
     ds_main = [r for r in dsconv_rows
                if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
     tail = next(r for r in argmax_rows
                 if r["dtype"] == "bfloat16" and r["layer"] == "predict tail")
+    cg_main = [r for r in cg_rows
+               if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
     kernels = [
         {"name": "fused_dsconv", "route": "cuda",
          "source": "esn_tpu_torch/csrc/dsconv.cu",
@@ -663,6 +795,14 @@ def main() -> int:
                       + trained["launches"]["resize_ce_bwd"]),
          "max_abs_err": ce_rows[0]["dz_max_abs_err"],
          "ms": ce_rows[0]["ms"], "plain_ms": ce_rows[0]["plain_ms"]},
+        {"name": "fused_cgblock_pre", "route": "cuda",
+         "source": "esn_tpu_torch/csrc/cgblock.cu",
+         "replaces": "esn_tpu/ops/pallas/cgblock.py:174",
+         "launches": cgnet["launches"]["cgblock"],
+         "max_abs_err": max(r["max_abs_err"] for r in cg_main),
+         "ms": sum(r["launches_per_predict"] * r["ms"] for r in cg_main),
+         "plain_ms": sum(r["launches_per_predict"] * r["plain_ms"]
+                         for r in cg_main)},
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -670,7 +810,8 @@ def main() -> int:
         {"nvidia_smi": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_seconds": info.seconds,
          "dsconv": dsconv_rows, "resize_argmax": argmax_rows,
-         "resize_ce_sums": ce_rows, "predict": result, "train": trained,
+         "resize_ce_sums": ce_rows, "fused_cgblock_pre": cg_rows,
+         "predict": result, "train": trained, "cgnet_predict": cgnet,
          "kernels": kernels, "device": device}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

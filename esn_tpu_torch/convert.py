@@ -10,6 +10,7 @@ entry ``a.b.<name>``. Leaves map as:
 reference                 port                   layout
 ========================  =====================  ============================
 params ``kernel`` (HWIO)  ``weight`` (OIHW)      transpose (3, 2, 0, 1)
+params ``kernel`` (I, O)  Dense ``weight`` (O, I)  transpose (1, 0)
 params ``scale``          BN ``weight``          as is
 params ``bias``           ``bias``               as is
 params ``alpha``          PReLU ``weight``       as is
@@ -37,6 +38,10 @@ import torch
 _PARAMS = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "alpha": "weight"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+# kernel rank -> the transpose into the port's layout and back out of it
+# (rank 4: a conv, HWIO <-> OIHW; rank 2: a Dense, (I, O) <-> (O, I))
+_KERNEL_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
+_KERNEL_FROM_TORCH = {4: (2, 3, 1, 0), 2: (1, 0)}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -58,10 +63,11 @@ def to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"{coll}/{'/'.join(path)}: no mapping for "
                                f"{leaf!r}")
             if leaf == "kernel":
-                if arr.ndim != 4:
+                if arr.ndim not in _KERNEL_TO_TORCH:
                     raise ValueError(f"{'/'.join(path)}: kernel must be "
-                                     f"HWIO, got shape {arr.shape}")
-                arr = arr.transpose(3, 2, 0, 1)
+                                     f"HWIO or (in, out), got shape "
+                                     f"{arr.shape}")
+                arr = arr.transpose(*_KERNEL_TO_TORCH[arr.ndim])
             key = ".".join([*mod, names[leaf]])
             out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
@@ -89,8 +95,9 @@ def _to_variables(state_dict: Mapping[str, torch.Tensor],
             coll, leaf = "params", "bias"
         elif name == "weight" and mod in bn_modules:
             coll, leaf = "params", "scale"
-        elif name == "weight" and arr.ndim == 4:
-            coll, leaf, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)
+        elif name == "weight" and arr.ndim in _KERNEL_FROM_TORCH:
+            coll, leaf = "params", "kernel"
+            arr = arr.transpose(*_KERNEL_FROM_TORCH[arr.ndim])
         elif name == "weight" and arr.ndim == 1:
             coll, leaf = "params", "alpha"
         else:

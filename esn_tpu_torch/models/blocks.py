@@ -1,4 +1,4 @@
-"""Shared blocks (counterpart of the Fast-SCNN part of
+"""Shared blocks (counterpart of the Fast-SCNN and CGNet part of
 ``esn_tpu/models/blocks.py``). NCHW; convs feeding BN carry no bias.
 Submodule names equal the reference's scope names."""
 from __future__ import annotations
@@ -28,20 +28,33 @@ def _act_module(act: Optional[str], ch: int) -> Optional[nn.Module]:
 
 
 class ConvBNAct(nn.Module):
-    """conv (no bias, "same" padding) -> BN -> activation."""
+    """conv (no bias, "same" padding) -> BN (``bn_eps``) -> activation."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *,
-                 stride: int = 1, groups: int = 1, act: str = "prelu"):
+                 stride: int = 1, groups: int = 1, act: str = "prelu",
+                 bn_eps: float = 1e-5):
         super().__init__()
         self.conv = enn.Conv(in_ch, out_ch, kernel, stride=stride,
                              padding=(kernel - 1) // 2, groups=groups,
                              bias=False)
-        self.bn = enn.BatchNorm(out_ch)
+        self.bn = enn.BatchNorm(out_ch, eps=bn_eps)
         self.act = _act_module(act, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn(self.conv(x))
         return self.act(x) if self.act is not None else x
+
+
+class BNAct(nn.Module):
+    """BN -> PReLU."""
+
+    def __init__(self, ch: int, *, bn_eps: float):
+        super().__init__()
+        self.bn = enn.BatchNorm(ch, eps=bn_eps)
+        self.act = enn.PReLU(ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(x))
 
 
 class DSConv(nn.Module):
@@ -124,3 +137,37 @@ class PyramidPooling(nn.Module):
             y = getattr(self, f"reduce{i}")(P.adaptive_avg_pool2d(x, b))
             feats.append(R.resize_bilinear(y, (h, w)))
         return self.fuse(torch.cat(feats, dim=1))
+
+
+class SEGate(nn.Module):
+    """Squeeze-excite channel gate: GAP -> FC -> ReLU -> FC -> sigmoid ->
+    scale."""
+
+    def __init__(self, ch: int, reduction: int = 16):
+        super().__init__()
+        mid = max(ch // reduction, 1)
+        self.fc1 = enn.Dense(ch, mid)
+        self.fc2 = enn.Dense(mid, ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = P.global_avg_pool(x, keepdims=False)        # (N, C), x's dtype
+        return x * self.gate(s)[:, :, None, None]
+
+    def gate(self, s: torch.Tensor) -> torch.Tensor:
+        """Gate vector (N, C) from a pooled mean (N, C) in x's dtype, for
+        fused paths that already hold the spatial sum."""
+        return torch.sigmoid(self.fc2(enn.relu(self.fc1(s))))
+
+
+class InputInjection(nn.Module):
+    """``times`` cascaded 3x3 stride-2 average pools (padding 1, padded
+    zeros counted) of the raw input."""
+
+    def __init__(self, times: int):
+        super().__init__()
+        self.times = times
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for _ in range(self.times):
+            x = P.avg_pool2d(x, 3, 2, 1)
+        return x

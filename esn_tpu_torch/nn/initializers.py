@@ -1,13 +1,15 @@
 """Weight initializers (counterpart of ``esn_tpu/nn/initializers.py``).
 
 Kaiming-normal fan-out for convs, BN gamma=1 / beta=0, torch's fan-in
-uniform bias. Every initializer is ``f(generator, shape) -> tensor`` and
-draws on the CPU from an explicit ``torch.Generator``, so a seed gives the
-same weights whatever device the model later lives on. The JAX init folds
+uniform bias and Dense kernel. Every initializer is
+``f(generator, shape) -> tensor`` and draws on the CPU from an explicit
+``torch.Generator``, so a seed gives the same weights whatever device the
+model later lives on. The JAX init folds
 a hash of the scope path into its key, so the two packages never draw the
 same numbers: parity tests convert weights (``esn_tpu_torch.convert``).
 
-Conv shapes here are torch's OIHW (out, in_per_group, kh, kw).
+Conv shapes here are torch's OIHW (out, in_per_group, kh, kw); Dense
+kernels are (out, in).
 """
 from __future__ import annotations
 
@@ -39,6 +41,13 @@ def kaiming_normal(mode: str = "fan_out", gain: float = math.sqrt(2.0)):
         std = gain / math.sqrt(max(fan, 1))
         return torch.randn(tuple(shape), generator=generator) * std
     return init
+
+
+def torch_conv_default(generator: torch.Generator,
+                       shape: Sequence[int]) -> torch.Tensor:
+    """torch.nn.Conv2d/Linear default: U(-b, b), b = 1/sqrt(fan_in)."""
+    fan_in, _ = _conv_fans(shape)
+    return uniform_bound(1.0 / math.sqrt(max(fan_in, 1)))(generator, shape)
 
 
 def uniform_bound(bound: float):

@@ -162,16 +162,55 @@ class Dropout(nn.Module):
                                "it with set_dropout_generator or train "
                                "through make_train_step")
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        u = torch.rand(self._mask_shape(x), generator=self.generator,
+                       device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+    def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
+
+
+class SpatialDropout(Dropout):
+    """Channel dropout (Dropout2d): one mask value per (N, C), so whole
+    feature maps drop together; drawn as ``Dropout`` draws."""
+
+    def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return (x.shape[0], x.shape[1], 1, 1)
 
 
 def set_dropout_generator(model: nn.Module,
                           generator: Optional[torch.Generator]) -> None:
-    """Give every Dropout of ``model`` the generator its masks come from."""
+    """Give every Dropout (and SpatialDropout) of ``model`` the generator
+    its masks come from."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+class Dense(nn.Module):
+    """Fully connected layer with bias, ``(out, in)`` weight, torch's
+    default init.
+
+    The weight is cast to x's dtype, the product accumulates in f32 and is
+    rounded to x's dtype, then the bias is added in x's dtype.
+    """
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _copy_(self.weight, init.torch_conv_default(generator,
+                                                    self.weight.shape))
+        _copy_(self.bias, init.bias_for_fan_in(self.in_features)(
+            generator, self.bias.shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype).float()
+        y = torch.matmul(x.float(), w.t()).to(x.dtype)
+        return y + self.bias.to(x.dtype)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-All of ``esn_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``
+Each of ``esn_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc`` for
+``sm_90a``, all started together, and one more ``nvcc`` links the objects
 into one shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``esn_tpu_torch/build/`` under a name keyed by a hash
 of the sources and flags, so an edit rebuilds and an unchanged tree
@@ -26,7 +27,7 @@ BUILD_DIR = PKG_DIR / "build"
 # -Xptxas=-v puts each kernel's registers, shared memory and spills in the
 # build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def sources() -> list[Path]:
@@ -68,20 +69,33 @@ def build() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0, "", built=False)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, log, built=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [s for s in sources() if s.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                for s, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        so = str(Path(tmp) / out.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
+        log = "".join(outs)
+        failed = [(c, p.returncode) for c, p in zip(cmds, procs)
+                  if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = [(link, proc.returncode)]
+        if failed:
+            cmd, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{log}")
+        os.replace(so, out)
+    return BuildInfo(out, time.perf_counter() - t0, log, built=True)
 
 
 _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -93,6 +107,8 @@ SIGNATURES = {
     "esn_resize_ce_fwd_blocks": ([_I32] * 4, _I32),
     "esn_resize_ce_fwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),
     "esn_resize_ce_bwd": ([_VP] * 5 + [_I32] * 6 + [_F32, _VP], _I32),
+    "esn_cgblock_pre_tiles": ([_I32] * 5, _I32),
+    "esn_cgblock_pre": ([_VP] * 13 + [_I32] * 6 + [_VP], _I32),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,11 +1,12 @@
-"""Device-time profile of Fast-SCNN-19 predict on one CUDA card.
+"""Device-time profile of a model's predict on one CUDA card.
 
-    python3 -m esn_tpu_torch.tools.profile_predict
+    python3 -m esn_tpu_torch.tools.profile_predict [MODEL]
 
-Run from the repo root. Uses ``chip_smoke.py``'s seeded model and images
-(bf16, batch 8, 3x1024x2048) and profiles 5 predicts with the kernels,
-then 5 with their plain versions, each after one untraced warm-up
-predict. For each it prints the host-clock ms per batch (synchronised,
+MODEL is a registered model name (default ``fastscnn``; ``cgnet`` for
+CGNet-19). Run from the repo root. Uses ``chip_smoke.py``'s seeded model
+and images (bf16, batch 8, 3x1024x2048) and profiles 5 predicts with the
+kernels, then 5 with their plain versions, each after one untraced
+warm-up predict. For each it prints the host-clock ms per batch (synchronised,
 profiler on), the summed device time of the CUDA kernels per batch, the
 device idle share, and the kernels by device time. Predict runs on one
 stream, so its kernels do not overlap: the idle share is
@@ -13,6 +14,7 @@ stream, so its kernels do not overlap: the idle share is
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import subprocess
 import sys
@@ -48,7 +50,10 @@ def profile(torch, predict, images):
     return wall_ms, device_ms, kernels
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("model", nargs="?", default="fastscnn")
+    arch = parser.parse_args(argv).model
     import torch
     if not torch.cuda.is_available():
         print("profile_predict: no CUDA device", file=sys.stderr)
@@ -66,7 +71,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     print("torch", torch.__version__, "cuda", torch.version.cuda)
-    model = S.seeded_model(torch, F, build_model, BatchNorm, seed=0)
+    print("model", arch)
+    model = S.seeded_model(torch, F, build_model, BatchNorm, seed=0,
+                           arch=arch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = S.smooth_images(torch, F, gen, S.BATCH, S.IMAGE_HW)
     predict = make_predict_step(model, compute_dtype=torch.bfloat16)
@@ -89,4 +96,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -235,7 +235,7 @@ def test_fastscnn_train_step_on_cuda_matches_cpu(cuda):
     (_, want, none), (_, got, launched) = runs
     assert none == {k: 0 for k in none}
     assert launched == {"dsconv": 0, "resize_argmax": 0,
-                        "resize_ce_fwd": 1, "resize_ce_bwd": 1}
+                        "resize_ce_fwd": 1, "resize_ce_bwd": 1, "cgblock": 0}
     assert abs(got - want) <= 1e-5 * abs(want)
     excess = {}
     for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
@@ -248,3 +248,116 @@ def test_fastscnn_train_step_on_cuda_matches_cpu(cuda):
     assert worst[0][1][0] <= 0, worst
     for (name, b), b2 in zip(cpu.named_buffers(), gpu.buffers()):
         torch.testing.assert_close(b2.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def _cgblock_args(seed, n, h, w, c, dtype, device):
+    """Seeded K4 inputs; in bf16, x, w1, a1 and b1 on a dyadic grid, so the
+    reduce and its affine are exact in f32 in any order."""
+    rng = np.random.RandomState(seed)
+    half = c // 2
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    q = ((lambda a, k: np.round(a * k) / k) if dtype == torch.bfloat16
+         else (lambda a, k: a))
+    return (t(q(rng.randn(n, h, w, c), 8)).to(dtype),
+            t(q(rng.randn(c, half) * 0.3, 32)),
+            t(q(rng.randn(half) * 0.1 + 1.0, 16)),
+            t(q(rng.randn(half) * 0.1, 256)),
+            t(rng.uniform(0.1, 0.4, half)), t(rng.randn(3, 3, half) * 0.3),
+            t(rng.randn(3, 3, half) * 0.3), t(rng.randn(c) * 0.1 + 1.0),
+            t(rng.randn(c) * 0.1), t(rng.uniform(0.1, 0.4, c)))
+
+
+
+# j: f32 (TF32 off) both sum in f32, in other orders: 1e-4. bf16: j rounds
+# to bf16 and the plain version also rounds loc/sur (the kernel does not),
+# and y can round the other way where the two f32 reduce sums straddle a
+# rounding boundary: one bf16 rounding of a value as large as the largest
+# |j|, atol = 2^-7 max|j|, rtol = 2^-7. Sums: |d| <= tol * sum|j| per
+# (n, c), f32 association (1e-5); in bf16 the kernel sums the f32 j, the
+# plain version the rounded j (2^-8). bf16 also against the emulation of
+# the kernel's rounding, whose y equals the kernel's on the grid inputs: j
+# differs only where the f32 order of the tap sums crosses a bf16 rounding,
+# at <= 2 + 1e-3 of the elements, each by one bf16 step (+ 2^-16 max|j|);
+# sums within 1e-5.
+@pytest.mark.parametrize("dtype, sum_tol", [(torch.float32, 1e-5),
+                                            (torch.bfloat16, 4e-3)])
+@pytest.mark.parametrize("shape, d", [
+    ((2, 16, 40, 64), 2),
+    ((1, 12, 20, 128), 4),
+    ((2, 13, 21, 64), 2),       # odd H, W
+    ((1, 9, 7, 24), 4),         # d >= H/2, half = 12
+    ((2, 6, 5, 24), 4),         # d > H/2 and > W/2
+    ((2, 16, 20, 24), 1),
+    ((2, 11, 13, 18), 3),       # half = 9: x staged element by element
+])
+def test_cgblock_kernel_matches_plain(cuda, shape, d, dtype, sum_tol):
+    args = _cgblock_args(0, *shape, dtype, cuda)
+    before = K.LAUNCHES["cgblock"]
+    j, s = K.fused_cgblock_pre(*args, d=d)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cgblock"] == before + 1
+    j0, s0 = K.cgblock_pre_ref(*args, d=d)
+    assert j.shape == j0.shape and j.dtype == dtype and s.shape == s0.shape
+    if dtype == torch.float32:
+        atol = rtol = 1e-4
+    else:
+        atol, rtol = 2.0 ** -7 * float(j0.float().abs().max()), 2.0 ** -7
+    torch.testing.assert_close(j.float(), j0.float(), atol=atol, rtol=rtol)
+    scale = j0.float().abs().sum((1, 2))
+    assert bool(((s - s0).abs() <= sum_tol * scale).all())
+    if dtype == torch.bfloat16:
+        differ, far, sum_rel = K.bf16_rounding_gap(
+            j, s, *K.cgblock_pre_kernel_rounding(*args, d=d))
+        assert differ <= 2 + 1e-3 * j.numel() and far == 0, (differ, far)
+        assert sum_rel <= 1e-5
+
+
+def test_cgblock_kernel_is_deterministic(cuda):
+    """No float atomics: two launches give bit-identical j and sums."""
+    args = _cgblock_args(1, 2, 24, 40, 128, torch.bfloat16, cuda)
+    a = K.fused_cgblock_pre(*args, d=4)
+    b = K.fused_cgblock_pre(*args, d=4)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_cgblock_kernel_takes_misaligned_x(cuda):
+    """x 2 bytes off a 16-byte boundary: the kernel stages it element by
+    element and gives what it gives for an aligned copy."""
+    args = _cgblock_args(3, 1, 10, 12, 64, torch.bfloat16, cuda)
+    x = args[0]
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    a = K.fused_cgblock_pre(*args, d=2)
+    b = K.fused_cgblock_pre(shifted, *args[1:], d=2)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_cgblock_wrapper_raises_on_cuda(cuda):
+    args = _cgblock_args(2, 1, 8, 8, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_cgblock_pre(args[0].transpose(1, 2), *args[1:], d=2)
+    with pytest.raises(TypeError, match="dtype"):
+        K.fused_cgblock_pre(args[0].half(), *args[1:], d=2)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        K.fused_cgblock_pre(args[0].requires_grad_(), *args[1:], d=2)
+
+
+def test_cgnet_predict_on_cuda_matches_cpu(cuda):
+    """f32 predict of the full-depth CGNet through K4 (22 launches) and K1
+    on the card == the CPU's predict through the plain versions, except
+    at near-ties (rate <= 1e-4)."""
+    model = build_model("cgnet", 19,
+                        generator=torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.RandomState(3)
+                              .randn(2, 3, 128, 256).astype(np.float32))
+    want = make_predict_step(model)(images)
+    before = dict(K.LAUNCHES)
+    got = make_predict_step(model.to(cuda))(images.to(cuda))
+    torch.cuda.synchronize()
+    launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"dsconv": 0, "resize_argmax": 1, "resize_ce_fwd": 0,
+                        "resize_ce_bwd": 0, "cgblock": 22}
+    assert got.shape == want.shape and got.dtype == torch.int32
+    assert (got.cpu() != want).float().mean() <= 1e-4

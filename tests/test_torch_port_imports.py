@@ -1,5 +1,6 @@
 """The port stands alone: importing all of ``esn_tpu_torch`` and running a
-Fast-SCNN predict on the CPU loads neither ``jax`` nor ``esn_tpu``.
+Fast-SCNN and a CGNet predict on the CPU loads neither ``jax`` nor
+``esn_tpu``.
 
 Checked in a fresh interpreter, since this test process imports both
 packages for the parity tests.
@@ -22,12 +23,15 @@ for name in names:
 from esn_tpu_torch.models import build_model
 from esn_tpu_torch.ops import kernels
 from esn_tpu_torch.train.step import make_predict_step
-model = build_model("fastscnn", 19, generator=torch.Generator().manual_seed(0))
 images = torch.randn((1, 3, 64, 128), generator=torch.Generator().manual_seed(1))
-pred = make_predict_step(model)(images)
+preds = {}
+for arch in ("fastscnn", "cgnet"):
+    model = build_model(arch, 19, generator=torch.Generator().manual_seed(0))
+    pred = make_predict_step(model)(images)
+    preds[arch] = [list(pred.shape), str(pred.dtype)]
 print(json.dumps({
     "modules": names,
-    "pred": [list(pred.shape), str(pred.dtype)],
+    "pred": preds,
     "launches": kernels.LAUNCHES,
     "loaded": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "esn_tpu")),
@@ -44,6 +48,8 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     for name in ("esn_tpu_torch.convert", "esn_tpu_torch.models.fastscnn",
+                 "esn_tpu_torch.models.cgnet",
+                 "esn_tpu_torch.ops.kernels.cgblock",
                  "esn_tpu_torch.ops.kernels.dsconv",
                  "esn_tpu_torch.ops.kernels.resize_argmax",
                  "esn_tpu_torch.ops.kernels.resize_ce",
@@ -51,7 +57,9 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.train.schedules",
                  "esn_tpu_torch.train.step", "esn_tpu_torch.utils.params"):
         assert name in out["modules"]
-    assert out["pred"] == [[1, 64, 128], "torch.int32"]
+    assert out["pred"] == {"fastscnn": [[1, 64, 128], "torch.int32"],
+                           "cgnet": [[1, 64, 128], "torch.int32"]}
     # a CPU tensor runs the plain versions: no kernel launched
     assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
-                               "resize_ce_fwd": 0, "resize_ce_bwd": 0}
+                               "resize_ce_fwd": 0, "resize_ce_bwd": 0,
+                               "cgblock": 0}
