@@ -23,12 +23,14 @@ from zero:
 
 Exits non-zero on any failure, and when no CUDA device is present. The
 last line of standard output is one JSON object; the line before it lists
-the kernels. ``ms``/``plain_ms``: for ``fused_dsconv`` the sum of its
-four layers' bf16 times per predict, each timed at its own shape; for
-``resize_argmax`` its time per predict; for ``resize_ce_sums`` forward +
-backward per train step; for ``fused_cgblock_pre`` its bf16 time per
-CGNet predict (2 launches at the stage2 shape, 20 at stage3's); its
-``launches`` are CGNet's. ``max_abs_err``: for ``resize_argmax`` the
+the kernels. ``ms``/``plain_ms``/``bound_ms``: for ``fused_dsconv`` the
+sum of its four layers' bf16 times per predict, each timed at its own
+shape; for ``resize_argmax`` its time per predict; for ``resize_ce_sums``
+forward + backward per train step; for ``fused_cgblock_pre`` its bf16
+time per CGNet predict (2 launches at the stage2 shape, 20 at stage3's);
+its ``launches`` are CGNet's. ``bound_ms`` is computed from this run's
+shapes and labels (see ``bound``); ``library_ms`` is null, since no
+single PyTorch call computes any of the four functions. ``max_abs_err``: for ``resize_argmax`` the
 largest gap between the f32 upsampled logits of the classes that the
 kernel and the plain version chose; for ``resize_ce_sums`` the largest
 difference of dz. ``launches`` for ``resize_ce_sums`` counts forward and
@@ -53,9 +55,20 @@ BATCH = 8
 IMAGE_HW = (1024, 2048)
 # fused_dsconv tolerances, |kernel - plain| <= atol + rtol * |plain|:
 #  f32 (TF32 off): both sum in f32, in other orders;
-#  bf16: the output rounds to bf16 (2^-8 relative) and the plain version
-#  also rounds its depthwise result to bf16 before the pointwise sum.
+#  bf16: the output rounds to bf16 (2^-8 relative); the kernel also rounds
+#  mid (the depthwise result after its affine and act) and pw to bf16
+#  before its tensor-core product, as the TPU kernel does, where the plain
+#  version rounds the depthwise result before the affine and keeps pw f32.
 DSCONV_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
+# bf16 also against dsconv_kernel_rounding, which rounds where the kernel
+# rounds, on inputs whose depthwise sums and affine are exact in f32 (x,
+# dw, a1, b1 on a dyadic grid), so mid is the same on both sides: the
+# outputs differ only where the two f32 orders of the product's sum put
+# the output on the other side of a bf16 rounding, at most
+# DSCONV_BF16_DIFFER of the elements (plus 2), each by one bf16 step. An
+# emulation that skips the mid rounding differs at ~25% (measured against
+# the Pallas kernel in interpret mode on the CPU).
+DSCONV_BF16_DIFFER = 1e-3
 # resize_argmax: where kernel and plain pick different classes, the f32
 # upsampled logits of the two classes lie within this gap, relative to the
 # larger magnitude (at least 1): f32 association for f32; for bf16 the
@@ -115,10 +128,44 @@ CGBLOCK_BF16_DIFFER = 1e-3
 CGBLOCK_MAIN = [("stage2", (BATCH, 256, 512, 64), 2, 2),
                 ("stage3", (BATCH, 128, 256, 128), 4, 20)]
 IGNORE = 255
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes (each input read once, each output written once)
+# over HBM_BPS and its operations over the peak rate for their type:
+# products of bf16 operands on the tensor cores (BF16_TC_FLOPS), all
+# other arithmetic in f32 outside them (F32_FLOPS); NVIDIA H100 SXM data
+# sheet, dense, at 700 W. Operations per element, the least each
+# algorithm needs: K1 3 per (full-res pixel, class) (the column lerp of a
+# separable upsample, 1 FMA, and one compare); K3 forward 6 per (valid
+# full-res pixel, class) (lerp 2, max-subtract, exp, sum 3, true logit and
+# mean 1), backward 9 (lerp 2, softmax 3, gradient 2, the transposed lerp
+# 2); K2 18 per (output pixel, input channel) for the depthwise taps and
+# 2 Cin per (output pixel, output channel) for the pointwise product; K4
+# 2 C per (pixel, reduced channel) for the reduce and 36 per (pixel,
+# reduced channel) for the two stencils.
+HBM_BPS, F32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def bound(nbytes: float, f32_ops: float, product_ops: float = 0.0,
+          product_rate: float = F32_FLOPS):
+    """(bound ms, what sets it) for this many bytes and operations."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = f32_ops / F32_FLOPS + product_ops / product_rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def dsconv_bound(shape, cout, stride, itemsize):
+    n, h, w, cin = shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    nbytes = ((n * h * w * cin + n * ho * wo * cout) * itemsize
+              + (11 * cin + cin * cout + 2 * cout) * 4)
+    px = n * ho * wo
+    return bound(nbytes, 18 * px * cin, 2 * px * cin * cout,
+                 BF16_TC_FLOPS if itemsize == 2 else F32_FLOPS)
 
 
 def check(ok: bool, what: str) -> None:
@@ -142,13 +189,19 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 def dsconv_case(K, torch, gen, shape, cout, stride, dtype, act1="relu",
                 act2="relu"):
+    """K2 against its plain version, in bf16 also against the emulation of
+    its rounding points; the time of each (CUDA events) and the bound."""
     n, h, w, cin = shape
     dev = "cuda"
-    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    dw = torch.randn((3, 3, cin), generator=gen, device=dev) / 3
+    # in bf16, x, dw, a1 and b1 on a dyadic grid (the depthwise sums and
+    # their affine exact in f32)
+    q = ((lambda t, k: torch.round(t * k) / k) if dtype == torch.bfloat16
+         else (lambda t, k: t))
+    x = q(torch.randn(shape, generator=gen, device=dev), 8).to(dtype)
+    dw = q(torch.randn((3, 3, cin), generator=gen, device=dev) / 3, 32)
     pw = torch.randn((cin, cout), generator=gen, device=dev) / math.sqrt(cin)
-    a1 = torch.rand((cin,), generator=gen, device=dev) + 0.5
-    b1 = torch.randn((cin,), generator=gen, device=dev) * 0.1
+    a1 = q(torch.rand((cin,), generator=gen, device=dev) + 0.5, 16)
+    b1 = q(torch.randn((cin,), generator=gen, device=dev) * 0.1, 256)
     a2 = torch.rand((cout,), generator=gen, device=dev) + 0.5
     b2 = torch.randn((cout,), generator=gen, device=dev) * 0.1
     args = (x, dw, a1, b1, pw, a2, b2)
@@ -164,9 +217,20 @@ def dsconv_case(K, torch, gen, shape, cout, stride, dtype, act1="relu",
     row = {"shape": list(shape), "cout": cout, "stride": stride,
            "dtype": str(dtype).split(".")[-1], "acts": [act1, act2],
            "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
-           "within_tol": excess <= 0,
-           "ms": cuda_ms(lambda: K.fused_dsconv(*args, **kw)),
-           "plain_ms": cuda_ms(lambda: K.dsconv_ref(*args, **kw))}
+           "within_tol": excess <= 0}
+    if dtype == torch.bfloat16:
+        differ, far = K.bf16_step_gap(got, K.dsconv_kernel_rounding(*args,
+                                                                    **kw))
+        allowed = 2 + DSCONV_BF16_DIFFER * got.numel()
+        row.update(emul_differ=differ, emul_differ_allowed=allowed,
+                   emul_far=far)
+        row["within_tol"] &= differ <= allowed and far == 0
+    again = K.fused_dsconv(*args, **kw)
+    row["bit_identical"] = bool(torch.equal(got, again))
+    row["bound_ms"], row["bound_by"] = dsconv_bound(shape, cout, stride,
+                                                    x.element_size())
+    row.update(ms=cuda_ms(lambda: K.fused_dsconv(*args, **kw)),
+               plain_ms=cuda_ms(lambda: K.dsconv_ref(*args, **kw)))
     return row
 
 
@@ -193,10 +257,13 @@ def resize_argmax_case(K, torch, F, gen, shape, r, dtype):
           f"resize_argmax {shape} r={r}: {tuple(got.shape)} {got.dtype}")
     gap, mag = upsampled_gap(torch, F, y, r, got, ref)
     rel = ARGMAX_GAP[str(dtype).split(".")[-1]]
+    bound_ms, bound_by = bound(y.numel() * y.element_size() + got.numel() * 4,
+                               3 * got.numel() * c)
     row = {"shape": list(shape), "r": r, "dtype": str(dtype).split(".")[-1],
            "mismatch_rate": float((got != ref).float().mean()),
            "max_abs_err": float(gap.max()), "gap_rel_tol": rel,
            "within_tol": bool((gap <= rel * mag).all()),
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "ms": cuda_ms(lambda: K.resize_argmax(y, r)),
            "plain_ms": cuda_ms(lambda: K.resize_argmax_ref(y, r))}
     return row
@@ -235,6 +302,8 @@ def kernel_phase(torch, F, K):
         print("kernel", json.dumps(row))
     bad = [r for r in dsconv_rows + argmax_rows if not r["within_tol"]]
     check(not bad, f"kernel outside tolerance: {bad}")
+    check(all(r["bit_identical"] for r in dsconv_rows),
+          "fused_dsconv: two launches differ")
     return dsconv_rows, argmax_rows
 
 
@@ -275,10 +344,17 @@ def cgblock_case(K, torch, gen, shape, d, dtype):
     excess = float((err - atol - rtol * j0.float().abs()).max())
     scale = j0.float().abs().sum((1, 2))
     sum_rel = float(((s - s0).abs() / scale).max())
+    n, h, w, c = shape
+    px, half, es = n * h * w, c // 2, j.element_size()
+    bound_ms, bound_by = bound(
+        2 * px * c * es + n * c * 4 + (c * half + 22 * half + 3 * c) * 4,
+        36 * px * half, 2 * px * c * half,
+        BF16_TC_FLOPS if es == 2 else F32_FLOPS)
     row = {"shape": list(shape), "d": d, "dtype": name,
            "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
            "sum_rel_err": sum_rel, "sum_rel_tol": CGBLOCK_SUM_REL[name],
-           "within_tol": excess <= 0 and sum_rel <= CGBLOCK_SUM_REL[name]}
+           "within_tol": excess <= 0 and sum_rel <= CGBLOCK_SUM_REL[name],
+           "bound_ms": bound_ms, "bound_by": bound_by}
     if name == "bfloat16":
         differ, far, emul_sum_rel = K.bf16_rounding_gap(
             j, s, *K.cgblock_pre_kernel_rounding(*args, d=d))
@@ -365,6 +441,15 @@ def resize_ce_case(K, torch, gen, shape, r, eps, weighted, timed=False,
               and dz_rel <= RESIZE_CE_DZ_REL)
     row["within_tol"] = bool(ok)
     if timed:
+        # the bounds count the valid pixels of these labels
+        nvalid = int(((lab != IGNORE) & (lab >= 0) & (lab < c)).sum())
+        zbytes, lbytes = z.numel() * 4, lab.numel() * 4
+        row["fwd_bound_ms"], fwd_by = bound(zbytes + lbytes, 6 * nvalid * c)
+        row["bwd_bound_ms"], bwd_by = bound(2 * zbytes + lbytes,
+                                            9 * nvalid * c)
+        row["bound_ms"] = row["fwd_bound_ms"] + row["bwd_bound_ms"]
+        row["bound_by"] = (bwd_by if row["bwd_bound_ms"] >= row["fwd_bound_ms"]
+                           else fwd_by)
         again = resize_ce_value_and_grad(torch, K.resize_ce_sums, z, lab, cw,
                                          r, eps)
         row["bit_identical"] = all(bool(torch.equal(x, y)) for x, y in
@@ -774,6 +859,12 @@ def main() -> int:
                 if r["dtype"] == "bfloat16" and r["layer"] == "predict tail")
     cg_main = [r for r in cg_rows
                if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
+    def by(rows):
+        return max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+
+    # library_ms: no single PyTorch call computes any of the four (K1 is
+    # interpolate then argmax, K3 interpolate then cross_entropy, K2 and
+    # K4 chains of convolutions)
     kernels = [
         {"name": "fused_dsconv", "route": "cuda",
          "source": "esn_tpu_torch/csrc/dsconv.cu",
@@ -781,20 +872,26 @@ def main() -> int:
          "launches": result["launches"]["dsconv"],
          "max_abs_err": max(r["max_abs_err"] for r in ds_main),
          "ms": sum(r["ms"] for r in ds_main),
-         "plain_ms": sum(r["plain_ms"] for r in ds_main)},
+         "plain_ms": sum(r["plain_ms"] for r in ds_main),
+         "bound_ms": sum(r["bound_ms"] for r in ds_main),
+         "bound_by": by(ds_main), "library_ms": None},
         {"name": "resize_argmax", "route": "cuda",
          "source": "esn_tpu_torch/csrc/resize_argmax.cu",
          "replaces": "esn_tpu/ops/pallas/resize_argmax.py:123",
          "launches": result["launches"]["resize_argmax"],
          "max_abs_err": tail["max_abs_err"],
-         "ms": tail["ms"], "plain_ms": tail["plain_ms"]},
+         "ms": tail["ms"], "plain_ms": tail["plain_ms"],
+         "bound_ms": tail["bound_ms"], "bound_by": tail["bound_by"],
+         "library_ms": None},
         {"name": "resize_ce_sums", "route": "cuda",
          "source": "esn_tpu_torch/csrc/resize_ce.cu",
          "replaces": "esn_tpu/ops/pallas/resize_ce.py:199,237",
          "launches": (trained["launches"]["resize_ce_fwd"]
                       + trained["launches"]["resize_ce_bwd"]),
          "max_abs_err": ce_rows[0]["dz_max_abs_err"],
-         "ms": ce_rows[0]["ms"], "plain_ms": ce_rows[0]["plain_ms"]},
+         "ms": ce_rows[0]["ms"], "plain_ms": ce_rows[0]["plain_ms"],
+         "bound_ms": ce_rows[0]["bound_ms"],
+         "bound_by": ce_rows[0]["bound_by"], "library_ms": None},
         {"name": "fused_cgblock_pre", "route": "cuda",
          "source": "esn_tpu_torch/csrc/cgblock.cu",
          "replaces": "esn_tpu/ops/pallas/cgblock.py:174",
@@ -802,7 +899,10 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in cg_main),
          "ms": sum(r["launches_per_predict"] * r["ms"] for r in cg_main),
          "plain_ms": sum(r["launches_per_predict"] * r["plain_ms"]
-                         for r in cg_main)},
+                         for r in cg_main),
+         "bound_ms": sum(r["launches_per_predict"] * r["bound_ms"]
+                         for r in cg_main),
+         "bound_by": by(cg_main), "library_ms": None},
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -51,10 +51,10 @@
 namespace {
 
 using esn::from_f32;
+using esn::kMaxSmem;
 using esn::to_f32;
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared-memory limit
 constexpr int kTileH = 8, kTileW = 32;
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }

@@ -22,7 +22,12 @@
 // r = 8): the forward must read 67 MB of int32 labels and 20 MB of logits
 // (26 us at 3.35 TB/s), and takes 16.7M pixels x 19 classes of exp
 // (0.32 G exp, ~0.1 ms of the SFUs) plus the interpolation FMAs and the
-// tap loads from L1. So it is bound by arithmetic and L1, not by HBM.
+// tap loads from L1. So it is bound by arithmetic and L1, not by HBM. The
+// backward moves 67 MB of labels, 20 MB of z and 20 MB of dz (107 MB, 32
+// us) for ~2.7 GFLOP (upsample, softmax, gradient and its transposed
+// upsample, 9 per valid (pixel, class), as chip_smoke.py counts them: 41
+// us at the f32 peak), so its bound is ~0.04 ms, set by the arithmetic
+// about as much as by HBM.
 //
 // Forward design: one thread per full-res pixel in a grid-stride loop
 // (neighbouring threads on neighbouring columns: label reads coalesce,
@@ -33,15 +38,38 @@
 // order. The grid depends only on the shape, so two runs give
 // bit-identical S and N; there are no float atomics.
 //
-// Backward design (a): one thread per low-res pixel (b, i, j) gathers
-// from the full-res pixels that tap it (rows and columns within one
-// low-res cell of it, at most 2r x 2r with a nonzero weight), recomputing
-// each pixel's logsumexp, and accumulates its C gradients in registers
-// (classes in chunks of CMAX). Each dz element has one writer, so the
-// result is deterministic and needs no slabs, atomics or clamp fold: the
-// clamped taps simply carry both weights to the edge row. Cost: each
-// full-res pixel is visited by the 4 low-res pixels that tap it, with two
-// passes over classes, about 8x the forward's class evaluations.
+// Backward design (band, as the TPU kernel's _bwd_kernel): one block of
+// 256 threads per (image, band of kBand low-res rows, tile of wb low-res
+// columns, wb ~ 256/r so that a thread owns one full-res column):
+//   1. the logits of low-res rows i0-1 .. i0+kBand and columns j0-1 ..
+//      j0+wb (clamped to the image, which is the upsample's edge clamp) go
+//      to shared memory with 16-byte cp.async copies;
+//   2. each thread walks down its own full-res column of the band, taking
+//      each pixel once: its label (coalesced across the threads, the next
+//      row's load in flight), its C logits lerped along y between the
+//      column's logits in its two tap rows (lerped along x once per tap
+//      row, kept in registers for up to 20 classes), max, one exp per
+//      class, and g_k = gS w_y (p_k - (1-eps)[k=y] - eps/C), added with
+//      the row's two tap weights into the column's sums for those two
+//      low-res rows. No barrier between full-res rows;
+//   3. when the tap rows move on, the upper one is complete: the columns'
+//      sums for it go to shared memory and one thread per (padded low-res
+//      column, class) contracts them along W, summing its 2r source
+//      columns in column order with weights from a host table, into that
+//      row of a (kBand+2) x (wb+2) x C slab: kBand+2 contractions a band,
+//      every value with one writer;
+//   4. the slab goes to scratch; a second kernel adds each dz element's
+//      (up to 3 x 3) slab entries in a fixed order, edge rows and columns
+//      of the clamp folding back onto rows 0, h-1 and columns 0, w-1.
+// Each full-res pixel's softmax is evaluated once, the tap tables are the
+// host's (no division by r in the loops), there are no float atomics and
+// the tiling depends only on the shape: two launches give bit-identical
+// dz. Capped at 128 registers, two blocks (16 warps) share an SM; the
+// pixels' dependent chain (label, logits, max, exp, sum) is latency-bound
+// at that occupancy, ~19x over the bound at Fast-SCNN's shape
+// (esn_tpu_torch/tools/kernel_phases.py times the phases). The first
+// design (one thread per low-res pixel gathering its 2r x 2r full-res
+// pixels) evaluated every (pixel, class) 8 times and ran at ~180x.
 #include "common.cuh"
 
 #include <math.h>
@@ -53,11 +81,16 @@ constexpr int kMaxFactor = 16;
 constexpr int kMaxFwdBlocks = 4096;
 
 // per sub-pixel phase: is the upper tap at +1 (else at 0, the lower at -1),
-// and the f32 weights on the upper and the lower tap
+// and the f32 weights on the upper and the lower tap. For the backward's
+// contraction: h0, the first phase whose upper tap is at +1, and wcol, the
+// weights of the 2r full-res columns (u-2)*r + h0 + m, m < 2r, that tap
+// low-res column u (as their upper tap for m < r, their lower one after).
 struct Phases {
   int upper_next[kMaxFactor];
   float frac[kMaxFactor];
   float frac_lo[kMaxFactor];
+  int h0;
+  float wcol[2 * kMaxFactor];
 };
 
 struct Tap {
@@ -73,11 +106,6 @@ __device__ __forceinline__ Tap tap(int Y, int r, int h, const Phases& ph) {
   t.f = ph.frac[p];
   t.f_lo = ph.frac_lo[p];
   return t;
-}
-
-// the weight that tap t puts on low-res index i
-__device__ __forceinline__ float tap_weight(const Tap& t, int i) {
-  return (t.lo == i ? t.f_lo : 0.f) + (t.hi == i ? t.f : 0.f);
 }
 
 // the four source pixels of one full-res pixel and its two blend weights
@@ -105,7 +133,7 @@ __device__ __forceinline__ Pixel pixel(const float* img, int w, int c,
 
 // online logsumexp over classes; also the true-class logit and the sum
 __device__ __forceinline__ float logsumexp(const Pixel& px, int c, int y,
-                                           float* true_logit, float* sum) {
+                                           float& true_logit, float& sum) {
   float m = -INFINITY, s = 0.f, vt = 0.f, vs = 0.f;
   for (int k = 0; k < c; ++k) {
     const float v = px.logit(k);
@@ -118,8 +146,8 @@ __device__ __forceinline__ float logsumexp(const Pixel& px, int c, int y,
     vt = k == y ? v : vt;
     vs += v;
   }
-  if (true_logit) *true_logit = vt;
-  if (sum) *sum = vs;
+  true_logit = vt;
+  sum = vs;
   return m + logf(s);
 }
 
@@ -168,7 +196,7 @@ resize_ce_fwd_kernel(const float* __restrict__ z, const int* __restrict__ lab,
     const Pixel px = pixel(z + (int64_t)b * h * w * c, w, c, tap(Y, r, h, ph),
                            tap(X, r, w, ph));
     float vt, vs;
-    const float lse = logsumexp(px, c, y, &vt, &vs);
+    const float lse = logsumexp(px, c, y, vt, vs);
     float nll = lse - vt;
     if (eps > 0.f) nll = (1.f - eps) * nll + eps * (lse - vs / c);
     const float wpix = cw[y];
@@ -200,58 +228,289 @@ resize_ce_finish_kernel(const double* __restrict__ partial, int blocks,
   }
 }
 
+// Backward tiling: kBand low-res rows x wb low-res columns a block.
+constexpr int kBand = 8;
+
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+
+// Classes up to which a thread keeps its column's state (below) in
+// registers: Cityscapes' 19, CamVid's 11; more take shared memory.
+constexpr int kRegClasses = 20;
+
+// shared-memory plan of the backward, in floats: staged logits (kBand+2
+// rows of zrow, each row shifted so that it shares the 16-byte phase of
+// its source), the slab, one row of r*wb pixels (odd stride against bank
+// conflicts) that holds each thread's logits while it takes its pixel and
+// the columns' sums for the W-contraction, and with more than kRegClasses
+// classes each thread's column state (4 rows of c)
+struct BwdPlan {
+  int wb, zrow, cs, nband, ncol;
+  int zs, slab, g, st, floats;
+  __host__ __device__ BwdPlan(int h, int w, int c, int r, int wb_) {
+    wb = wb_;
+    zrow = round4((wb + 2) * c + 3);
+    cs = c | 1;
+    nband = (h + kBand - 1) / kBand;
+    ncol = (w + wb - 1) / wb;
+    zs = 0;
+    slab = zs + (kBand + 2) * zrow;
+    g = slab + (kBand + 2) * (wb + 2) * c;
+    st = g + r * wb * cs;
+    floats = st + (c <= kRegClasses ? 0 : 4 * r * wb * cs);
+  }
+  __host__ __device__ int slab_floats(int c) const { return (kBand + 2) * (wb + 2) * c; }
+  __host__ __device__ size_t bytes() const { return (size_t)floats * sizeof(float); }
+};
+
+// wb = 256/r low-res columns (a thread per full-res column), fewer where
+// w is narrower or shared memory would hold fewer than two blocks
+int bwd_cols(int h, int w, int c, int r) {
+  int wb = kThreads / r < w ? kThreads / r : w;
+  while (wb > 1 && BwdPlan(h, w, c, r, wb).bytes() > (size_t)esn::kSmemTwoBlocks) wb = (wb + 1) / 2;
+  return wb;
+}
+
+// One z row segment, floats [g0, g1) of z, to smem at d0 (d0 and g0 in
+// the same 16-byte phase when z is aligned): 16-byte cp.async copies for
+// the whole vectors, single floats for the ragged ends (or all of it).
+__device__ __forceinline__ void stage_segment(float* s, const float* z, int64_t g0,
+                                              int64_t g1, int d0, bool vec, int tid) {
+  int64_t v0 = g1, v1 = g1;  // the 16-byte body [v0, v1)
+  if (vec) {
+    v0 = (g0 + 3) / 4 * 4;
+    v1 = g1 / 4 * 4;
+    if (v0 > v1) v0 = v1 = g1;
+  }
+  for (int64_t i = v0 + 4 * (int64_t)tid; i < v1; i += 4 * kThreads)
+    esn::cp_async16(s + d0 + (i - g0), z + i);
+  const int head = (int)(v0 - g0), tail = (int)(g1 - v1);
+  for (int i = tid; i < head + tail; i += kThreads) {
+    const int64_t gi = i < head ? g0 + i : v1 + (i - head);
+    s[d0 + (gi - g0)] = __ldg(z + gi);
+  }
+}
+
+// One full-res pixel of a thread's column: its logits v_k, lerped along y
+// (weight fy) between xa and xb (the column's logits lerped along x in
+// its two tap rows), max, one exp per class, g_k = gS w_y (p_k -
+// (1-eps)[k=y] - eps/C), added with the row weights into lo (upper tap
+// row, weight wlo) and hi (lower, fy). __expf: p only enters dz, whose
+// tolerance (1e-4 relative) is far above its ~2 ulp. v (c floats of
+// shared memory) holds the logits. With N > 0 the other arrays are
+// registers (c <= N, loops unrolled) and the max and the sum run as 4
+// interleaved chains (classes k mod 4, joined in a fixed order).
+template <int N>
+__device__ __forceinline__ void pixel_grad(const float* xa, const float* xb, float* lo,
+                                           float* hi, float* v, int c, int y, float fy,
+                                           float wlo, float coef, float hot, float eps_c) {
+  float m, sum;
+  if constexpr (N > 0) {
+    float m4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY}, s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k < c) {
+        v[k] = fmaf(fy, xb[k] - xa[k], xa[k]);
+        m4[k & 3] = fmaxf(m4[k & 3], v[k]);
+      }
+    m = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k < c) {
+        v[k] = __expf(v[k] - m);
+        s4[k & 3] += v[k];
+      }
+    sum = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+  } else {
+    m = -INFINITY, sum = 0.f;
+    for (int k = 0; k < c; ++k) {
+      v[k] = fmaf(fy, xb[k] - xa[k], xa[k]);
+      m = fmaxf(m, v[k]);
+    }
+    for (int k = 0; k < c; ++k) {
+      v[k] = __expf(v[k] - m);
+      sum += v[k];
+    }
+  }
+  const float ci = coef / sum, off = -coef * eps_c, off_y = off - coef * hot;
+  constexpr int kN = N > 0 ? N : 1;
+  const int n = N > 0 ? N : c;
+#pragma unroll(kN)
+  for (int k = 0; k < n; ++k)
+    if (k < c) {
+      const float g = fmaf(v[k], ci, k == y ? off_y : off);
+      lo[k] = fmaf(wlo, g, lo[k]);
+      hi[k] = fmaf(fy, g, hi[k]);
+    }
+}
+
+// at most 128 registers a thread: two blocks on an SM (the register
+// path's column state takes 80)
 template <int CMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 resize_ce_bwd_kernel(const float* __restrict__ z, const int* __restrict__ lab,
-                     const float* __restrict__ cw,
-                     const float* __restrict__ g_s, float* __restrict__ dz,
-                     int n, int h, int w, int c, int r, int ignore, float eps,
-                     Phases ph) {
+                     const float* __restrict__ cw, const float* __restrict__ g_s,
+                     float* __restrict__ slabs, int h, int w, int c, int r, int ignore,
+                     float eps, int wb, Phases ph) {
+  extern __shared__ __align__(16) float smem[];
+  const BwdPlan p(h, w, c, r, wb);
+  float* zs = smem + p.zs;
+  float* slab = smem + p.slab;
+  float* gbuf = smem + p.g;
+  __shared__ int shift[kBand + 2];
+  const int tid = threadIdx.x;
+  const int ct = blockIdx.x % p.ncol;
+  const int band = (blockIdx.x / p.ncol) % p.nband;
+  const int b = blockIdx.x / (p.ncol * p.nband);
+  const int i0 = band * kBand, j0 = ct * wb;
+  const int rows = min(kBand, h - i0), cols = min(wb, w - j0);
+  const bool vec = esn::aligned16(z);
+
+  // 1. logits of rows i0-1 .. i0+kBand, columns j0-1 .. j0+wb, clamped
+  const int u_lo = j0 == 0 ? 1 : 0;            // first column inside the image
+  const int u_hi = min(wb + 1, w - j0);        // last one
+  for (int t = 0; t < kBand + 2; ++t) {
+    const int src = min(max(i0 - 1 + t, 0), h - 1);
+    const int64_t row = ((int64_t)b * h + src) * w * c;
+    const int64_t g0 = row + (int64_t)(j0 - 1 + u_lo) * c;
+    const int sh = vec ? (int)(((g0 - (int64_t)u_lo * c) % 4 + 4) % 4) : 0;
+    if (tid == 0) shift[t] = sh;
+    const int d = t * p.zrow + sh;
+    stage_segment(zs, z, g0, row + (int64_t)(j0 + u_hi) * c, d + u_lo * c, vec, tid);
+    // clamped columns: u = 0 at the left edge, u > u_hi past the right one
+    const int nclamp = (u_lo + (wb + 1 - u_hi)) * c;
+    for (int i = tid; i < nclamp; i += kThreads) {
+      const int q = i / c, k = i - q * c;
+      const bool left = q < u_lo;
+      const int u = left ? 0 : u_hi + 1 + (q - u_lo);
+      zs[d + u * c + k] = __ldg(z + row + (int64_t)(left ? 0 : w - 1) * c + k);
+    }
+  }
+  for (int i = tid; i < p.slab_floats(c); i += kThreads) slab[i] = 0.f;
+  esn::cp_async_commit();
+  esn::cp_async_wait_all();
+  __syncthreads();
+
+  // 2.-3. the band's full-res rows, each thread down its own column
+  const int W = w * r;
+  const float gs = *g_s, eps_c = eps / c, hot = 1.f - eps;
+  const int jj = tid / r, px = tid - jj * r;   // this thread's full-res column
+  const bool active = jj < cols;
+  const int ulo = jj + ph.upper_next[px];
+  const float fx = ph.frac[px];
+  const int* lcol = lab + ((int64_t)b * h * r + (int64_t)i0 * r) * W + (int64_t)j0 * r + tid;
+  const int nrows = rows * r, wp = wb + 2, npair = (cols + 2) * c;
+  // the column's state: xa, xb its logits lerped along x in slab rows t and
+  // t+1 (the tap rows of the current full-res rows), lo, hi its gradient
+  // summed with the row weights into those two slab rows
+  constexpr int kN = CMAX > 0 ? CMAX : 1;
+  const int sn = CMAX > 0 ? CMAX : p.cs;  // stride of the four state arrays
+  float reg[4 * kN];
+  float* xa = CMAX > 0 ? reg : smem + p.st + tid * 4 * p.cs;
+  float *xb = xa + sn, *lo = xb + sn, *hi = lo + sn;
+  float* v = gbuf + tid * p.cs;
+  const int n = CMAX > 0 ? CMAX : c;
+  auto xlerp = [&](float* dst, int t) {
+    const float* zr = zs + t * p.zrow + shift[t] + ulo * c;
+#pragma unroll(kN)
+    for (int k = 0; k < n; ++k)
+      if (k < c) dst[k] = fmaf(fx, zr[c + k] - zr[k], zr[k]);
+  };
+  // slab row t of the tile: every column's sums (from the caller's src)
+  // contracted along W, each (low-res column, class) by one thread over
+  // its 2r source columns in column order
+  auto flush = [&](const float* src, int t) {
+    if (active) {
+#pragma unroll(kN)
+      for (int k = 0; k < n; ++k)
+        if (k < c) v[k] = src[k];
+    }
+    __syncthreads();
+    for (int q = tid; q < npair; q += kThreads) {
+      const int u = q / c, k = q - u * c;
+      const int x0 = (u - 2) * r + ph.h0;
+      const int m0 = max(0, -x0), m1 = min(2 * r, r * cols - x0);
+      const float* gx = gbuf + x0 * p.cs + k;
+      float acc = 0.f;
+      for (int mm = m0; mm < m1; ++mm) acc = fmaf(ph.wcol[mm], gx[mm * p.cs], acc);
+      slab[(t * wp + u) * c + k] = acc;
+    }
+    __syncthreads();
+  };
+  int t = ph.upper_next[0];
+  if (active) {
+    xlerp(xa, t);
+    xlerp(xb, t + 1);
+#pragma unroll(kN)
+    for (int k = 0; k < n; ++k) lo[k] = hi[k] = 0.f;
+  }
+  int y_next = active ? __ldg(lcol) : ignore;
+  for (int Y = 0, yy = 0, py = 0; Y < nrows; ++Y) {
+    const int tl = yy + ph.upper_next[py];
+    if (tl != t) {  // slab row t is complete (the same Y for every thread)
+      flush(lo, t);
+      if (active) {
+#pragma unroll(kN)
+        for (int k = 0; k < n; ++k) {
+          lo[k] = hi[k];
+          hi[k] = 0.f;
+          xa[k] = xb[k];
+        }
+        xlerp(xb, tl + 1);
+      }
+      t = tl;
+    }
+    const int y = y_next;
+    if (active && Y + 1 < nrows) y_next = __ldg(lcol + (int64_t)(Y + 1) * W);
+    if (active && valid_label(y, c, ignore))
+      pixel_grad<CMAX>(xa, xb, lo, hi, v, c, y, ph.frac[py], ph.frac_lo[py], gs * cw[y], hot,
+                       eps_c);
+    if (++py == r) py = 0, ++yy;
+  }
+  flush(lo, t);
+  flush(hi, t + 1);
+
+  // 4. the slab to scratch
+  float* out = slabs + (int64_t)blockIdx.x * p.slab_floats(c);
+  for (int i = tid; i < p.slab_floats(c); i += kThreads) out[i] = slab[i];
+}
+
+// dz (n, h, w, c): each element the sum of its slab entries, in a fixed
+// order: rows (band q, slab row t) and columns (tile, slab column u) that
+// hold original row i / column j, its halo copies in the neighbouring
+// band or tile, and the clamp rows -1, h and columns -1, w at the edges.
+__global__ void __launch_bounds__(kThreads)
+resize_ce_fold_kernel(const float* __restrict__ slabs, float* __restrict__ dz, int n, int h,
+                      int w, int c, int r, int wb) {
+  const BwdPlan p(h, w, c, r, wb);
   const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (int64_t)n * h * w) return;
-  const int j = (int)(idx % w);
-  const int64_t t = idx / w;
+  if (idx >= (int64_t)n * h * w * c) return;
+  const int k = (int)(idx % c);
+  int64_t t = idx / c;
+  const int j = (int)(t % w);
+  t /= w;
   const int i = (int)(t % h);
   const int b = (int)(t / h);
-  const int H = h * r, W = w * r;
-  const float* img = z + (int64_t)b * h * w * c;
-  const int* limg = lab + (int64_t)b * H * W;
-  const float gs = *g_s, eps_c = eps / c, hot = 1.f - eps;
-  // full-res rows and columns whose taps can reach low-res (i, j)
-  const int Y0 = max((i - 1) * r, 0), Y1 = min((i + 2) * r, H);
-  const int X0 = max((j - 1) * r, 0), X1 = min((j + 2) * r, W);
-  for (int k0 = 0; k0 < c; k0 += CMAX) {
-    float acc[CMAX];
-#pragma unroll
-    for (int kk = 0; kk < CMAX; ++kk) acc[kk] = 0.f;
-    for (int Y = Y0; Y < Y1; ++Y) {
-      const Tap ty = tap(Y, r, h, ph);
-      const float wy = tap_weight(ty, i);
-      if (wy == 0.f) continue;
-      for (int X = X0; X < X1; ++X) {
-        const Tap tx = tap(X, r, w, ph);
-        const float wx = tap_weight(tx, j);
-        if (wx == 0.f) continue;
-        const int y = limg[(int64_t)Y * W + X];
-        if (!valid_label(y, c, ignore)) continue;
-        const Pixel px = pixel(img, w, c, ty, tx);
-        const float lse = logsumexp(px, c, y, nullptr, nullptr);
-        const float coef = gs * cw[y] * (wy * wx);
-#pragma unroll
-        for (int kk = 0; kk < CMAX; ++kk) {
-          const int k = k0 + kk;
-          if (k < c) {
-            const float p = expf(px.logit(k) - lse);
-            acc[kk] = fmaf(coef, p - (k == y ? hot : 0.f) - eps_c, acc[kk]);
-          }
-        }
-      }
+  int rq[4], rt[4], cq[4], cu[4], nr = 0, nc = 0;
+  const int q = i / kBand, ti = i - q * kBand + 1;
+  if (ti == 1 && q > 0) { rq[nr] = q - 1; rt[nr++] = kBand + 1; }
+  if (i == 0) { rq[nr] = 0; rt[nr++] = 0; }
+  rq[nr] = q; rt[nr++] = ti;
+  if (i == h - 1) { rq[nr] = q; rt[nr++] = h - q * kBand + 1; }
+  if (ti == kBand && q + 1 < p.nband) { rq[nr] = q + 1; rt[nr++] = 0; }
+  const int e = j / wb, uj = j - e * wb + 1;
+  if (uj == 1 && e > 0) { cq[nc] = e - 1; cu[nc++] = wb + 1; }
+  if (j == 0) { cq[nc] = 0; cu[nc++] = 0; }
+  cq[nc] = e; cu[nc++] = uj;
+  if (j == w - 1) { cq[nc] = e; cu[nc++] = w - e * wb + 1; }
+  if (uj == wb && e + 1 < p.ncol) { cq[nc] = e + 1; cu[nc++] = 0; }
+  const int sf = p.slab_floats(c), wp = wb + 2;
+  float acc = 0.f;
+  for (int a = 0; a < nr; ++a)
+    for (int bb = 0; bb < nc; ++bb) {
+      const int64_t blk = ((int64_t)b * p.nband + rq[a]) * p.ncol + cq[bb];
+      acc += slabs[blk * sf + ((int64_t)rt[a] * wp + cu[bb]) * c + k];
     }
-    float* out = dz + idx * c + k0;
-#pragma unroll
-    for (int kk = 0; kk < CMAX; ++kk)
-      if (k0 + kk < c) out[kk] = acc[kk];
-  }
+  dz[idx] = acc;
 }
 
 Phases make_phases(int r) {
@@ -263,6 +522,12 @@ Phases make_phases(int r) {
     ph.upper_next[p] = d >= 0;
     ph.frac[p] = (float)f;
     ph.frac_lo[p] = (float)(1.0 - f);
+  }
+  ph.h0 = 0;
+  while (ph.h0 < r && !ph.upper_next[ph.h0]) ++ph.h0;
+  for (int m = 0; m < 2 * r; ++m) {
+    const int p = (ph.h0 + m) % r;
+    ph.wcol[m] = m < r ? ph.frac[p] : ph.frac_lo[p];
   }
   return ph;
 }
@@ -298,34 +563,39 @@ extern "C" int esn_resize_ce_fwd(const void* z, const void* lab, const void* cw,
   return cudaGetLastError();
 }
 
+// Floats of scratch the backward needs for this shape (its slabs), or -1
+// if no tiling fits in shared memory.
+extern "C" long long esn_resize_ce_bwd_scratch(int n, int h, int w, int c, int r) {
+  if (r < 2 || r > kMaxFactor || c < 1 || n < 1 || h < 1 || w < 1) return -1;
+  const BwdPlan p(h, w, c, r, bwd_cols(h, w, c, r));
+  if (p.bytes() > (size_t)esn::kMaxSmem) return -1;
+  return (long long)n * p.nband * p.ncol * p.slab_floats(c);
+}
+
 // As esn_resize_ce_fwd, plus g_s: one f32 on the device (the cotangent of
-// S), and dz (n, h, w, c) f32, every element written.
+// S), scratch: esn_resize_ce_bwd_scratch(...) floats, and dz (n, h, w, c)
+// f32, every element written.
 extern "C" int esn_resize_ce_bwd(const void* z, const void* lab, const void* cw,
-                                 const void* g_s, void* dz, int n, int h, int w,
-                                 int c, int r, int ignore, float eps,
+                                 const void* g_s, void* scratch, void* dz, int n,
+                                 int h, int w, int c, int r, int ignore, float eps,
                                  void* stream) {
-  if (r < 2 || r > kMaxFactor || c < 1 || n < 1 || h < 1 || w < 1)
-    return cudaErrorInvalidValue;
+  if (esn_resize_ce_bwd_scratch(n, h, w, c, r) < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t total = (int64_t)n * h * w;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  const Phases ph = make_phases(r);
-  const float* zf = static_cast<const float*>(z);
-  const int* lb = static_cast<const int*>(lab);
-  const float* cwf = static_cast<const float*>(cw);
-  const float* gs = static_cast<const float*>(g_s);
-  float* out = static_cast<float*>(dz);
-  if (c <= 8)
-    resize_ce_bwd_kernel<8><<<blocks, kThreads, 0, st>>>(
-        zf, lb, cwf, gs, out, n, h, w, c, r, ignore, eps, ph);
-  else if (c <= 16)
-    resize_ce_bwd_kernel<16><<<blocks, kThreads, 0, st>>>(
-        zf, lb, cwf, gs, out, n, h, w, c, r, ignore, eps, ph);
-  else if (c <= 24)
-    resize_ce_bwd_kernel<24><<<blocks, kThreads, 0, st>>>(
-        zf, lb, cwf, gs, out, n, h, w, c, r, ignore, eps, ph);
-  else
-    resize_ce_bwd_kernel<32><<<blocks, kThreads, 0, st>>>(
-        zf, lb, cwf, gs, out, n, h, w, c, r, ignore, eps, ph);
+  const int wb = bwd_cols(h, w, c, r);
+  const BwdPlan p(h, w, c, r, wb);
+  auto kernel = c <= kRegClasses ? resize_ce_bwd_kernel<kRegClasses> : resize_ce_bwd_kernel<0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes());
+  if (err != cudaSuccess) return err;
+  float* slabs = static_cast<float*>(scratch);
+  kernel<<<n * p.nband * p.ncol, kThreads, p.bytes(), st>>>(
+      static_cast<const float*>(z), static_cast<const int*>(lab),
+      static_cast<const float*>(cw), static_cast<const float*>(g_s), slabs, h, w, c, r,
+      ignore, eps, wb, make_phases(r));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t total = (int64_t)n * h * w * c;
+  resize_ce_fold_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      slabs, static_cast<float*>(dz), n, h, w, c, r, wb);
   return cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 """Model factory (counterpart of ``esn_tpu/models/registry.py``).
 
 ``build_model(name, num_classes)`` returns an initialised ``SegModel`` in
-``channels_last`` memory on ``device``; names are case-insensitive and
-aliases resolve to the canonical name.
+``channels_last`` memory on ``device`` (the CUDA device unless the caller
+asks for the CPU); names are case-insensitive and aliases resolve to the
+canonical name.
 """
 from __future__ import annotations
 
@@ -34,12 +35,18 @@ def build_model(model_name: str, num_classes: int, *,
                 generator: Optional[torch.Generator] = None,
                 **kwargs) -> SegModel:
     """Build, initialise from ``generator`` (a CPU generator; seed 0 when
-    None) and move to ``device`` (the CPU when None)."""
+    None) and move to ``device``: the CUDA device when None, so a machine
+    without one raises unless the caller asks for ``device="cpu"``."""
     key = model_name.lower()
     key = _ALIASES.get(key, key)
     if key not in _REGISTRY:
         raise KeyError(f"unknown model {model_name!r}; "
                        f"available: {available_models()}")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_model: no CUDA device; pass "
+                               "device='cpu' to build on the CPU")
+        device = "cuda"
     model = _REGISTRY[key](classes=num_classes, **kwargs)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

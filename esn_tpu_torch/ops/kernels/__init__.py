@@ -10,6 +10,8 @@ process: a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
+import torch
+
 LAUNCHES = {"dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
             "resize_ce_bwd": 0, "cgblock": 0}
 
@@ -19,9 +21,22 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def bf16_step_gap(got: torch.Tensor, want: torch.Tensor):
+    """How far a bfloat16 result lies from an emulation of the kernel's
+    rounding points: the number of elements that differ, and the number
+    more than one bf16 step apart (+ 2^-16 max|want|, where the value
+    cancels to near 0)."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    far = (g - w).abs() > step + 2.0 ** -16 * float(w.abs().max())
+    return int((g != w).sum()), int(far.sum())
+
+
 from .cgblock import (bf16_rounding_gap,  # noqa: E402,F401
                       cgblock_pre_kernel_rounding, cgblock_pre_ref,
                       fused_cgblock_pre)
-from .dsconv import dsconv_ref, fold_bn, fused_dsconv  # noqa: E402,F401
+from .dsconv import (dsconv_kernel_rounding, dsconv_ref,  # noqa: E402,F401
+                     fold_bn, fused_dsconv)
 from .resize_argmax import resize_argmax, resize_argmax_ref  # noqa: E402,F401
 from .resize_ce import resize_ce_sums, resize_ce_sums_ref  # noqa: E402,F401

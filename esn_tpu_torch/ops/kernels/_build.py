@@ -102,11 +102,12 @@ _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (argtypes, restype) of each C entry point of the library
 SIGNATURES = {
     "esn_cuda_error_string": ([_I32], ctypes.c_char_p),
-    "esn_dsconv_forward": ([_VP] * 8 + [_I32] * 13 + [_VP], _I32),
+    "esn_dsconv_forward": ([_VP] * 8 + [_I32] * 11 + [_VP], _I32),
     "esn_resize_argmax": ([_VP, _VP] + [_I32] * 6 + [_VP], _I32),
     "esn_resize_ce_fwd_blocks": ([_I32] * 4, _I32),
     "esn_resize_ce_fwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),
-    "esn_resize_ce_bwd": ([_VP] * 5 + [_I32] * 6 + [_F32, _VP], _I32),
+    "esn_resize_ce_bwd_scratch": ([_I32] * 5, ctypes.c_longlong),
+    "esn_resize_ce_bwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),
     "esn_cgblock_pre_tiles": ([_I32] * 5, _I32),
     "esn_cgblock_pre": ([_VP] * 13 + [_I32] * 6 + [_VP], _I32),
 }

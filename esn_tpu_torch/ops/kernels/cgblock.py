@@ -18,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, _build
+from . import LAUNCHES, _build, bf16_step_gap
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,12 +69,9 @@ def bf16_rounding_gap(j, s, je, se):
     elements of j that differ, the number beyond one bf16 step (+ 2^-16
     max|je|, where j cancels to near 0), and the largest sum error relative
     to sum|je| per (n, c)."""
-    jk, jr = j.float(), je.float()
-    mag = torch.maximum(jk.abs(), jr.abs())
-    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
-    far = (jk - jr).abs() > step + 2.0 ** -16 * float(jr.abs().max())
-    sum_rel = float(((s - se).abs() / jr.abs().sum((1, 2))).max())
-    return int((jk != jr).sum()), int(far.sum()), sum_rel
+    differ, far = bf16_step_gap(j, je)
+    sum_rel = float(((s - se).abs() / je.float().abs().sum((1, 2))).max())
+    return differ, far, sum_rel
 
 
 def _launch(x, params, d: int):

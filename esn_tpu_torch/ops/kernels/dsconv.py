@@ -3,7 +3,10 @@
 
 ``dw 3x3 (stride 1/2, pad 1) -> affine -> act -> pw 1x1 -> affine -> act``
 in one pass, BN folded into the affines by :func:`fold_bn`. On CUDA it is
-the kernel of ``csrc/dsconv.cu``; on the CPU the plain :func:`dsconv_ref`.
+the kernel of ``csrc/dsconv.cu`` (in bf16 its pointwise product runs on
+tensor cores, with the depthwise result rounded to bf16 first, as
+:func:`dsconv_kernel_rounding` writes out); on the CPU the plain
+:func:`dsconv_ref`.
 Forward only: a CUDA call that autograd would have to differentiate
 raises.
 
@@ -27,7 +30,6 @@ _ACTS = {
 }
 _ACT_CODES = {"none": 0, "relu": 1, "relu6": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_W = 16
 
 
 def fold_bn(mean, var, gamma, beta, eps: float = 1e-5):
@@ -49,6 +51,25 @@ def dsconv_ref(x, dw, a1, b1, pw, a2, b2, *, stride: int = 1,
     return _ACTS[act2](y * a2 + b2).to(x.dtype)
 
 
+def dsconv_kernel_rounding(x, dw, a1, b1, pw, a2, b2, *, stride: int = 1,
+                           act1: str = "relu", act2: str = "relu"
+                           ) -> torch.Tensor:
+    """The kernel's rounding points in plain PyTorch, to hold the kernel to
+    in bfloat16 (where :func:`dsconv_ref` rounds elsewhere): the depthwise
+    sum in f32 and not rounded, ``mid = act1(dw * a1 + b1)`` rounded to x's
+    dtype, pw rounded to x's dtype, their product summed in f32, the
+    output rounded once (the TPU kernel's ``hmid.astype(xv.dtype)`` and
+    ``pw.astype(x.dtype)``, ``esn_tpu/ops/pallas/dsconv.py:162,218``).
+    Equal to the plain version in float32."""
+    cin = x.shape[-1]
+    k = dw.permute(2, 0, 1).unsqueeze(1).float()               # (Cin,1,3,3)
+    h = F.conv2d(x.permute(0, 3, 1, 2).float(), k, stride=stride, padding=1,
+                 groups=cin).permute(0, 2, 3, 1)               # NHWC, f32
+    mid = _ACTS[act1](h * a1 + b1).to(x.dtype).float()
+    y = torch.matmul(mid, pw.to(x.dtype).float())
+    return _ACTS[act2](y * a2 + b2).to(x.dtype)
+
+
 def _launch(x, dw, a1, b1, pw, a2, b2, stride, act1, act2) -> torch.Tensor:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_dsconv: dtype {x.dtype} not supported "
@@ -57,8 +78,8 @@ def _launch(x, dw, a1, b1, pw, a2, b2, stride, act1, act2) -> torch.Tensor:
         raise ValueError("fused_dsconv: x must be contiguous NHWC")
     n, h, w, cin = x.shape
     cout = pw.shape[1]
-    if cout % 4:
-        raise ValueError(f"fused_dsconv: Cout={cout} must be a multiple of 4")
+    if cout % 8:
+        raise ValueError(f"fused_dsconv: Cout={cout} must be a multiple of 8")
     params = [t.to(device=x.device, dtype=torch.float32).contiguous()
               for t in (dw, a1, b1, pw, a2, b2)]
     if torch.is_grad_enabled() and any(
@@ -70,16 +91,11 @@ def _launch(x, dw, a1, b1, pw, a2, b2, stride, act1, act2) -> torch.Tensor:
     out = torch.empty((n, h_out, w_out, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    # rows per tile: enough 4x4 work items for the block's 256 threads
-    th = 2
-    while th < 8 and (th * _TILE_W // 4) * (cout // 4) < 256:
-        th *= 2
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in (x, *params, out)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.library().esn_dsconv_forward(
         *ptr, _DTYPE_CODES[x.dtype], n, h, w, cin, cout, h_out, w_out,
-        stride, _ACT_CODES[act1], _ACT_CODES[act2], th, _TILE_W,
-        ctypes.c_void_p(stream))
+        stride, _ACT_CODES[act1], _ACT_CODES[act2], ctypes.c_void_p(stream))
     _build.check(err, "fused_dsconv")
     LAUNCHES["dsconv"] += 1
     return out

@@ -10,8 +10,9 @@ Public layout is the reference's: z ``(B, h, w, C)`` f32 NHWC, labels
 ``(B, h*r, w*r)`` int32, class_weights ``(C,)`` f32 or None. On CUDA it is
 a ``torch.autograd.Function`` over the forward and backward kernels of
 ``csrc/resize_ce.cu``, which never hold the full-res logits or their
-cotangent; on the CPU the plain :func:`resize_ce_sums_ref`, whose autograd
-is the plain backward.
+cotangent (the backward adds per-band slabs from a scratch buffer into
+dz); on the CPU the plain :func:`resize_ce_sums_ref`, whose autograd is
+the plain backward.
 """
 from __future__ import annotations
 
@@ -122,9 +123,17 @@ class _ResizeCESums(torch.autograd.Function):
         b, h, w, c = z.shape
         g_s = g_s.to(device=z.device, dtype=torch.float32).contiguous()
         dz = torch.empty_like(z)
+        lib = _build.library()
+        floats = lib.esn_resize_ce_bwd_scratch(b, h, w, c, ctx.r)
+        if floats < 0:
+            raise ValueError(f"resize_ce_sums: no backward tiling of z "
+                             f"{tuple(z.shape)} r={ctx.r} fits in shared "
+                             f"memory")
+        # the band slabs that the fold kernel adds into dz
+        slabs = torch.empty((floats,), dtype=torch.float32, device=z.device)
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = _build.library().esn_resize_ce_bwd(
-            _ptr(z), _ptr(labels), _ptr(cw), _ptr(g_s), _ptr(dz),
+        err = lib.esn_resize_ce_bwd(
+            _ptr(z), _ptr(labels), _ptr(cw), _ptr(g_s), _ptr(slabs), _ptr(dz),
             b, h, w, c, ctx.r, ctx.ignore_index, ctypes.c_float(ctx.eps),
             ctypes.c_void_p(stream))
         _build.check(err, "resize_ce_sums backward")

@@ -1,0 +1,178 @@
+"""Where the time of a kernel goes, phase by phase, on one CUDA card.
+
+    python3 -m esn_tpu_torch.tools.kernel_phases
+
+Run from the repo root. For K3's backward (``csrc/resize_ce.cu``) and K2
+(``csrc/dsconv.cu``) it builds the kernel's source as it is and, for each
+phase in ``PHASES``, a copy with that phase taken out (each copy its own
+``nvcc``, all started together, into ``esn_tpu_torch/build/phases/``),
+and times each build at the main path's shapes (K3 at z (8,128,256,19)
+r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and head.ds1) with CUDA
+events, in turns (all builds, then all again in reverse order). A phase's
+cost is read as the full time less the time without it; phases that
+overlap do not add up. The copies compute wrong results and are used for
+nothing else. Each edit must match the source, so an edit of a kernel
+that moves a phase makes this script fail rather than time something
+else. Exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+OUT = REPO / "esn_tpu_torch" / "build" / "phases"
+
+# kernel source -> {phase: [(text in the source, its replacement)]}
+PHASES = {
+    "resize_ce.cu": {
+        "fold": [("  resize_ce_fold_kernel<<<", "  if (0) resize_ce_fold_kernel<<<")],
+        "pixels": [("    if (active && valid_label(y, c, ignore))\n      pixel_grad",
+                    "    if (false)\n      pixel_grad")],
+        "exp": [("v[k] = __expf(v[k] - m);", "v[k] = v[k] - m;")],
+        "labels": [("y_next = __ldg(lcol + (int64_t)(Y + 1) * W);",
+                    "y_next = (Y * 7 + tid) % c;")],
+        "contraction": [("for (int q = tid; q < npair; q += kThreads) {",
+                         "for (int q = tid; q < 0; q += kThreads) {")],
+    },
+    "dsconv.cu": {
+        "depthwise": [("    depthwise<T>(a, p, cur, smem, tid);\n", "")],
+        "product": [("      pointwise_bf16(a, p, smem, cur, tid);\n", "")],
+        "prefetch": [("      stage_halo<T>(a, p, bufs + ((it + 1) & 1) * buf_elems, next, vec, tid);\n",
+                      "")],
+        "stores": [("      if (oh < a.h_out && ow < a.w_out)", "      if (oh < 0)")],
+    },
+}
+
+
+def build_all():
+    """{(source, phase or "full"): loaded library}."""
+    from esn_tpu_torch.ops.kernels import _build
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src, phases in PHASES.items():
+        text = (_build.SRC_DIR / src).read_text()
+        for phase, edits in {"full": [], **phases}.items():
+            edited = text
+            for old, new in edits:
+                if old not in edited:
+                    raise RuntimeError(f"{src} {phase}: {old!r} not in the source")
+                edited = edited.replace(old, new)
+            cu = OUT / f"{Path(src).stem}-{phase}.cu"
+            cu.write_text(edited)
+            so = cu.with_suffix(".so")
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR), "-shared",
+                   "-o", str(so), str(cu), str(_build.SRC_DIR / "common.cu")]
+            jobs.append(((src, phase), so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for key, so, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log[-4000:]}")
+        libs[key] = ctypes.CDLL(str(so))
+    return libs
+
+
+def in_turns(torch, calls: dict, iters: int = 20) -> dict:
+    """ms per call of each entry, timed all in order, then in reverse."""
+    def ms(fn):
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    times = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            times[name].append(ms(calls[name]))
+    return {name: sum(v) / len(v) for name, v in times.items()}
+
+
+def report(label: str, times: dict) -> None:
+    full = times["full"]
+    print(f"{label}: full {full:.4f} ms")
+    for phase, t in times.items():
+        if phase != "full":
+            print(f"  without {phase:12s} {t:.4f} ms   (phase ~{full - t:+.4f} ms)")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_phases: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from esn_tpu_torch.ops.kernels import _build
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip())
+    libs = build_all()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # K3 backward at the train step's shape
+    b, h, w, c, r = 8, 128, 256, 19, 8
+    z = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    lab = torch.randint(0, c, (b, h * r, w * r), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    cw = torch.rand((c,), generator=gen, device="cuda") + 0.5
+    g_s = torch.ones((), device="cuda")
+    dz = torch.empty_like(z)
+    calls = {}
+    for (src, phase), lib in libs.items():
+        if src != "resize_ce.cu":
+            continue
+        lib.esn_resize_ce_bwd_scratch.argtypes, lib.esn_resize_ce_bwd_scratch.restype = \
+            _build.SIGNATURES["esn_resize_ce_bwd_scratch"]
+        fn = lib.esn_resize_ce_bwd
+        fn.argtypes, fn.restype = _build.SIGNATURES["esn_resize_ce_bwd"]
+        slabs = torch.empty((lib.esn_resize_ce_bwd_scratch(b, h, w, c, r),),
+                            device="cuda")
+        calls[phase] = (lambda fn=fn, slabs=slabs: _check(fn(
+            ptr(z), ptr(lab), ptr(cw), ptr(g_s), ptr(slabs), ptr(dz), b, h, w, c, r, 255,
+            ctypes.c_float(0.0), stream())))
+    report(f"resize_ce backward {tuple(z.shape)} r={r}", in_turns(torch, calls))
+
+    # K2 bf16 at Fast-SCNN's layers
+    for layer, shape, cout, stride in (("ltd.ds1", (8, 512, 1024, 32), 48, 2),
+                                       ("ltd.ds2", (8, 256, 512, 48), 64, 2),
+                                       ("head.ds1", (8, 128, 256, 128), 128, 1)):
+        n, hh, ww, cin = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        params = [torch.randn((3, 3, cin), generator=gen, device="cuda") / 3,
+                  torch.rand((cin,), generator=gen, device="cuda") + 0.5,
+                  torch.randn((cin,), generator=gen, device="cuda") * 0.1,
+                  torch.randn((cin, cout), generator=gen, device="cuda") / cin ** 0.5,
+                  torch.rand((cout,), generator=gen, device="cuda") + 0.5,
+                  torch.randn((cout,), generator=gen, device="cuda") * 0.1]
+        ho, wo = (hh - 1) // stride + 1, (ww - 1) // stride + 1
+        out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device="cuda")
+        calls = {}
+        for (src, phase), lib in libs.items():
+            if src != "dsconv.cu":
+                continue
+            fn = lib.esn_dsconv_forward
+            fn.argtypes, fn.restype = _build.SIGNATURES["esn_dsconv_forward"]
+            calls[phase] = (lambda fn=fn: _check(fn(
+                ptr(x), *map(ptr, params), ptr(out), 1, n, hh, ww, cin, cout, ho, wo, stride,
+                1, 1, stream())))
+        report(f"dsconv bf16 {layer} {shape} -> {cout} s{stride}", in_turns(torch, calls))
+    return 0
+
+
+def _check(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"launch failed: CUDA error {err}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -213,7 +213,7 @@ def pair(jax_model_and_shapes):
     images, so eval-mode features vary."""
     jmodel, shapes = jax_model_and_shapes
     variables = _random_variables(shapes, np.random.RandomState(0))
-    model = build_model("cgnet", CLASSES)
+    model = build_model("cgnet", CLASSES, device="cpu")
     model.load_state_dict(convert.to_state_dict(variables), strict=True)
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for bn in bns:
@@ -235,8 +235,9 @@ def images():
 def test_registry_and_param_count(jax_model_and_shapes):
     assert "cgnet" in available_models()
     for name in ("CGNet", "context_guided_network"):
-        assert type(build_model(name, 3)).__name__ == "CGNet"
-    assert count_params(build_model("cgnet", CLASSES)) == N_PARAMS
+        assert type(build_model(name, 3, device="cpu")).__name__ == "CGNet"
+    model = build_model("cgnet", CLASSES, device="cpu")
+    assert count_params(model) == N_PARAMS
     params = jax_model_and_shapes[1]["params"]
     assert sum(int(np.prod(v.shape)) for _, v in _leaves(params)) == N_PARAMS
 
@@ -247,7 +248,7 @@ def test_convert_round_trip_is_bit_exact(jax_model_and_shapes):
     variables = _random_variables(jax_model_and_shapes[1],
                                   np.random.RandomState(7))
     leaves = dict(_leaves(variables))
-    model = build_model("cgnet", CLASSES)
+    model = build_model("cgnet", CLASSES, device="cpu")
     sd = convert.to_state_dict(variables)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)

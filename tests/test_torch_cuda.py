@@ -43,13 +43,16 @@ def _dsconv_args(seed, n, h, w, ci, co, dtype, device):
 
 @pytest.mark.parametrize("dtype, atol, rtol", [
     (torch.float32, 1e-4, 1e-4),       # both sum in f32, in other orders
-    (torch.bfloat16, 5e-2, 2e-2),      # output rounds to bf16; plain rounds
-])                                     # its depthwise result too
+    (torch.bfloat16, 5e-2, 2e-2),      # output rounds to bf16, mid and pw
+])                                     # too; plain rounds its dw result
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("shape, co, acts", [
     ((2, 16, 16, 32), 48, ("relu", "relu")),
-    ((1, 9, 15, 24), 16, ("relu6", "none")),       # odd H/W
+    ((1, 9, 15, 24), 16, ("relu6", "none")),       # odd H/W, K padded to 32
     ((2, 17, 33, 128), 128, ("relu", "relu6")),    # 128 -> 128, > 48 KB smem
+    ((2, 21, 37, 48), 64, ("relu", "relu")),       # w_out % 16 != 0, 2 tiles
+    ((1, 6, 9, 20), 24, ("none", "relu")),         # Cin*2 bytes not 16-whole
+    ((1, 3, 4, 6), 8, ("relu", "none")),           # Cin*4 not 16-whole
 ])
 def test_dsconv_kernel_matches_plain(cuda, shape, co, acts, stride, dtype,
                                      atol, rtol):
@@ -64,6 +67,52 @@ def test_dsconv_kernel_matches_plain(cuda, shape, co, acts, stride, dtype,
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+def _dyadic(seed, n, h, w, ci, co, device):
+    """bf16 K2 inputs with x, dw, a1 and b1 on a dyadic grid: the depthwise
+    sums and their affine are exact in f32 in any order, so kernel and
+    emulation round the same mid."""
+    q = lambda t, k: torch.round(t * k) / k  # noqa: E731
+    x, dw, a1, b1, pw, a2, b2 = _dsconv_args(seed, n, h, w, ci, co,
+                                             torch.float32, device)
+    return (q(x * 2, 8).to(torch.bfloat16), q(dw, 32), q(a1, 16),
+            q(b1, 256), pw, a2, b2)
+
+
+# bf16 against dsconv_kernel_rounding, which rounds where the kernel does
+# (mid after affine + act, pw, the output once): the outputs differ only
+# where the two f32 orders of the product's sum straddle a bf16 rounding,
+# at <= 2 + 1e-3 of the elements, each by one bf16 step
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape, co", [((2, 16, 16, 32), 48),
+                                       ((1, 9, 15, 24), 16),
+                                       ((2, 17, 33, 128), 128),
+                                       ((1, 6, 9, 20), 24)])
+def test_dsconv_kernel_rounding_bf16(cuda, shape, co, stride):
+    args = _dyadic(5, *shape, co, cuda)
+    kw = dict(stride=stride, act1="relu6", act2="relu")
+    got = K.fused_dsconv(*args, **kw)
+    want = K.dsconv_kernel_rounding(*args, **kw)
+    differ, far = K.bf16_step_gap(got, want)
+    assert differ <= 2 + 1e-3 * got.numel() and far == 0, (differ, far)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dsconv_kernel_takes_misaligned_x(cuda, dtype):
+    """x one element off a 16-byte boundary: the halo is staged element by
+    element and the result equals that of an aligned copy, bit for bit."""
+    args = _dsconv_args(6, 2, 11, 19, 32, 48, dtype, cuda)
+    x = args[0]
+    es, nbytes = x.element_size(), x.numel() * x.element_size()
+    buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=cuda)
+    shifted = buf[es:es + nbytes].view(dtype).view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    for stride in (1, 2):
+        a = K.fused_dsconv(*args, stride=stride)
+        b = K.fused_dsconv(shifted, *args[1:], stride=stride)
+        assert torch.equal(a, b)
+
+
 def test_dsconv_wrapper_raises_on_cuda(cuda):
     args = _dsconv_args(1, 1, 8, 8, 8, 8, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -72,6 +121,8 @@ def test_dsconv_wrapper_raises_on_cuda(cuda):
         K.fused_dsconv(args[0].half(), *args[1:])
     with pytest.raises(RuntimeError, match="forward-only"):
         K.fused_dsconv(args[0].requires_grad_(), *args[1:])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.fused_dsconv(*_dsconv_args(1, 1, 8, 8, 8, 12, torch.float32, cuda))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -108,7 +159,7 @@ def test_resize_argmax_first_max(cuda):
 def test_fastscnn_predict_on_cuda_matches_cpu(cuda):
     """f32 predict through both kernels on the card == the CPU's predict
     through the plain versions, except at near-ties (rate <= 1e-4)."""
-    model = build_model("fastscnn", 19,
+    model = build_model("fastscnn", 19, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     images = torch.from_numpy(np.random.RandomState(3)
                               .randn(2, 3, 128, 256).astype(np.float32))
@@ -164,6 +215,42 @@ def test_resize_ce_kernel_matches_plain(cuda, shape, r, eps, weighted):
     assert float(torch.linalg.norm(dz - dz0) / torch.linalg.norm(dz0)) <= 1e-4
 
 
+# The band backward at its edges, against the plain version (tolerances
+# as above): h not a multiple of the band (8 rows) and h < 8; r = 2, 3,
+# 16; several column tiles, the last one partial; a band whose labels
+# are all ignored; the clamped first and last rows and columns, whose
+# halo entries fold back, held separately.
+@pytest.mark.parametrize("shape, r, ignored_rows", [
+    ((2, 19, 12, 19), 4, None),           # h % 8 == 3
+    ((1, 5, 9, 19), 8, None),             # h < 8
+    ((1, 16, 150, 7), 2, (8, 16)),        # r = 2: 2 column tiles; band 2
+    ((2, 11, 90, 19), 3, None),           # r = 3: 85 columns a tile
+    ((1, 9, 40, 5), 16, (0, 8)),          # r = 16: 3 tiles; band 1 ignored
+    ((2, 24, 40, 19), 8, None),           # 3 full bands, 2 column tiles
+])
+def test_resize_ce_band_edges(cuda, shape, r, ignored_rows):
+    z, lab, cw = _resize_ce_case(7, *shape, r, True, cuda)
+    if ignored_rows is not None:
+        lab[:, ignored_rows[0] * r:ignored_rows[1] * r] = 255
+    s, n, dz = _resize_ce_value_and_grad(K.resize_ce_sums, z, lab, cw, r, 0.1)
+    s0, n0, dz0 = _resize_ce_value_and_grad(K.resize_ce_sums_ref, z, lab, cw,
+                                            r, 0.1)
+    assert abs(float(s - s0)) <= 1e-5 * abs(float(s0))
+    assert abs(float(n - n0)) <= 1e-5 * abs(float(n0))
+    def close(a, b):         # rel-L2 <= 1e-4 (both 0 where no pixel taps)
+        return float(torch.linalg.norm(a - b)) <= 1e-4 * float(
+            torch.linalg.norm(b))
+    assert close(dz, dz0)
+    for a, b in ((dz[:, 0], dz0[:, 0]), (dz[:, -1], dz0[:, -1]),
+                 (dz[:, :, 0], dz0[:, :, 0]), (dz[:, :, -1], dz0[:, :, -1])):
+        assert close(a, b)
+    if ignored_rows is not None:
+        lo, hi = ignored_rows        # rows no valid pixel taps stay 0
+        assert float(dz[:, lo + 1:hi - 1].abs().max()) == 0.0
+    again = _resize_ce_value_and_grad(K.resize_ce_sums, z, lab, cw, r, 0.1)
+    assert torch.equal(dz, again[2])
+
+
 def test_resize_ce_kernel_all_ignored(cuda):
     z, lab, cw = _resize_ce_case(1, 1, 4, 4, 19, 8, True, cuda,
                                  ignore_all=True)
@@ -216,7 +303,7 @@ def test_fastscnn_train_step_on_cuda_matches_cpu(cuda):
     labels[:, 60:68] = 255
     cw = torch.from_numpy((rng.rand(19) + 0.5).astype(np.float32))
     lr = 4.5e-4
-    cpu = build_model("fastscnn", 19,
+    cpu = build_model("fastscnn", 19, device="cpu",
                       generator=torch.Generator().manual_seed(0))
     cpu.head.drop.rate = 0.0
     gpu = copy.deepcopy(cpu).to(cuda)
@@ -348,7 +435,7 @@ def test_cgnet_predict_on_cuda_matches_cpu(cuda):
     """f32 predict of the full-depth CGNet through K4 (22 launches) and K1
     on the card == the CPU's predict through the plain versions, except
     at near-ties (rate <= 1e-4)."""
-    model = build_model("cgnet", 19,
+    model = build_model("cgnet", 19, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     images = torch.from_numpy(np.random.RandomState(3)
                               .randn(2, 3, 128, 256).astype(np.float32))

@@ -84,7 +84,7 @@ def pair(jax_model_and_shapes):
     """(JAX model, numpy variables, port model with those weights)."""
     jmodel, shapes = jax_model_and_shapes
     variables = _random_variables(shapes, np.random.RandomState(0))
-    model = build_model("fastscnn", CLASSES)
+    model = build_model("fastscnn", CLASSES, device="cpu")
     model.load_state_dict(convert.to_state_dict(variables), strict=True)
     calib = np.random.RandomState(5).randn(2, 3, 128, 256).astype(np.float32)
     _calibrate_bn(model, torch.from_numpy(calib))
@@ -108,20 +108,31 @@ def _leaves(tree, prefix=()):
 def test_registry_aliases():
     assert "fastscnn" in available_models()
     for name in ("FastSCNN", "fast_scnn", "fast-scnn"):
-        assert type(build_model(name, 3)).__name__ == "FastSCNN"
+        assert type(build_model(name, 3, device="cpu")).__name__ == "FastSCNN"
     with pytest.raises(KeyError):
         build_model("no_such_model", 3)
 
 
+def test_build_model_defaults_to_the_card(monkeypatch):
+    """No device: the CUDA device, and on a machine without one a raise,
+    never a quiet CPU build; ``device="cpu"`` builds on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("fastscnn", CLASSES)
+    model = build_model("fastscnn", CLASSES, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_count_params():
-    assert count_params(build_model("fastscnn", CLASSES)) == N_PARAMS
+    model = build_model("fastscnn", CLASSES, device="cpu")
+    assert count_params(model) == N_PARAMS
 
 
 def test_init_is_seeded():
-    g = lambda s: torch.Generator().manual_seed(s)
-    a = build_model("fastscnn", CLASSES, generator=g(3)).state_dict()
-    b = build_model("fastscnn", CLASSES, generator=g(3)).state_dict()
-    c = build_model("fastscnn", CLASSES, generator=g(4)).state_dict()
+    def g(s):
+        return build_model("fastscnn", CLASSES, device="cpu",
+                           generator=torch.Generator().manual_seed(s))
+    a, b, c = (g(s).state_dict() for s in (3, 3, 4))
     key = "ltd.conv.conv.weight"
     assert torch.equal(a[key], b[key]) and not torch.equal(a[key], c[key])
 
@@ -132,7 +143,7 @@ def test_convert_round_trip_is_bit_exact(jax_model_and_shapes):
                                   np.random.RandomState(7))
     leaves = dict(_leaves(variables))
     assert len(leaves) == N_LEAVES
-    model = build_model("fastscnn", CLASSES)
+    model = build_model("fastscnn", CLASSES, device="cpu")
     sd = convert.to_state_dict(variables)
     assert set(sd) == set(model.state_dict())
     model.load_state_dict(sd, strict=True)

@@ -52,6 +52,52 @@ def test_dsconv_ref_matches_reference(stride, hw, acts):
     np.testing.assert_allclose(got, plain, atol=ATOL, rtol=RTOL)
 
 
+def _dyadic_dsconv_args(rng, n, h, w, ci, co):
+    """Seeded K2 inputs with x, dw, a1 and b1 on a dyadic grid: the
+    depthwise sums and their affine are exact in f32 in any order (but
+    not in bf16), so every side rounds the same mid."""
+    q = lambda a, k: (np.round(a * k) / k).astype(np.float32)  # noqa: E731
+    x, dw, a1, b1, pw, a2, b2 = _dsconv_args(rng, n, h, w, ci, co)
+    return q(x * 2, 8), q(dw, 32), q(a1, 16), q(b1, 256), pw, a2, b2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw, stride", [((16, 16), 1), ((16, 16), 2),
+                                        ((9, 15), 1), ((9, 15), 2)])
+def test_dsconv_kernel_rounding_matches_pallas(hw, stride, dtype):
+    """The emulation of the CUDA kernel's rounding points == the JAX
+    Pallas kernel (interpret), which rounds at the same points (mid to
+    x's dtype before the product, pw to x's dtype, the output once): f32
+    within 1e-5; bf16 on dyadic inputs, where mid is the same on both
+    sides and only the f32 order of the product's sum differs: at most
+    2 + 1e-3 of the elements differ, none by more than one bf16 step. And
+    against the JAX plain version, which rounds the depthwise result and
+    not mid: f32 within 1e-5, bf16 within chip_smoke's DSCONV_TOL (5e-2,
+    2e-2)."""
+    args = _dyadic_dsconv_args(np.random.RandomState(8), 2, *hw, 24, 16)
+    kw = dict(stride=stride, act1="relu6", act2="relu")
+    tdt = getattr(torch, dtype)
+    targs = [torch.from_numpy(a) for a in args]
+    targs[0] = targs[0].to(tdt)
+    got = K.dsconv_kernel_rounding(*targs, **kw)
+    assert got.dtype == tdt
+    jargs = [jnp.asarray(a) for a in args]
+    jargs[0] = jargs[0].astype(dtype)
+    pallas = torch.from_numpy(np.array(
+        JD.fused_dsconv(*jargs, impl="interpret", **kw).astype(jnp.float32)))
+    plain = torch.from_numpy(np.array(
+        JD.dsconv_ref(*jargs, **kw).astype(jnp.float32)))
+    assert got.shape == pallas.shape == plain.shape
+    if dtype == "float32":
+        for want in (pallas, plain):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
+                                       rtol=RTOL)
+        return
+    differ, far = K.bf16_step_gap(got, pallas)
+    assert differ <= 2 + 1e-3 * got.numel() and far == 0, (differ, far)
+    torch.testing.assert_close(got.float(), plain, atol=5e-2, rtol=2e-2)
+
+
 def test_fused_dsconv_takes_plain_version_on_cpu():
     args = [torch.from_numpy(a) for a in
             _dsconv_args(np.random.RandomState(1), 1, 7, 10, 4, 8)]

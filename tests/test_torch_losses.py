@@ -255,7 +255,7 @@ def test_build_loss_and_fused_spec():
     assert L.build_loss("label_smoothing").keywords == {"label_smoothing": 0.1}
     with pytest.raises(KeyError):
         L.build_loss("focal")
-    model = build_model("fastscnn", 4)
+    model = build_model("fastscnn", 4, device="cpu")
     for name, eps in (("ce", 0.0), ("label_smoothing", 0.1)):
         fn, method = L.fused_resize_ce_spec(model, name)
         assert method == "logits_lowres"

@@ -26,7 +26,8 @@ from esn_tpu_torch.train.step import make_predict_step
 images = torch.randn((1, 3, 64, 128), generator=torch.Generator().manual_seed(1))
 preds = {}
 for arch in ("fastscnn", "cgnet"):
-    model = build_model(arch, 19, generator=torch.Generator().manual_seed(0))
+    model = build_model(arch, 19, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
     pred = make_predict_step(model)(images)
     preds[arch] = [list(pred.shape), str(pred.dtype)]
 print(json.dumps({

@@ -249,7 +249,7 @@ def setup():
 def _port(variables, cw, opt_state=None, count=0, grad_accum=1):
     """Port model with these variables, dropout off; its adam + poly train
     step through the fused-CE spec, at step ``count``."""
-    model = build_model("fastscnn", CLASSES)
+    model = build_model("fastscnn", CLASSES, device="cpu")
     model.head.drop.rate = 0.0
     model.load_state_dict(convert.to_state_dict(variables), strict=True)
     opt = O.build_optimizer("adam", model.parameters())
@@ -457,7 +457,7 @@ def test_adam_state_round_trip(setup):
              optax.ScaleByAdamState(count=jnp.asarray(5, jnp.int32),
                                     mu=mu, nu=nu),
              optax.EmptyState())
-    model = build_model("fastscnn", CLASSES)
+    model = build_model("fastscnn", CLASSES, device="cpu")
     opt = O.build_optimizer("adam", model.parameters())
     convert.load_adam_state(opt, model, state)
     w = model.ltd.conv.conv.weight
@@ -482,7 +482,7 @@ def test_convert_copies_and_never_aliases():
     sd["c.weight"].add_(1.0)                 # would write into w's buffer
     np.testing.assert_array_equal(np.asarray(w),
                                   np.arange(6).reshape(1, 1, 2, 3))
-    model = build_model("fastscnn", 3)
+    model = build_model("fastscnn", 3, device="cpu")
     tree = convert.to_variables(model.state_dict())
     before = tree["params"]["head"]["conv"]["bias"].copy()
     with torch.no_grad():
