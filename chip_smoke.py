@@ -26,13 +26,16 @@ last line of standard output is one JSON object; the line before it lists
 the kernels. ``ms``/``plain_ms``/``bound_ms``: for ``fused_dsconv`` the
 sum of its four layers' bf16 times per predict, each timed at its own
 shape; for ``resize_argmax`` its time per predict; for ``resize_ce_sums``
-forward + backward per train step; for ``fused_cgblock_pre`` its bf16
+forward + backward per train step (``chip_smoke.json`` keeps the two
+apart: ``fwd_ms``, ``bwd_ms``, their bounds, and the forward's SFU floor
+``fwd_sfu_floor_ms``); for ``fused_cgblock_pre`` its bf16
 time per CGNet predict (2 launches at the stage2 shape, 20 at stage3's);
 its ``launches`` are CGNet's. ``bound_ms`` is computed from this run's
 shapes and labels (see ``bound``); ``library_ms`` is null, since no
-single PyTorch call computes any of the four functions. ``max_abs_err``: for ``resize_argmax`` the
-largest gap between the f32 upsampled logits of the classes that the
-kernel and the plain version chose; for ``resize_ce_sums`` the largest
+single PyTorch call computes any of the four functions. ``max_abs_err``:
+for ``resize_argmax`` the largest gap between the f32 upsampled logits of
+the classes that the kernel and the plain version chose (every K1 case
+also launches twice and must give the same map bit for bit); for ``resize_ce_sums`` the largest
 difference of dz. ``launches`` for ``resize_ce_sums`` counts forward and
 backward launches together. Details go to ``chip_smoke.json`` in the
 output directory beside this script.
@@ -134,15 +137,21 @@ IGNORE = 255
 # products of bf16 operands on the tensor cores (BF16_TC_FLOPS), all
 # other arithmetic in f32 outside them (F32_FLOPS); NVIDIA H100 SXM data
 # sheet, dense, at 700 W. Operations per element, the least each
-# algorithm needs: K1 3 per (full-res pixel, class) (the column lerp of a
-# separable upsample, 1 FMA, and one compare); K3 forward 6 per (valid
-# full-res pixel, class) (lerp 2, max-subtract, exp, sum 3, true logit and
-# mean 1), backward 9 (lerp 2, softmax 3, gradient 2, the transposed lerp
+# algorithm needs: K1 3 per (full-res pixel, class) (the y-blend of the
+# column's x-lerped logits, 1 FMA, whose x-lerp a column shares over r
+# rows, and a compare and select 2); K3 forward 6 per (valid full-res
+# pixel, class) (the blend 2 as K1's, max, the scaled subtraction, exp and
+# sum 4; the true logit and the mean are per pixel), backward 9 (lerp 2, softmax 3, gradient 2, the transposed lerp
 # 2); K2 18 per (output pixel, input channel) for the depthwise taps and
 # 2 Cin per (output pixel, output channel) for the pointwise product; K4
 # 2 C per (pixel, reduced channel) for the reduce and 36 per (pixel,
 # reduced channel) for the two stencils.
 HBM_BPS, F32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
+# K3's forward also has an SFU floor, beside its bound: one exp a (valid
+# pixel, class) and one log a valid pixel at SFU_PER_CLOCK results a clock
+# on each SM (CUDA C++ Programming Guide, arithmetic throughput, compute
+# capability 9.0), at the card's largest SM clock (nvidia-smi).
+SFU_PER_CLOCK = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -166,6 +175,12 @@ def dsconv_bound(shape, cout, stride, itemsize):
     px = n * ho * wo
     return bound(nbytes, 18 * px * cin, 2 * px * cin * cout,
                  BF16_TC_FLOPS if itemsize == 2 else F32_FLOPS)
+
+
+def sm_clock_max_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
 
 
 def check(ok: bool, what: str) -> None:
@@ -250,6 +265,7 @@ def upsampled_gap(torch, F, y, r, a, b):
 def resize_argmax_case(K, torch, F, gen, shape, r, dtype):
     y = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     got = K.resize_argmax(y, r)
+    again = K.resize_argmax(y, r)
     ref = K.resize_argmax_ref(y, r)
     torch.cuda.synchronize()
     n, h, w, c = shape
@@ -263,6 +279,7 @@ def resize_argmax_case(K, torch, F, gen, shape, r, dtype):
            "mismatch_rate": float((got != ref).float().mean()),
            "max_abs_err": float(gap.max()), "gap_rel_tol": rel,
            "within_tol": bool((gap <= rel * mag).all()),
+           "bit_identical": bool(torch.equal(got, again)),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "ms": cuda_ms(lambda: K.resize_argmax(y, r)),
            "plain_ms": cuda_ms(lambda: K.resize_argmax_ref(y, r))}
@@ -294,16 +311,20 @@ def kernel_phase(torch, F, K):
                                  8, dtype)
         row["layer"] = "predict tail"
         argmax_rows.append(row)
-        row = resize_argmax_case(K, torch, F, gen, (2, 13, 21, CLASSES), 3,
-                                 dtype)
-        row["layer"] = "odd"
-        argmax_rows.append(row)
+        # odd: h not a multiple of the band, a partial column tile; r = 5
+        # with C = 64, the shared-memory instantiation
+        for shape, r in (((2, 13, 21, CLASSES), 3), ((1, 9, 120, 64), 5)):
+            row = resize_argmax_case(K, torch, F, gen, shape, r, dtype)
+            row["layer"] = "odd"
+            argmax_rows.append(row)
     for row in dsconv_rows + argmax_rows:
         print("kernel", json.dumps(row))
     bad = [r for r in dsconv_rows + argmax_rows if not r["within_tol"]]
     check(not bad, f"kernel outside tolerance: {bad}")
     check(all(r["bit_identical"] for r in dsconv_rows),
           "fused_dsconv: two launches differ")
+    check(all(r["bit_identical"] for r in argmax_rows),
+          "resize_argmax: two launches differ")
     return dsconv_rows, argmax_rows
 
 
@@ -406,12 +427,14 @@ def resize_ce_value_and_grad(torch, fn, z, lab, cw, r, eps):
 
 
 def resize_ce_case(K, torch, gen, shape, r, eps, weighted, timed=False,
-                   all_ignored=False):
+                   all_ignored=False, scale=1.0):
     """K3 against its plain version: S, N, the loss and dz; for the main
     shape also bit-identity over two launches and the times of forward
-    and backward (CUDA events) of each."""
+    and backward (CUDA events) of each. ``scale`` multiplies the logits
+    (x100: a class spreads by more than 64 between two tap rows, where the
+    forward takes each pixel's own max)."""
     b, h, w, c = shape
-    z = torch.randn(shape, generator=gen, device="cuda")
+    z = torch.randn(shape, generator=gen, device="cuda") * scale
     lab = torch.randint(0, c, (b, h * r, w * r), generator=gen,
                         device="cuda", dtype=torch.int32)
     drop = torch.rand(lab.shape, generator=gen, device="cuda") < 0.05
@@ -427,7 +450,7 @@ def resize_ce_case(K, torch, gen, shape, r, eps, weighted, timed=False,
                                                                  1e-8))
     dz_norm = float(torch.linalg.norm(dz0))
     dz_rel = float(torch.linalg.norm(dz - dz0)) / max(dz_norm, 1e-30)
-    row = {"shape": list(shape), "r": r, "label_smoothing": eps,
+    row = {"shape": list(shape), "r": r, "label_smoothing": eps, "scale": scale,
            "weighted": weighted, "S": float(s), "plain_S": float(s0),
            "N": float(n), "plain_N": float(n0), "loss": loss,
            "plain_loss": loss0, "dz_max_abs_err": float((dz - dz0).abs().max()),
@@ -448,6 +471,10 @@ def resize_ce_case(K, torch, gen, shape, r, eps, weighted, timed=False,
         row["bwd_bound_ms"], bwd_by = bound(2 * zbytes + lbytes,
                                             9 * nvalid * c)
         row["bound_ms"] = row["fwd_bound_ms"] + row["bwd_bound_ms"]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["sm_clock_max_mhz"] = sm_clock_max_mhz()
+        row["fwd_sfu_floor_ms"] = 1e3 * nvalid * (c + 1) / (
+            sms * SFU_PER_CLOCK * row["sm_clock_max_mhz"] * 1e6)
         row["bound_by"] = (bwd_by if row["bwd_bound_ms"] >= row["fwd_bound_ms"]
                            else fwd_by)
         again = resize_ce_value_and_grad(torch, K.resize_ce_sums, z, lab, cw,
@@ -477,6 +504,9 @@ def resize_ce_phase(torch, K):
                            True, timed=True),
             resize_ce_case(K, torch, gen, (2, 13, 21, CLASSES), 3, 0.1, False),
             resize_ce_case(K, torch, gen, (1, 9, 7, 5), 16, 0.0, True),
+            resize_ce_case(K, torch, gen, (2, 13, 21, CLASSES), 3, 0.1, True,
+                           scale=100.0),
+            resize_ce_case(K, torch, gen, (1, 7, 12, 64), 4, 0.1, True),
             resize_ce_case(K, torch, gen, (1, 8, 8, CLASSES), 8, 0.0, True,
                            all_ignored=True)]
     rows[0]["layer"] = "train loss tail"

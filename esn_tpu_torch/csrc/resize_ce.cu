@@ -16,34 +16,53 @@
 // Taps: full-res row Y = r*i + p blends rows (lo, hi) = (i-1, i) when
 // d = (p+0.5)/r - 0.5 < 0 (weight f = 1+d on hi) and (i, i+1) otherwise
 // (f = d), clamped to [0, h); columns the same. f and 1-f are computed in
-// double on the host and rounded once to f32, as in K1 (resize_argmax.cu).
+// double on the host and rounded once to f32 (common.cuh: Phases), as in
+// K1 (resize_argmax.cu). Both passes lerp x first, then y, so they see the
+// same logits.
 //
 // What bounds it on an H100, at Fast-SCNN's batch 8 (z (8,128,256,19),
 // r = 8): the forward must read 67 MB of int32 labels and 20 MB of logits
-// (26 us at 3.35 TB/s), and takes 16.7M pixels x 19 classes of exp
-// (0.32 G exp, ~0.1 ms of the SFUs) plus the interpolation FMAs and the
-// tap loads from L1. So it is bound by arithmetic and L1, not by HBM. The
+// (26 us at 3.35 TB/s), and takes 16.7M pixels x 19 classes of exp: 0.32 G
+// exp, ~0.08 ms at the SFUs' 16 a clock an SM, above the 27 us that
+// chip_smoke.py's bound gives by counting an exp as one f32 operation. The
 // backward moves 67 MB of labels, 20 MB of z and 20 MB of dz (107 MB, 32
 // us) for ~2.7 GFLOP (upsample, softmax, gradient and its transposed
 // upsample, 9 per valid (pixel, class), as chip_smoke.py counts them: 41
 // us at the f32 peak), so its bound is ~0.04 ms, set by the arithmetic
 // about as much as by HBM.
 //
-// Forward design: one thread per full-res pixel in a grid-stride loop
-// (neighbouring threads on neighbouring columns: label reads coalesce,
-// the r threads that share a source column read the same logits from
-// L1). One pass over classes with an online logsumexp (one exp per class).
-// Each block reduces its threads' sums in double into a per-block slot of
-// a scratch buffer; a second one-block kernel sums the slots in a fixed
-// order. The grid depends only on the shape, so two runs give
-// bit-identical S and N; there are no float atomics.
+// Both passes tile as the band walk of common.cuh: one block of 256
+// threads per (image, band of kBand low-res rows, tile of wb low-res
+// columns, wb ~ 256/r so that a thread owns one full-res column); the
+// logits of low-res rows i0-1 .. i0+kBand and columns j0-1 .. j0+wb
+// (clamped to the image, which is the upsample's edge clamp) go to shared
+// memory once with 16-byte cp.async copies (stage_band).
 //
-// Backward design (band, as the TPU kernel's _bwd_kernel): one block of
-// 256 threads per (image, band of kBand low-res rows, tile of wb low-res
-// columns, wb ~ 256/r so that a thread owns one full-res column):
-//   1. the logits of low-res rows i0-1 .. i0+kBand and columns j0-1 ..
-//      j0+wb (clamped to the image, which is the upsample's edge clamp) go
-//      to shared memory with 16-byte cp.async copies;
+// Forward design: each thread lerps its column's logits along x once per
+// tap row, then walks down its column two full-res rows at a time (two
+// pixels' chains in flight), with its labels coalesced across the threads.
+// Per tap row it also takes M, the largest logit of either tap row over
+// the classes: no pixel blended from the two rows has a larger one, so M
+// stands in for the pixel's max in lse = M + ln 2 * log2(sum_k 2^((z_k -
+// M) log2 e)) and the max pass goes. It keeps (xa_k - M) log2 e and d_k
+// log2 e in registers (up to kRegClasses classes; above, each logit is
+// lerped from shared memory), so a (pixel, class) costs one FMA, one
+// ex2.approx on the SFU and one add, with no branch. Where a class spreads
+// by more than kMaxSpread between the two rows, M could sit so far above a
+// pixel's max that its exps underflow: those tap rows take each pixel's
+// own max first. The true-class logit is lerped again from shared memory
+// (the backward's bits), the class mean comes from the tap rows' sums.
+// ex2.approx and lg2.approx are ~2 ulp, far inside the sums' 1e-5
+// relative tolerance against the plain version. Each thread sums its
+// pixels in f32, the block its threads in double, in a fixed order, into a
+// per-block slot of a scratch buffer; a second one-block kernel sums the
+// slots in a fixed order. The tiling depends only on the shape: two runs
+// give bit-identical S and N; there are no float atomics. The first design
+// (one thread per full-res pixel, a 64-bit div/mod each, four scalar
+// global loads a class and a branchy online logsumexp with expf/logf) ran
+// at ~26x its bound.
+//
+// Backward design (band, as the TPU kernel's _bwd_kernel), after staging:
 //   2. each thread walks down its own full-res column of the band, taking
 //      each pixel once: its label (coalesced across the threads, the next
 //      row's load in flight), its C logits lerped along y between the
@@ -72,84 +91,12 @@
 // pixels) evaluated every (pixel, class) 8 times and ran at ~180x.
 #include "common.cuh"
 
-#include <math.h>
-
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxFactor = 16;
-constexpr int kMaxFwdBlocks = 4096;
-
-// per sub-pixel phase: is the upper tap at +1 (else at 0, the lower at -1),
-// and the f32 weights on the upper and the lower tap. For the backward's
-// contraction: h0, the first phase whose upper tap is at +1, and wcol, the
-// weights of the 2r full-res columns (u-2)*r + h0 + m, m < 2r, that tap
-// low-res column u (as their upper tap for m < r, their lower one after).
-struct Phases {
-  int upper_next[kMaxFactor];
-  float frac[kMaxFactor];
-  float frac_lo[kMaxFactor];
-  int h0;
-  float wcol[2 * kMaxFactor];
-};
-
-struct Tap {
-  int lo, hi;
-  float f, f_lo;
-};
-
-__device__ __forceinline__ Tap tap(int Y, int r, int h, const Phases& ph) {
-  const int i = Y / r, p = Y - i * r;
-  Tap t;
-  t.lo = ph.upper_next[p] ? i : max(i - 1, 0);
-  t.hi = ph.upper_next[p] ? min(i + 1, h - 1) : i;
-  t.f = ph.frac[p];
-  t.f_lo = ph.frac_lo[p];
-  return t;
-}
-
-// the four source pixels of one full-res pixel and its two blend weights
-struct Pixel {
-  const float *lo_a, *hi_a, *lo_b, *hi_b;
-  float f, g;
-  __device__ __forceinline__ float logit(int k) const {
-    const float va = fmaf(f, hi_a[k] - lo_a[k], lo_a[k]);
-    const float vb = fmaf(f, hi_b[k] - lo_b[k], lo_b[k]);
-    return fmaf(g, vb - va, va);
-  }
-};
-
-__device__ __forceinline__ Pixel pixel(const float* img, int w, int c,
-                                       const Tap& ty, const Tap& tx) {
-  Pixel px;
-  px.lo_a = img + ((int64_t)ty.lo * w + tx.lo) * c;
-  px.hi_a = img + ((int64_t)ty.hi * w + tx.lo) * c;
-  px.lo_b = img + ((int64_t)ty.lo * w + tx.hi) * c;
-  px.hi_b = img + ((int64_t)ty.hi * w + tx.hi) * c;
-  px.f = ty.f;
-  px.g = tx.f;
-  return px;
-}
-
-// online logsumexp over classes; also the true-class logit and the sum
-__device__ __forceinline__ float logsumexp(const Pixel& px, int c, int y,
-                                           float& true_logit, float& sum) {
-  float m = -INFINITY, s = 0.f, vt = 0.f, vs = 0.f;
-  for (int k = 0; k < c; ++k) {
-    const float v = px.logit(k);
-    if (v > m) {
-      s = s * expf(m - v) + 1.f;
-      m = v;
-    } else {
-      s += expf(v - m);
-    }
-    vt = k == y ? v : vt;
-    vs += v;
-  }
-  true_logit = vt;
-  sum = vs;
-  return m + logf(s);
-}
+using esn::kBand;
+using esn::kMaxFactor;
+using esn::Phases;
+constexpr int kThreads = esn::kBandThreads;
 
 __device__ __forceinline__ bool valid_label(int y, int c, int ignore) {
   return y != ignore && y >= 0 && y < c;
@@ -170,44 +117,191 @@ __device__ __forceinline__ double block_sum(double v, double* smem) {
   return v;
 }
 
-int fwd_blocks(int n, int h, int w, int r) {
-  const int64_t total = (int64_t)n * h * r * w * r;
-  const int64_t want = (total + kThreads - 1) / kThreads;
-  return (int)(want < kMaxFwdBlocks ? want : kMaxFwdBlocks);
+// Classes up to which a thread keeps its column's state in registers:
+// Cityscapes' 19, CamVid's 11; more take shared memory.
+constexpr int kRegClasses = 20;
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// 2^x and log2(x) on the SFU (ex2.approx.ftz, lg2.approx.ftz: ~2 ulp)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kThreads)
-resize_ce_fwd_kernel(const float* __restrict__ z, const int* __restrict__ lab,
-                     const float* __restrict__ cw, double* __restrict__ partial,
-                     int n, int h, int w, int c, int r, int ignore, float eps,
-                     Phases ph) {
-  __shared__ double smem[kThreads / 32];
-  const int64_t W = (int64_t)w * r, H = (int64_t)h * r;
-  const int64_t total = (int64_t)n * H * W;
-  double acc_s = 0.0, acc_n = 0.0;
-  for (int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-       idx < total; idx += (int64_t)gridDim.x * kThreads) {
-    const int y = lab[idx];
-    if (!valid_label(y, c, ignore)) continue;
-    const int X = (int)(idx % W);
-    const int64_t t = idx / W;
-    const int Y = (int)(t % H);
-    const int b = (int)(t / H);
-    const Pixel px = pixel(z + (int64_t)b * h * w * c, w, c, tap(Y, r, h, ph),
-                           tap(X, r, w, ph));
-    float vt, vs;
-    const float lse = logsumexp(px, c, y, vt, vs);
-    float nll = lse - vt;
-    if (eps > 0.f) nll = (1.f - eps) * nll + eps * (lse - vs / c);
-    const float wpix = cw[y];
-    acc_s += (double)(wpix * nll);
-    acc_n += (double)wpix;
+// The forward's tiling: wb low-res columns a block (common.cuh: band_cols).
+struct FwdPlan {
+  int wb, nband, ncol;
+  size_t bytes;
+  FwdPlan(int h, int w, int c, int r)
+      : wb(esn::band_cols<float>(w, c, r)),
+        nband((h + kBand - 1) / kBand),
+        ncol((w + wb - 1) / wb),
+        bytes(esn::band_bytes<float>(wb, c)) {}
+};
+
+// Largest spread, in natural-log units, of one class's logits between the
+// two tap rows for which the tap rows' largest logit M may stand in for a
+// pixel's max: the pixel's largest logit then lies within it of M, so the
+// largest term of its sum of exp(z - M) is at least e^-64, far above where
+// ex2.approx.ftz flushes to 0 (2^-126 = e^-87.3).
+constexpr float kMaxSpread = 64.f;
+
+// A thread's column for the forward: BandColumn's staged logits and, per
+// tap row t, M (no pixel blended from rows t and t+1 has a larger logit),
+// whether some class spreads more than kMaxSpread between the two rows
+// (then each pixel takes its own max), the sums of xa and d over classes
+// (for the class mean), and with CMAX > 0 the logits scaled for exp2, a_k
+// = (xa_k - M) log2 e and b_k = d_k log2 e, in registers for CMAX classes
+// (a = -inf, b = 0 past c: 2^-inf = 0).
+template <int CMAX>
+struct CeColumn : esn::BandColumn<float, 0> {
+  static constexpr int kCMax = CMAX;
+  static constexpr int kN = CMAX > 0 ? CMAX : 1;
+  float a[kN], b[kN];
+  float m, sum_xa, sum_d;
+  bool wide;
+
+  __device__ __forceinline__ void load(int row) {
+    t = row;
+    const int n = CMAX > 0 ? CMAX : c;
+    float mx = -INFINITY, spread = 0.f, s0 = 0.f, s1 = 0.f;
+#pragma unroll(kN)
+    for (int k = 0; k < n; ++k) {  // selects, not branches
+      const bool in = k < c;
+      const float x0 = xlerp(t, in ? k : 0), dk = xlerp(t + 1, in ? k : 0) - x0;
+      mx = in ? fmaxf(mx, fmaxf(x0, x0 + dk)) : mx;
+      spread = in ? fmaxf(spread, fabsf(dk)) : spread;
+      s0 += in ? x0 : 0.f;
+      s1 += in ? dk : 0.f;
+      if constexpr (CMAX > 0) a[k] = in ? x0 : -INFINITY, b[k] = in ? dk : 0.f;
+    }
+    m = mx, sum_xa = s0, sum_d = s1;
+    wide = !(spread <= kMaxSpread);
+    if constexpr (CMAX > 0) {
+#pragma unroll
+      for (int k = 0; k < CMAX; ++k) a[k] = (a[k] - m) * kLog2e, b[k] *= kLog2e;
+    }
   }
-  acc_s = block_sum(acc_s, smem);
-  acc_n = block_sum(acc_n, smem);
-  if (threadIdx.x == 0) {
-    partial[2 * blockIdx.x] = acc_s;
-    partial[2 * blockIdx.x + 1] = acc_n;
+  // (z_k - M) log2 e of class k at y-weight f
+  __device__ __forceinline__ float scaled(int k, float f) const {
+    if constexpr (CMAX > 0) {
+      return fmaf(f, b[k], a[k]);
+    } else {
+      return (logit_smem(k, f) - m) * kLog2e;
+    }
+  }
+};
+
+// log2 of sum_k 2^(scaled_k) for two pixels (y-weights fa, fb), two sums
+// each, the four interleaved: per class one FMA, one ex2 and one add. With
+// kWide each pixel first takes its own max, which its sum then leaves out.
+template <bool kWide, typename Col>
+__device__ __forceinline__ void log2_sums(const Col& col, float fa, float fb, float& la,
+                                          float& lb) {
+  const int n = Col::kCMax > 0 ? Col::kCMax : col.c;
+  float oa = 0.f, ob = 0.f;
+  if constexpr (kWide) {
+    oa = ob = -INFINITY;
+#pragma unroll(Col::kN)
+    for (int k = 0; k < n; ++k) {
+      oa = fmaxf(oa, col.scaled(k, fa));
+      ob = fmaxf(ob, col.scaled(k, fb));
+    }
+  }
+  float sa[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f};
+#pragma unroll(Col::kN)
+  for (int k = 0; k < n; ++k) {
+    if constexpr (kWide) {
+      sa[k & 1] += ex2(col.scaled(k, fa) - oa);
+      sb[k & 1] += ex2(col.scaled(k, fb) - ob);
+    } else {
+      sa[k & 1] += ex2(col.scaled(k, fa));
+      sb[k & 1] += ex2(col.scaled(k, fb));
+    }
+  }
+  la = oa + lg2(sa[0] + sa[1]);
+  lb = ob + lg2(sb[0] + sb[1]);
+}
+
+// nll of two pixels of the column (y-weights fa, fb; labels ka, kb, each in
+// [0, c)): lse = M + ln 2 * log2(sum_k 2^((z_k - M) log2 e)), nll = lse -
+// z_y with z_y lerped again from shared memory (the same bits as the
+// backward's), and with eps > 0 (1-eps) nll + eps (lse - mean_k z_k).
+template <typename Col>
+__device__ __forceinline__ void nll_pair(const Col& col, float fa, float fb, int ka, int kb,
+                                         float eps, float& na, float& nb) {
+  float la, lb;
+  if (col.wide)
+    log2_sums<true>(col, fa, fb, la, lb);
+  else
+    log2_sums<false>(col, fa, fb, la, lb);
+  const float lsa = kLn2 * la, lsb = kLn2 * lb;
+  na = (col.m - col.logit_smem(ka, fa)) + lsa;
+  nb = (col.m - col.logit_smem(kb, fb)) + lsb;
+  if (eps > 0.f) {  // lse - mean = (M - mean) + ln 2 log2(sum)
+    const float ma = fmaf(fa, col.sum_d, col.sum_xa) / col.c;
+    const float mb = fmaf(fb, col.sum_d, col.sum_xa) / col.c;
+    na = (1.f - eps) * na + eps * ((col.m - ma) + lsa);
+    nb = (1.f - eps) * nb + eps * ((col.m - mb) + lsb);
+  }
+}
+
+template <int CMAX>
+__global__ void __launch_bounds__(kThreads, 3)
+resize_ce_fwd_kernel(const float* __restrict__ z, const int* __restrict__ lab,
+                     const float* __restrict__ cw, double* __restrict__ partial, int h, int w,
+                     int c, int r, int ignore, float eps, int wb, Phases ph) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int zshift[kBand + 2];
+  __shared__ double red[kThreads / 32];
+  const int tid = threadIdx.x;
+  const int nband = (h + kBand - 1) / kBand, ncol = (w + wb - 1) / wb;
+  const int ct = blockIdx.x % ncol;
+  const int band = (blockIdx.x / ncol) % nband;
+  const int b = blockIdx.x / (ncol * nband);
+  const int i0 = band * kBand, j0 = ct * wb;
+  const int rows = min(kBand, h - i0), cols = min(wb, w - j0);
+  const int zstride = esn::band_stride<float>(wb, c);
+  esn::stage_band(smem, zshift, z, b, h, w, c, i0, j0, wb, zstride, esn::aligned16(z), tid);
+  esn::cp_async_commit();
+  esn::cp_async_wait_all();
+  __syncthreads();
+
+  const int jj = tid / r, px = tid - jj * r;  // this thread's full-res column
+  float acc_s = 0.f, acc_n = 0.f;
+  if (jj < cols) {
+    const int64_t W = (int64_t)w * r;
+    const int* lcol = lab + ((int64_t)b * h * r + (int64_t)i0 * r) * W + (int64_t)j0 * r + tid;
+    CeColumn<CMAX> col;
+    col.s = smem;
+    col.shift = zshift;
+    col.stride = zstride;
+    col.off = (jj + ph.upper_next[px]) * c;
+    col.c = c;
+    col.fx = ph.frac[px];
+    esn::walk_column(col, rows, r, ph, [&](int Y, float fa, float fb, bool two) {
+      const int ya = __ldg(lcol + Y * W);
+      const int yb = two ? __ldg(lcol + (Y + 1) * W) : ignore;
+      const bool va = valid_label(ya, c, ignore), vb = valid_label(yb, c, ignore);
+      float na, nb;
+      nll_pair(col, fa, fb, va ? ya : 0, vb ? yb : 0, eps, na, nb);
+      const float wa = va ? __ldg(cw + ya) : 0.f, wb_ = vb ? __ldg(cw + yb) : 0.f;
+      acc_s += (va ? wa * na : 0.f) + (vb ? wb_ * nb : 0.f);
+      acc_n += wa + wb_;
+    });
+  }
+  const double s = block_sum(acc_s, red);
+  const double n = block_sum(acc_n, red);
+  if (tid == 0) {
+    partial[2 * blockIdx.x] = s;
+    partial[2 * blockIdx.x + 1] = n;
   }
 }
 
@@ -228,15 +322,6 @@ resize_ce_finish_kernel(const double* __restrict__ partial, int blocks,
   }
 }
 
-// Backward tiling: kBand low-res rows x wb low-res columns a block.
-constexpr int kBand = 8;
-
-__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
-
-// Classes up to which a thread keeps its column's state (below) in
-// registers: Cityscapes' 19, CamVid's 11; more take shared memory.
-constexpr int kRegClasses = 20;
-
 // shared-memory plan of the backward, in floats: staged logits (kBand+2
 // rows of zrow, each row shifted so that it shares the 16-byte phase of
 // its source), the slab, one row of r*wb pixels (odd stride against bank
@@ -248,7 +333,7 @@ struct BwdPlan {
   int zs, slab, g, st, floats;
   __host__ __device__ BwdPlan(int h, int w, int c, int r, int wb_) {
     wb = wb_;
-    zrow = round4((wb + 2) * c + 3);
+    zrow = esn::band_stride<float>(wb, c);
     cs = c | 1;
     nband = (h + kBand - 1) / kBand;
     ncol = (w + wb - 1) / wb;
@@ -268,26 +353,6 @@ int bwd_cols(int h, int w, int c, int r) {
   int wb = kThreads / r < w ? kThreads / r : w;
   while (wb > 1 && BwdPlan(h, w, c, r, wb).bytes() > (size_t)esn::kSmemTwoBlocks) wb = (wb + 1) / 2;
   return wb;
-}
-
-// One z row segment, floats [g0, g1) of z, to smem at d0 (d0 and g0 in
-// the same 16-byte phase when z is aligned): 16-byte cp.async copies for
-// the whole vectors, single floats for the ragged ends (or all of it).
-__device__ __forceinline__ void stage_segment(float* s, const float* z, int64_t g0,
-                                              int64_t g1, int d0, bool vec, int tid) {
-  int64_t v0 = g1, v1 = g1;  // the 16-byte body [v0, v1)
-  if (vec) {
-    v0 = (g0 + 3) / 4 * 4;
-    v1 = g1 / 4 * 4;
-    if (v0 > v1) v0 = v1 = g1;
-  }
-  for (int64_t i = v0 + 4 * (int64_t)tid; i < v1; i += 4 * kThreads)
-    esn::cp_async16(s + d0 + (i - g0), z + i);
-  const int head = (int)(v0 - g0), tail = (int)(g1 - v1);
-  for (int i = tid; i < head + tail; i += kThreads) {
-    const int64_t gi = i < head ? g0 + i : v1 + (i - head);
-    s[d0 + (gi - g0)] = __ldg(z + gi);
-  }
 }
 
 // One full-res pixel of a thread's column: its logits v_k, lerped along y
@@ -363,28 +428,9 @@ resize_ce_bwd_kernel(const float* __restrict__ z, const int* __restrict__ lab,
   const int b = blockIdx.x / (p.ncol * p.nband);
   const int i0 = band * kBand, j0 = ct * wb;
   const int rows = min(kBand, h - i0), cols = min(wb, w - j0);
-  const bool vec = esn::aligned16(z);
 
   // 1. logits of rows i0-1 .. i0+kBand, columns j0-1 .. j0+wb, clamped
-  const int u_lo = j0 == 0 ? 1 : 0;            // first column inside the image
-  const int u_hi = min(wb + 1, w - j0);        // last one
-  for (int t = 0; t < kBand + 2; ++t) {
-    const int src = min(max(i0 - 1 + t, 0), h - 1);
-    const int64_t row = ((int64_t)b * h + src) * w * c;
-    const int64_t g0 = row + (int64_t)(j0 - 1 + u_lo) * c;
-    const int sh = vec ? (int)(((g0 - (int64_t)u_lo * c) % 4 + 4) % 4) : 0;
-    if (tid == 0) shift[t] = sh;
-    const int d = t * p.zrow + sh;
-    stage_segment(zs, z, g0, row + (int64_t)(j0 + u_hi) * c, d + u_lo * c, vec, tid);
-    // clamped columns: u = 0 at the left edge, u > u_hi past the right one
-    const int nclamp = (u_lo + (wb + 1 - u_hi)) * c;
-    for (int i = tid; i < nclamp; i += kThreads) {
-      const int q = i / c, k = i - q * c;
-      const bool left = q < u_lo;
-      const int u = left ? 0 : u_hi + 1 + (q - u_lo);
-      zs[d + u * c + k] = __ldg(z + row + (int64_t)(left ? 0 : w - 1) * c + k);
-    }
-  }
+  esn::stage_band(zs, shift, z, b, h, w, c, i0, j0, wb, p.zrow, esn::aligned16(z), tid);
   for (int i = tid; i < p.slab_floats(c); i += kThreads) slab[i] = 0.f;
   esn::cp_async_commit();
   esn::cp_async_wait_all();
@@ -513,49 +559,36 @@ resize_ce_fold_kernel(const float* __restrict__ slabs, float* __restrict__ dz, i
   dz[idx] = acc;
 }
 
-Phases make_phases(int r) {
-  Phases ph{};
-  for (int p = 0; p < r; ++p) {
-    // the Pallas kernel's _fracs in double, each weight rounded once to f32
-    const double d = (p + 0.5) / r - 0.5;
-    const double f = d < 0 ? 1.0 + d : d;
-    ph.upper_next[p] = d >= 0;
-    ph.frac[p] = (float)f;
-    ph.frac_lo[p] = (float)(1.0 - f);
-  }
-  ph.h0 = 0;
-  while (ph.h0 < r && !ph.upper_next[ph.h0]) ++ph.h0;
-  for (int m = 0; m < 2 * r; ++m) {
-    const int p = (ph.h0 + m) % r;
-    ph.wcol[m] = m < r ? ph.frac[p] : ph.frac_lo[p];
-  }
-  return ph;
-}
-
 }  // namespace
 
-// Number of forward blocks (and of (S, N) partial pairs the scratch buffer
-// must hold) for this shape.
-extern "C" int esn_resize_ce_fwd_blocks(int n, int h, int w, int r) {
-  return fwd_blocks(n, h, w, r);
+// Doubles of scratch the forward needs for this shape (an (S, N) pair per
+// block), or -1 if its band does not fit in shared memory.
+extern "C" long long esn_resize_ce_fwd_scratch(int n, int h, int w, int c, int r) {
+  if (r < 2 || r > kMaxFactor || c < 1 || n < 1 || h < 1 || w < 1) return -1;
+  const FwdPlan p(h, w, c, r);
+  if (p.bytes > (size_t)esn::kMaxSmem) return -1;
+  return 2LL * n * p.nband * p.ncol;
 }
 
 // z (n, h, w, c) f32 contiguous; lab (n, h*r, w*r) int32; cw (c,) f32;
-// partial: 2 * esn_resize_ce_fwd_blocks(...) doubles of scratch; s_out,
+// partial: esn_resize_ce_fwd_scratch(...) doubles of scratch; s_out,
 // n_out: one f32 each. Requires 2 <= r <= 16.
 extern "C" int esn_resize_ce_fwd(const void* z, const void* lab, const void* cw,
                                  void* partial, void* s_out, void* n_out,
                                  int n, int h, int w, int c, int r, int ignore,
                                  float eps, void* stream) {
-  if (r < 2 || r > kMaxFactor || c < 1 || n < 1 || h < 1 || w < 1)
-    return cudaErrorInvalidValue;
+  if (esn_resize_ce_fwd_scratch(n, h, w, c, r) < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = fwd_blocks(n, h, w, r);
-  resize_ce_fwd_kernel<<<blocks, kThreads, 0, st>>>(
-      static_cast<const float*>(z), static_cast<const int*>(lab),
-      static_cast<const float*>(cw), static_cast<double*>(partial), n, h, w, c,
-      r, ignore, eps, make_phases(r));
-  cudaError_t err = cudaGetLastError();
+  const FwdPlan p(h, w, c, r);
+  auto kernel = c <= kRegClasses ? resize_ce_fwd_kernel<kRegClasses> : resize_ce_fwd_kernel<0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = n * p.nband * p.ncol;
+  kernel<<<blocks, kThreads, p.bytes, st>>>(
+      static_cast<const float*>(z), static_cast<const int*>(lab), static_cast<const float*>(cw),
+      static_cast<double*>(partial), h, w, c, r, ignore, eps, p.wb, esn::make_phases(r));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   resize_ce_finish_kernel<<<1, kThreads, 0, st>>>(
       static_cast<const double*>(partial), blocks, static_cast<float*>(s_out),
@@ -591,7 +624,7 @@ extern "C" int esn_resize_ce_bwd(const void* z, const void* lab, const void* cw,
   kernel<<<n * p.nband * p.ncol, kThreads, p.bytes(), st>>>(
       static_cast<const float*>(z), static_cast<const int*>(lab),
       static_cast<const float*>(cw), static_cast<const float*>(g_s), slabs, h, w, c, r,
-      ignore, eps, wb, make_phases(r));
+      ignore, eps, wb, esn::make_phases(r));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t total = (int64_t)n * h * w * c;

@@ -104,7 +104,7 @@ SIGNATURES = {
     "esn_cuda_error_string": ([_I32], ctypes.c_char_p),
     "esn_dsconv_forward": ([_VP] * 8 + [_I32] * 11 + [_VP], _I32),
     "esn_resize_argmax": ([_VP, _VP] + [_I32] * 6 + [_VP], _I32),
-    "esn_resize_ce_fwd_blocks": ([_I32] * 4, _I32),
+    "esn_resize_ce_fwd_scratch": ([_I32] * 5, ctypes.c_longlong),
     "esn_resize_ce_fwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),
     "esn_resize_ce_bwd_scratch": ([_I32] * 5, ctypes.c_longlong),
     "esn_resize_ce_bwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),

@@ -101,8 +101,12 @@ class _ResizeCESums(torch.autograd.Function):
         s = torch.empty((), dtype=torch.float32, device=z.device)
         n = torch.empty((), dtype=torch.float32, device=z.device)
         lib = _build.library()
-        blocks = lib.esn_resize_ce_fwd_blocks(b, h, w, r)
-        partial = torch.empty((2 * blocks,), dtype=torch.float64,
+        doubles = lib.esn_resize_ce_fwd_scratch(b, h, w, c, r)
+        if doubles < 0:
+            raise ValueError(f"resize_ce_sums: no forward tiling of z "
+                             f"{tuple(z.shape)} r={r} fits in shared memory")
+        # an (S, N) pair per block, summed in a fixed order by the kernel
+        partial = torch.empty((doubles,), dtype=torch.float64,
                               device=z.device)
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.esn_resize_ce_fwd(

@@ -2,18 +2,20 @@
 
     python3 -m esn_tpu_torch.tools.kernel_phases
 
-Run from the repo root. For K3's backward (``csrc/resize_ce.cu``) and K2
-(``csrc/dsconv.cu``) it builds the kernel's source as it is and, for each
-phase in ``PHASES``, a copy with that phase taken out (each copy its own
-``nvcc``, all started together, into ``esn_tpu_torch/build/phases/``),
-and times each build at the main path's shapes (K3 at z (8,128,256,19)
-r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and head.ds1) with CUDA
-events, in turns (all builds, then all again in reverse order). A phase's
-cost is read as the full time less the time without it; phases that
-overlap do not add up. The copies compute wrong results and are used for
-nothing else. Each edit must match the source, so an edit of a kernel
-that moves a phase makes this script fail rather than time something
-else. Exits non-zero without a CUDA device.
+Run from the repo root. For each kernel in ``PHASES`` (K3's forward and
+backward in ``csrc/resize_ce.cu``, K1 in ``csrc/resize_argmax.cu``, K2 in
+``csrc/dsconv.cu``) it builds the kernel's source as it is and, for each
+phase, a copy with that phase taken out (each copy its own ``nvcc``, all
+started together, into ``esn_tpu_torch/build/phases/``), and times each
+build at the main path's shapes (K3 at z (8,128,256,19) r=8, K1 bf16 and
+f32 at y (8,128,256,19) r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and
+head.ds1) with CUDA events, in turns (all builds, then all again in
+reverse order). A phase's cost is read as the full time less the time
+without it; phases that overlap do not add up. The copies compute wrong
+results and are used for nothing else. Each edit must occur exactly once
+in its source (``edit``), so an edit of a kernel that moves or repeats a
+phase makes this script fail rather than time something else. Exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,55 +27,95 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / "esn_tpu_torch" / "build" / "phases"
 
-# kernel source -> {phase: [(text in the source, its replacement)]}
+# kernel -> (its source, {phase: [(text in the source, its replacement)]})
 PHASES = {
-    "resize_ce.cu": {
+    "resize_ce_fwd": ("resize_ce.cu", {
+        # no copy; the row shifts stay, so every read stays in the band
+        "staging": [("  esn::stage_band(smem, zshift, z, b, h, w, c, i0, j0, wb, zstride, "
+                     "esn::aligned16(z), tid);\n", "  if (tid < kBand + 2) zshift[tid] = 0;\n")],
+        "pixels": [("      nll_pair(col, fa, fb, va ? ya : 0, vb ? yb : 0, eps, na, nb);",
+                    "      na = nb = fa;")],
+        "exp": [("      sa[k & 1] += ex2(col.scaled(k, fa));\n"
+                 "      sb[k & 1] += ex2(col.scaled(k, fb));",
+                 "      sa[k & 1] += col.scaled(k, fa);\n"
+                 "      sb[k & 1] += col.scaled(k, fb);")],
+        "labels": [("      const int ya = __ldg(lcol + Y * W);\n"
+                    "      const int yb = two ? __ldg(lcol + (Y + 1) * W) : ignore;",
+                    "      const int ya = (Y + tid) % c;\n"
+                    "      const int yb = (Y + 1 + tid) % c;")],
+    }),
+    "resize_ce_bwd": ("resize_ce.cu", {
         "fold": [("  resize_ce_fold_kernel<<<", "  if (0) resize_ce_fold_kernel<<<")],
         "pixels": [("    if (active && valid_label(y, c, ignore))\n      pixel_grad",
                     "    if (false)\n      pixel_grad")],
-        "exp": [("v[k] = __expf(v[k] - m);", "v[k] = v[k] - m;")],
+        "exp": [("        v[k] = __expf(v[k] - m);\n        s4[k & 3]",
+                 "        v[k] = v[k] - m;\n        s4[k & 3]")],
         "labels": [("y_next = __ldg(lcol + (int64_t)(Y + 1) * W);",
                     "y_next = (Y * 7 + tid) % c;")],
         "contraction": [("for (int q = tid; q < npair; q += kThreads) {",
                          "for (int q = tid; q < 0; q += kThreads) {")],
-    },
-    "dsconv.cu": {
+    }),
+    "resize_argmax": ("resize_argmax.cu", {
+        "staging": [("  esn::stage_band(ys, shift, y, b, h, w, c, i0, j0, wb, stride, "
+                     "esn::aligned16(y), tid);\n", "  if (tid < kBand + 2) shift[tid] = 0;\n")],
+        "pixels": [("    argmax_pair(col, fa, fb, aa, ab);", "    aa = ab = Y;")],
+        # the pixels stay live: a store the compiler cannot rule out (aa +
+        # ab < 2 * kRegClasses <= w at the timed shape)
+        "stores": [("    ocol[Y * W] = aa;\n    ocol[(Y + (two ? 1 : 0)) * W] = two ? ab : aa;",
+                    "    if (aa + ab == w) ocol[0] = aa;")],
+    }),
+    "dsconv": ("dsconv.cu", {
         "depthwise": [("    depthwise<T>(a, p, cur, smem, tid);\n", "")],
         "product": [("      pointwise_bf16(a, p, smem, cur, tid);\n", "")],
         "prefetch": [("      stage_halo<T>(a, p, bufs + ((it + 1) & 1) * buf_elems, next, vec, tid);\n",
                       "")],
         "stores": [("      if (oh < a.h_out && ow < a.w_out)", "      if (oh < 0)")],
-    },
+    }),
 }
 
 
+def edit(text: str, edits, what: str) -> str:
+    """``text`` with each (old, new) of ``edits`` applied; each old must
+    occur exactly once in the text it is applied to."""
+    for old, new in edits:
+        count = text.count(old)
+        if count != 1:
+            raise RuntimeError(f"{what}: {old!r} occurs {count} times in the source, "
+                               f"want once")
+        text = text.replace(old, new)
+    return text
+
+
 def build_all():
-    """{(source, phase or "full"): loaded library}."""
+    """{(kernel, phase or "full"): loaded library}; one full build a source."""
     from esn_tpu_torch.ops.kernels import _build
     OUT.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src, phases in PHASES.items():
-        text = (_build.SRC_DIR / src).read_text()
-        for phase, edits in {"full": [], **phases}.items():
-            edited = text
-            for old, new in edits:
-                if old not in edited:
-                    raise RuntimeError(f"{src} {phase}: {old!r} not in the source")
-                edited = edited.replace(old, new)
-            cu = OUT / f"{Path(src).stem}-{phase}.cu"
-            cu.write_text(edited)
-            so = cu.with_suffix(".so")
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR), "-shared",
-                   "-o", str(so), str(cu), str(_build.SRC_DIR / "common.cu")]
-            jobs.append(((src, phase), so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for key, so, proc in jobs:
+    jobs, texts = {}, {}
+    def start(name, text):
+        cu = OUT / f"{name}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR), "-shared",
+               "-o", str(so), str(cu), str(_build.SRC_DIR / "common.cu")]
+        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
+    builds = {}
+    for kernel, (src, phases) in PHASES.items():
+        if src not in texts:
+            texts[src] = (_build.SRC_DIR / src).read_text()
+            start(Path(src).stem, texts[src])
+        builds[(kernel, "full")] = Path(src).stem
+        for phase, edits in phases.items():
+            name = f"{kernel}-{phase}"
+            start(name, edit(texts[src], edits, f"{src} {kernel} {phase}"))
+            builds[(kernel, phase)] = name
+    loaded = {}
+    for name, (so, proc) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {key}:\n{log[-4000:]}")
-        libs[key] = ctypes.CDLL(str(so))
-    return libs
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        loaded[name] = ctypes.CDLL(str(so))
+    return {key: loaded[name] for key, name in builds.items()}
 
 
 def in_turns(torch, calls: dict, iters: int = 20) -> dict:
@@ -119,34 +161,54 @@ def main() -> int:
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    # K3 backward at the train step's shape
+    def entry(lib, name):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = _build.SIGNATURES[name]
+        return fn
+
+    def of(kernel):
+        return {phase: lib for (k, phase), lib in libs.items() if k == kernel}
+
+    # K3 forward and backward at the train step's shape
     b, h, w, c, r = 8, 128, 256, 19, 8
     z = torch.randn((b, h, w, c), generator=gen, device="cuda")
     lab = torch.randint(0, c, (b, h * r, w * r), generator=gen, device="cuda",
                         dtype=torch.int32)
     cw = torch.rand((c,), generator=gen, device="cuda") + 0.5
-    g_s = torch.ones((), device="cuda")
+    g_s, s, n = (torch.ones((), device="cuda") for _ in range(3))
     dz = torch.empty_like(z)
     calls = {}
-    for (src, phase), lib in libs.items():
-        if src != "resize_ce.cu":
-            continue
-        lib.esn_resize_ce_bwd_scratch.argtypes, lib.esn_resize_ce_bwd_scratch.restype = \
-            _build.SIGNATURES["esn_resize_ce_bwd_scratch"]
-        fn = lib.esn_resize_ce_bwd
-        fn.argtypes, fn.restype = _build.SIGNATURES["esn_resize_ce_bwd"]
-        slabs = torch.empty((lib.esn_resize_ce_bwd_scratch(b, h, w, c, r),),
+    for phase, lib in of("resize_ce_fwd").items():
+        part = torch.empty((entry(lib, "esn_resize_ce_fwd_scratch")(b, h, w, c, r),),
+                           dtype=torch.float64, device="cuda")
+        calls[phase] = (lambda fn=entry(lib, "esn_resize_ce_fwd"), part=part: _check(fn(
+            ptr(z), ptr(lab), ptr(cw), ptr(part), ptr(s), ptr(n), b, h, w, c, r, 255,
+            ctypes.c_float(0.0), stream())))
+    report(f"resize_ce forward {tuple(z.shape)} r={r}", in_turns(torch, calls))
+    calls = {}
+    for phase, lib in of("resize_ce_bwd").items():
+        slabs = torch.empty((entry(lib, "esn_resize_ce_bwd_scratch")(b, h, w, c, r),),
                             device="cuda")
-        calls[phase] = (lambda fn=fn, slabs=slabs: _check(fn(
+        calls[phase] = (lambda fn=entry(lib, "esn_resize_ce_bwd"), slabs=slabs: _check(fn(
             ptr(z), ptr(lab), ptr(cw), ptr(g_s), ptr(slabs), ptr(dz), b, h, w, c, r, 255,
             ctypes.c_float(0.0), stream())))
     report(f"resize_ce backward {tuple(z.shape)} r={r}", in_turns(torch, calls))
+
+    # K1 at the predict tail's shape, bf16 and f32
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        y = torch.randn((b, h, w, c), generator=gen, device="cuda").to(dtype)
+        out = torch.empty((b, h * r, w * r), dtype=torch.int32, device="cuda")
+        calls = {phase: (lambda fn=entry(lib, "esn_resize_argmax"): _check(fn(
+            ptr(y), ptr(out), code, b, h, w, c, r, stream())))
+            for phase, lib in of("resize_argmax").items()}
+        report(f"resize_argmax {str(dtype).split('.')[-1]} {tuple(y.shape)} r={r}",
+               in_turns(torch, calls))
 
     # K2 bf16 at Fast-SCNN's layers
     for layer, shape, cout, stride in (("ltd.ds1", (8, 512, 1024, 32), 48, 2),
                                        ("ltd.ds2", (8, 256, 512, 48), 64, 2),
                                        ("head.ds1", (8, 128, 256, 128), 128, 1)):
-        n, hh, ww, cin = shape
+        nn, hh, ww, cin = shape
         x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         params = [torch.randn((3, 3, cin), generator=gen, device="cuda") / 3,
                   torch.rand((cin,), generator=gen, device="cuda") + 0.5,
@@ -155,16 +217,11 @@ def main() -> int:
                   torch.rand((cout,), generator=gen, device="cuda") + 0.5,
                   torch.randn((cout,), generator=gen, device="cuda") * 0.1]
         ho, wo = (hh - 1) // stride + 1, (ww - 1) // stride + 1
-        out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device="cuda")
-        calls = {}
-        for (src, phase), lib in libs.items():
-            if src != "dsconv.cu":
-                continue
-            fn = lib.esn_dsconv_forward
-            fn.argtypes, fn.restype = _build.SIGNATURES["esn_dsconv_forward"]
-            calls[phase] = (lambda fn=fn: _check(fn(
-                ptr(x), *map(ptr, params), ptr(out), 1, n, hh, ww, cin, cout, ho, wo, stride,
-                1, 1, stream())))
+        out = torch.empty((nn, ho, wo, cout), dtype=torch.bfloat16, device="cuda")
+        calls = {phase: (lambda fn=entry(lib, "esn_dsconv_forward"): _check(fn(
+            ptr(x), *map(ptr, params), ptr(out), 1, nn, hh, ww, cin, cout, ho, wo, stride,
+            1, 1, stream())))
+            for phase, lib in of("dsconv").items()}
         report(f"dsconv bf16 {layer} {shape} -> {cout} s{stride}", in_turns(torch, calls))
     return 0
 

@@ -125,9 +125,20 @@ def test_dsconv_wrapper_raises_on_cuda(cuda):
         K.fused_dsconv(*_dsconv_args(1, 1, 8, 8, 8, 12, torch.float32, cuda))
 
 
+# The band tiling at its edges (bands of 8 low-res rows, tiles of ~256/r
+# low-res columns), and C above 20, where logits are read from shared
+# memory rather than registers.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape, r", [((2, 8, 24, 19), 8),
-                                      ((1, 5, 7, 19), 3), ((2, 6, 6, 2), 2)])
+@pytest.mark.parametrize("shape, r", [
+    ((2, 8, 24, 19), 8),
+    ((1, 5, 7, 19), 3),
+    ((2, 6, 6, 2), 2),
+    ((1, 11, 70, 19), 8),      # h % 8 == 3; 3 column tiles, the last partial
+    ((2, 5, 300, 19), 1),      # r = 1, h < 8; 3 tiles
+    ((1, 13, 140, 40), 2),     # C = 40 (shared memory); 2-3 tiles
+    ((1, 9, 120, 64), 5),      # C = 64 (shared memory), r = 5; 5 tiles
+    ((1, 17, 45, 2), 3),       # C = 2, 3 bands
+])
 def test_resize_argmax_kernel_matches_plain(cuda, shape, r, dtype):
     """Equal to the plain version except where the two classes' f32
     upsampled logits lie within the rounding gap (1e-5 for f32; for bf16
@@ -149,6 +160,27 @@ def test_resize_argmax_kernel_matches_plain(cuda, shape, r, dtype):
     gap = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     tol = gap * torch.clamp(torch.maximum(a.abs(), b.abs()), min=1.0)
     assert bool(((a - b).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resize_argmax_kernel_takes_misaligned_y(cuda, dtype):
+    """y one element off a 16-byte boundary: the band is staged element by
+    element and the map equals that of an aligned copy, bit for bit."""
+    y = torch.from_numpy(np.random.RandomState(8).randn(2, 11, 45, 19)
+                         .astype(np.float32)).to(cuda, dtype)
+    es, nbytes = y.element_size(), y.numel() * y.element_size()
+    buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=cuda)
+    shifted = buf[es:es + nbytes].view(dtype).view(y.shape)
+    shifted.copy_(y)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    for r in (3, 8):
+        assert torch.equal(K.resize_argmax(y, r), K.resize_argmax(shifted, r))
+
+
+def test_resize_argmax_kernel_is_deterministic(cuda):
+    y = torch.from_numpy(np.random.RandomState(9).randn(2, 16, 40, 19)
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    assert torch.equal(K.resize_argmax(y, 8), K.resize_argmax(y, 8))
 
 
 def test_resize_argmax_first_max(cuda):
@@ -200,6 +232,7 @@ def _resize_ce_value_and_grad(fn, z, lab, cw, r, eps):
     ((1, 9, 7, 5), 16, 0.0, True),        # r = 16
     ((1, 6, 10, 40), 2, 0.1, True),       # C > 32: two class chunks
     ((3, 1, 5, 3), 4, 0.0, True),         # h = 1
+    ((1, 7, 12, 64), 4, 0.1, True),       # C = 64: logits from shared memory
 ])
 def test_resize_ce_kernel_matches_plain(cuda, shape, r, eps, weighted):
     z, lab, cw = _resize_ce_case(0, *shape, r, weighted, cuda)
@@ -264,6 +297,38 @@ def test_resize_ce_kernel_is_deterministic(cuda):
     z, lab, cw = _resize_ce_case(2, 2, 16, 32, 19, 8, True, cuda)
     a = _resize_ce_value_and_grad(K.resize_ce_sums, z, lab, cw, 8, 0.0)
     b = _resize_ce_value_and_grad(K.resize_ce_sums, z, lab, cw, 8, 0.0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("shape, r", [((2, 13, 21, 19), 3), ((1, 6, 10, 40), 2)])
+def test_resize_ce_kernel_takes_wide_logits(cuda, shape, r):
+    """Logits x100: a class's logits spread by more than 64 between two
+    tap rows, where the forward takes each pixel's own max rather than the
+    tap rows' (whose exp would underflow); tolerances as above."""
+    z, lab, cw = _resize_ce_case(6, *shape, r, True, cuda)
+    z = z * 100
+    s, n, dz = _resize_ce_value_and_grad(K.resize_ce_sums, z, lab, cw, r, 0.1)
+    s0, n0, dz0 = _resize_ce_value_and_grad(K.resize_ce_sums_ref, z, lab, cw,
+                                            r, 0.1)
+    assert abs(float(s - s0)) <= 1e-5 * abs(float(s0))
+    assert abs(float(n - n0)) <= 1e-5 * abs(float(n0))
+    assert float(torch.linalg.norm(dz - dz0) / torch.linalg.norm(dz0)) <= 1e-4
+
+
+def test_resize_ce_kernel_takes_misaligned_z(cuda):
+    """z one float off a 16-byte boundary: staged element by element, with
+    S, N and dz equal to an aligned copy's, bit for bit."""
+    z, lab, cw = _resize_ce_case(5, 2, 11, 45, 19, 4, True, cuda)
+    buf = torch.empty(z.numel() + 4, device=cuda)
+    shifted = buf[1:1 + z.numel()].view(z.shape)
+    shifted.copy_(z)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    def run(t):
+        t = t.detach().requires_grad_()     # the same storage: no copy
+        s, n = K.resize_ce_sums(t, lab, cw, r=4, label_smoothing=0.1)
+        (s / torch.clamp(n, min=1e-8)).backward()
+        return s.detach(), n.detach(), t.grad
+    a, b = run(z), run(shifted)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -164,12 +164,25 @@ def _top2_gap(y, r):
     return (top[:, 0] - top[:, 1]).numpy()
 
 
-@pytest.mark.parametrize("hw", [(6, 10), (5, 7)])
-@pytest.mark.parametrize("r", [2, 3, 4])
-def test_resize_argmax_ref_matches_reference(r, hw):
+# (r, hw, C): the first six keep their ids; then the factors 5 and 8 and
+# C = 2 and 64, as the card holds K1 to this oracle (a few cases, not the
+# cross product: the Pallas kernel in interpret mode costs ~r*r*C)
+@pytest.mark.parametrize("r, hw, c", [
+    pytest.param(2, (6, 10), 19, id="2-hw0"),
+    pytest.param(2, (5, 7), 19, id="2-hw1"),
+    pytest.param(3, (6, 10), 19, id="3-hw0"),
+    pytest.param(3, (5, 7), 19, id="3-hw1"),
+    pytest.param(4, (6, 10), 19, id="4-hw0"),
+    pytest.param(4, (5, 7), 19, id="4-hw1"),
+    pytest.param(5, (5, 7), 19, id="5-hw1-c19"),
+    pytest.param(8, (5, 7), 2, id="8-hw1-c2"),
+    pytest.param(2, (5, 7), 64, id="2-hw1-c64"),
+    pytest.param(3, (5, 7), 64, id="3-hw1-c64"),
+])
+def test_resize_argmax_ref_matches_reference(r, hw, c):
     """Port plain version == JAX Pallas kernel (interpret) exactly, except
     at near-ties (top-2 f32 gap < 1e-5), where both answers are right."""
-    y = np.random.RandomState(4).randn(2, *hw, 19).astype(np.float32)
+    y = np.random.RandomState(4).randn(2, *hw, c).astype(np.float32)
     got = K.resize_argmax_ref(torch.from_numpy(y), r).numpy()
     want = np.asarray(JR.resize_argmax(jnp.asarray(y), r, interpret=True))
     assert got.dtype == want.dtype == np.int32
