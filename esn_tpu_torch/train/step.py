@@ -146,16 +146,18 @@ def make_predict_step(model: SegModel, *,
     """Build ``predict(images) -> pred (N, H, W) int32`` for images
     ``(N, C, H, W)`` on the model's device.
 
-    The model is put in eval mode. Images are cast to ``compute_dtype``
-    in ``channels_last`` memory; parameters stay f32 and each op casts them
-    to the activation dtype. With ``output_size`` the full-res logits are
+    Every call puts the model in eval mode before its forward (the
+    reference passes ``train=False`` on every predict call), so a predict
+    after a train step of the same model normalises with the running
+    statistics, leaves them alone and takes the fused eval paths. Images
+    are cast to ``compute_dtype`` in ``channels_last`` memory; parameters
+    stay f32 and each op casts them to the activation dtype. With ``output_size`` the full-res logits are
     resized (f32 bilinear) to it before the argmax; otherwise the model's
     own ``predict`` runs (the fused resize + argmax tail where it has one).
     """
-    model.eval()
-
     @torch.inference_mode()
     def predict(images: torch.Tensor) -> torch.Tensor:
+        model.eval()
         x = images.to(dtype=compute_dtype, memory_format=torch.channels_last)
         if output_size is not None:
             logits = resize_bilinear(model(x).float(), output_size)
