@@ -43,6 +43,28 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// 16 bytes of x as f32: 4 floats, or 8 bfloat16 (a bfloat16 is the high
+// half of its f32; element 0 is the low half of the first word)
+__device__ __forceinline__ void unpack(const uint4& v, float* f, float) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack(const uint4& v, float* f, __nv_bfloat16) {
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 // Asynchronous 16-byte copy from device to shared memory (both addresses
 // 16-byte aligned); with `fill` false nothing is read and the 16 bytes are
 // zeroed. Complete after cp_async_wait_all() and a barrier.
@@ -61,6 +83,34 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __host__ __device__ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Tensor-core pieces of the bf16 products (dsconv.cu, cgblock.cu):
+// ldmatrix loads four (two) 8x8 b16 matrices from shared memory, each lane
+// giving one 16-byte row address, into the fragment layout of mma.sync
+// m16n8k16, which adds A (16x16, row-major) x B (16x8, given as [n][k]
+// rows) to its f32 accumulators.
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* ptr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned* r, const void* ptr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

@@ -57,6 +57,11 @@ namespace {
 using esn::act;
 using esn::kMaxSmem;
 using esn::kSmemTwoBlocks;
+using esn::ldmatrix_x2;
+using esn::ldmatrix_x4;
+using esn::mma_bf16;
+using esn::pack_bf16;
+using esn::unpack;
 
 constexpr int kThreads = 256;
 constexpr int kTileW = 16;        // output columns a tile; rows: DsconvArgs::th
@@ -159,28 +164,6 @@ __device__ __forceinline__ void stage_halo(const DsconvArgs& a, const Plan& p, T
   }
 }
 
-// 16 bytes of x as f32: 4 floats, or 8 bfloat16 (a bfloat16 is the high
-// half of its f32; element 0 is the low half of the first word)
-__device__ __forceinline__ void unpack(const uint4& v, float* f, float) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void unpack(const uint4& v, float* f, __nv_bfloat16) {
-  const unsigned u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 // 2. depthwise 3x3 + affine + act of the halo in `buf` into mid. Each
 // thread keeps one group of 16 bytes of channels (its taps and affine in
 // registers) and walks over the tile's pixels.
@@ -242,29 +225,6 @@ __device__ __forceinline__ void depthwise(const DsconvArgs& a, const Plan& p, co
       *reinterpret_cast<uint4*>(mid + px * p.ldk + p.cinp + 8 * gp) = make_uint4(0, 0, 0, 0);
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* ptr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x2(unsigned* r, const void* ptr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s)
-               : "memory");
-}
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 3.-4. bf16: mid (npix x kp) @ pw (kp x cout) on tensor cores; warp w

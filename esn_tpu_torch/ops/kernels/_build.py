@@ -108,8 +108,9 @@ SIGNATURES = {
     "esn_resize_ce_fwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),
     "esn_resize_ce_bwd_scratch": ([_I32] * 5, ctypes.c_longlong),
     "esn_resize_ce_bwd": ([_VP] * 6 + [_I32] * 6 + [_F32, _VP], _I32),
-    "esn_cgblock_pre_tiles": ([_I32] * 5, _I32),
-    "esn_cgblock_pre": ([_VP] * 13 + [_I32] * 6 + [_VP], _I32),
+    "esn_cgblock_pre_tiles": ([_I32] * 6, _I32),
+    "esn_cgblock_pre_tune": ([_I32] * 4, None),
+    "esn_cgblock_pre": ([_VP] * 13 + [_I32] * 7 + [_VP], _I32),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

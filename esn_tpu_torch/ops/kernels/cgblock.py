@@ -74,7 +74,7 @@ def bf16_rounding_gap(j, s, je, se):
     return differ, far, sum_rel
 
 
-def _launch(x, params, d: int):
+def _launch(x, params, d: int, max_blocks: int):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_cgblock_pre: dtype {x.dtype} not supported "
                         f"(float32, bfloat16)")
@@ -92,9 +92,9 @@ def _launch(x, params, d: int):
         return j, sums.zero_()
     code = _DTYPE_CODES[x.dtype]
     lib = _build.library()
-    tiles = lib.esn_cgblock_pre_tiles(code, h, w, c, d)
+    tiles = lib.esn_cgblock_pre_tiles(code, n, h, w, c, d)
     if tiles < 0:
-        raise ValueError(f"fused_cgblock_pre: no tile of x {tuple(x.shape)} "
+        raise ValueError(f"fused_cgblock_pre: no plan for x {tuple(x.shape)} "
                          f"d={d} fits in shared memory")
     partial = torch.empty((n, tiles, c), dtype=torch.float32, device=x.device)
     params = [t.to(device=x.device, dtype=torch.float32).contiguous()
@@ -102,14 +102,15 @@ def _launch(x, params, d: int):
     ptr = [ctypes.c_void_p(t.data_ptr())
            for t in (x, *params, j, partial, sums)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.esn_cgblock_pre(*ptr, code, n, h, w, c, d,
+    err = lib.esn_cgblock_pre(*ptr, code, n, h, w, c, d, max_blocks,
                               ctypes.c_void_p(stream))
     _build.check(err, "fused_cgblock_pre")
     LAUNCHES["cgblock"] += 1
     return j, sums
 
 
-def fused_cgblock_pre(x, w1, a1, b1, p1, dwl, dws, a2, b2, p2, *, d: int):
+def fused_cgblock_pre(x, w1, a1, b1, p1, dwl, dws, a2, b2, p2, *, d: int,
+                      max_blocks: int = 0):
     """Single-pass CG block up to the gate, BN folded into the affines.
 
     Args:
@@ -117,6 +118,9 @@ def fused_cgblock_pre(x, w1, a1, b1, p1, dwl, dws, a2, b2, p2, *, d: int):
       w1: (C, C/2) reduce weights.  a1/b1/p1: (C/2,) reduce affine, slopes.
       dwl/dws: (3, 3, C/2) local and surround depthwise taps.
       a2/b2/p2: (C,) join affine and slopes.  d: surround dilation >= 1.
+      max_blocks: on CUDA, a cap on the kernel's grid of persistent blocks
+        (0: as many as the card keeps resident); the result does not
+        depend on it, bit for bit.
     Returns ``(j, sums)``: j (N, H, W, C) in x's dtype, contiguous, and the
     f32 sum of j over (H, W), (N, C).
     """
@@ -143,4 +147,4 @@ def fused_cgblock_pre(x, w1, a1, b1, p1, dwl, dws, a2, b2, p2, *, d: int):
         return cgblock_pre_ref(x, *params, d=int(d))
     if x.device.type != "cuda":
         raise ValueError(f"fused_cgblock_pre: no kernel for device {x.device}")
-    return _launch(x, params, int(d))
+    return _launch(x, params, int(d), int(max_blocks))

@@ -4,15 +4,17 @@
 
 Run from the repo root. For each kernel in ``PHASES`` (K3's forward and
 backward in ``csrc/resize_ce.cu``, K1 in ``csrc/resize_argmax.cu``, K2 in
-``csrc/dsconv.cu``) it builds the kernel's source as it is and, for each
+``csrc/dsconv.cu``, K4 in ``csrc/cgblock.cu``) it builds the kernel's source as it is and, for each
 phase, a copy with that phase taken out (each copy its own ``nvcc``, all
 started together, into ``esn_tpu_torch/build/phases/``), and times each
 build at the main path's shapes (K3 at z (8,128,256,19) r=8, K1 bf16 and
 f32 at y (8,128,256,19) r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and
-head.ds1) with CUDA events, in turns (all builds, then all again in
+head.ds1, K4 bf16 at CGNet's stage2 and stage3) with CUDA events, in turns (all builds, then all again in
 reverse order). A phase's cost is read as the full time less the time
 without it; phases that overlap do not add up. The copies compute wrong
-results and are used for nothing else. Each edit must occur exactly once
+results and are used for nothing else. K4 is also timed under other
+plans than its planner's (``CGBLOCK_PLANS``: strip width, rows a step, x
+buffers, rows a unit), which compute the same result. Each edit must occur exactly once
 in its source (``edit``), so an edit of a kernel that moves or repeats a
 phase makes this script fail rather than time something else. Exits
 non-zero without a CUDA device.
@@ -71,7 +73,27 @@ PHASES = {
                       "")],
         "stores": [("      if (oh < a.h_out && ow < a.w_out)", "      if (oh < 0)")],
     }),
+    "cgblock": ("cgblock.cu", {
+        # no read of x from device memory; the buffer is still zero-filled
+        "staging": [("      esn::cp_async16(xs + q * p.ldx + v * p.ve, src, in);",
+                     "      esn::cp_async16(xs + q * p.ldx + v * p.ve, src, false);")],
+        "reduce": [("        reduce_bf16(a, p, u, step, xs, "
+                    "reinterpret_cast<const __nv_bfloat16*>(smem + p.o_w1),\n"
+                    "                    aff, ys, tid);", "        (void)xs;")],
+        "stencils": [("      if (o1 > o0) stencils<T>(", "      if (o1 > o0 && a.d < 0) stencils<T>(")],
+        # the stencils stay live through the channel sums: a store the
+        # compiler cannot rule out
+        "stores": [("      if (a.jvec) {", "      if (a.jvec && jl[0] == 123.25f) {")],
+    }),
 }
+
+# K4's shapes in CGNet predict at batch 8, and the plans timed beside the
+# planner's: (strip width, y rows a step, x buffers, output rows a unit),
+# 0 for the planner's choice
+CGBLOCK_SHAPES = (("stage2", (8, 256, 512, 64), 2), ("stage3", (8, 128, 256, 128), 4))
+CGBLOCK_PLANS = ((0, 0, 0, 0), (0, 8, 1, 0), (0, 4, 2, 0), (0, 4, 1, 0), (0, 2, 2, 0),
+                 (0, 2, 1, 0), (0, 1, 2, 0), (16, 4, 2, 0), (16, 2, 2, 0), (0, 0, 0, 16),
+                 (0, 0, 0, 64))
 
 
 def edit(text: str, edits, what: str) -> str:
@@ -223,6 +245,46 @@ def main() -> int:
             1, 1, stream())))
             for phase, lib in of("dsconv").items()}
         report(f"dsconv bf16 {layer} {shape} -> {cout} s{stride}", in_turns(torch, calls))
+
+    # K4 bf16 at CGNet's two block shapes: the phases, then the plans
+    for layer, shape, d in CGBLOCK_SHAPES:
+        nn, hh, ww, c = shape
+        half = c // 2
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        params = [torch.randn((c, half), generator=gen, device="cuda") / c ** 0.5,
+                  torch.rand((half,), generator=gen, device="cuda") + 0.5,
+                  torch.randn((half,), generator=gen, device="cuda") * 0.1,
+                  torch.rand((half,), generator=gen, device="cuda") * 0.3 + 0.1,
+                  torch.randn((3, 3, half), generator=gen, device="cuda") / 3,
+                  torch.randn((3, 3, half), generator=gen, device="cuda") / 3,
+                  torch.rand((c,), generator=gen, device="cuda") + 0.5,
+                  torch.randn((c,), generator=gen, device="cuda") * 0.1,
+                  torch.rand((c,), generator=gen, device="cuda") * 0.3 + 0.1]
+        j = torch.empty_like(x)
+        sums = torch.empty((nn, c), device="cuda")
+
+        def run(lib, plan=(0, 0, 0, 0)):
+            entry(lib, "esn_cgblock_pre_tune")(*plan)
+            tiles = entry(lib, "esn_cgblock_pre_tiles")(1, nn, hh, ww, c, d)
+            if tiles < 0:
+                return None
+            partial = torch.empty((nn, tiles, c), device="cuda")
+            fn = entry(lib, "esn_cgblock_pre")
+            def call():
+                entry(lib, "esn_cgblock_pre_tune")(*plan)
+                _check(fn(ptr(x), *map(ptr, params), ptr(j), ptr(partial), ptr(sums), 1,
+                          nn, hh, ww, c, d, 0, stream()))
+            return call
+
+        calls = {phase: run(lib) for phase, lib in of("cgblock").items()}
+        report(f"cgblock bf16 {layer} {shape} d={d}", in_turns(torch, calls))
+        full = of("cgblock")["full"]
+        plans = {plan: run(full, plan) for plan in CGBLOCK_PLANS}
+        times = in_turns(torch, {k: v for k, v in plans.items() if v is not None})
+        entry(full, "esn_cgblock_pre_tune")(0, 0, 0, 0)
+        print(f"cgblock bf16 {layer} plans (tw, rows, nbuf, seg), 0 = the planner's:")
+        for plan, fn in plans.items():
+            print(f"  {plan}: " + (f"{times[plan]:.4f} ms" if fn else "does not fit"))
     return 0
 
 
