@@ -6,7 +6,7 @@
 Builds the CUDA kernels from ``esn_tpu_torch/csrc``, checks each kernel
 against its plain PyTorch version at the shapes Fast-SCNN's predict and
 train step and CGNet's predict give it (plus odd-size cases), then drives
-three paths through the port's entry points, each with the launch counts
+these paths through the port's entry points, each with the launch counts
 from zero:
 
 - predict: Fast-SCNN-19 at batch 8, 3x1024x2048, bf16
@@ -19,7 +19,12 @@ from zero:
   ``build_schedule("poly")`` + ``make_train_step(fwd_method=
   "logits_lowres")`` with the fused resize-CE loss): one ``resize_ce``
   forward and backward launch per step, a falling loss, moving BN
-  statistics, one f32 step against the plain versions, ms/step.
+  statistics, one f32 step against the plain versions, ms/step;
+- predict after a train step, for both models: a predict step built
+  first, one train step, then a predict that must run in eval mode (the
+  eval launch counts, BN running statistics untouched, the class map of
+  an eval-mode predict), and the host time of the per-call
+  ``model.eval()``.
 
 Exits non-zero on any failure, and when no CUDA device is present. The
 last line of standard output is one JSON object; the line before it lists
@@ -348,10 +353,12 @@ def cgblock_args(torch, gen, shape, dtype):
 
 def cgblock_case(K, torch, gen, shape, d, dtype):
     """K4 against its plain version: j, the sums, bit-identity over two
-    launches, and the time of each (CUDA events)."""
+    launches and a third whose grid is capped at 3 blocks (other blocks
+    take the units), and the time of each (CUDA events)."""
     args = cgblock_args(torch, gen, shape, dtype)
     j, s = K.fused_cgblock_pre(*args, d=d)
     j2, s2 = K.fused_cgblock_pre(*args, d=d)
+    j3, s3 = K.fused_cgblock_pre(*args, d=d, max_blocks=3)   # another grid
     j0, s0 = K.cgblock_pre_ref(*args, d=d)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
@@ -385,7 +392,8 @@ def cgblock_case(K, torch, gen, shape, d, dtype):
         row["within_tol"] &= (differ <= allowed and far == 0 and emul_sum_rel
                               <= CGBLOCK_SUM_REL["float32"])
     row.update(
-        bit_identical=bool(torch.equal(j, j2) and torch.equal(s, s2)),
+        bit_identical=bool(torch.equal(j, j2) and torch.equal(s, s2)
+                           and torch.equal(j, j3) and torch.equal(s, s3)),
         ms=cuda_ms(lambda: K.fused_cgblock_pre(*args, d=d)),
         plain_ms=cuda_ms(lambda: K.cgblock_pre_ref(*args, d=d)))
     return row
@@ -394,13 +402,20 @@ def cgblock_case(K, torch, gen, shape, d, dtype):
 def cgblock_phase(torch, K):
     """K4 at CGNet predict's two shapes and at odd shapes (odd H/W,
     d >= H/2 with half = 12, d = 1, and C = 18, whose pixels are not whole
-    16-byte vectors), bf16 and f32, TF32 off."""
+    16-byte vectors; the strip walk's edges: H and W smaller than a strip
+    and than d, a last strip of one column and a last segment of one row,
+    d larger than the rows of a step, N = 1; all of them with fewer units
+    than resident blocks), bf16 and f32, TF32 off."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
     odd = [("odd", (2, 13, 21, 64), 2), ("odd", (1, 9, 7, 24), 4),
            ("odd", (2, 16, 20, 24), 1),
-           ("odd", (2, 11, 13, 18), 3)]   # C*itemsize not a multiple of 16
+           ("odd", (2, 11, 13, 18), 3),   # C*itemsize not a multiple of 16
+           ("odd", (1, 5, 3, 16), 6),     # H, W < d < a strip
+           ("odd", (3, 33, 65, 64), 2),   # a last strip and segment of 1
+           ("odd", (1, 70, 40, 32), 9),   # d > the 8 rows of a step
+           ("odd", (1, 40, 70, 128), 4)]  # N = 1 at stage3's width
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for layer, shape, d, *per_predict in CGBLOCK_MAIN + odd:
@@ -838,6 +853,57 @@ def train_phase(torch, F, K, BatchNorm):
             "peak_gb": peak, "batch": BATCH, "class_weights": cw.tolist()}
 
 
+def interleaved_phase(torch, F, K, build_model, make_predict_step, arch,
+                      want_launches, batch_size: int = 2):
+    """A predict step built before a train step of the same model and
+    called after it, bf16 at 3x1024x2048: the predict runs in eval mode
+    (``want_launches``, BN running statistics bit for bit as the step left
+    them, the class map of a predict of the model put in eval mode by
+    hand). Also the host time of one ``model.eval()``, which every predict
+    call now pays."""
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    model = build_model(arch, CLASSES, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    predict = make_predict_step(model, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    images = smooth_images(torch, F, gen, batch_size, IMAGE_HW)
+    labels = learnable_labels(torch, F, gen, batch_size, IMAGE_HW)
+    step = train_step(torch, model, build_optimizer("adam", model.parameters()),
+                      class_weights(torch, labels), torch.bfloat16)
+    loss = float(step({"image": images, "label": labels})["loss"])
+    check(model.training and math.isfinite(loss),
+          f"{arch}: after a train step training={model.training} loss={loss}")
+    stats = {name: buf.clone() for name, buf in model.named_buffers()}
+    K.reset_launches()
+    pred = predict(images)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"{arch} predict after a train step: launches", json.dumps(launches))
+    check(launches == want_launches,
+          f"{arch}: predict after a train step launched {launches}")
+    check(not any(m.training for m in model.modules()),
+          f"{arch}: predict left modules in train mode")
+    moved = [name for name, buf in model.named_buffers()
+             if not torch.equal(buf, stats[name])]
+    check(not moved, f"{arch}: predict moved the buffers {moved[:5]}")
+    model.eval()
+    with torch.inference_mode():
+        want = model.predict(images.to(dtype=torch.bfloat16,
+                                       memory_format=torch.channels_last))
+    check(bool(torch.equal(pred, want)),
+          f"{arch}: predict after a train step differs from an eval-mode "
+          f"predict at {float((pred != want).float().mean()):.3g} of pixels")
+    t0 = time.perf_counter()
+    for _ in range(100):
+        model.eval()
+    eval_ms = 1e3 * (time.perf_counter() - t0) / 100
+    modules = sum(1 for _ in model.modules())
+    print(f"{arch}: model.eval() over {modules} modules {eval_ms:.4f} ms "
+          f"a predict call (host)")
+    return {"launches": launches, "train_loss": loss, "modules": modules,
+            "eval_call_host_ms": eval_ms, "batch": batch_size}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -882,6 +948,14 @@ def main() -> int:
         torch, F, K, build_model, BatchNorm, make_predict_step, "cgnet",
         {"dsconv": 0, "resize_argmax": 1, "resize_ce_fwd": 0,
          "resize_ce_bwd": 0, "cgblock": 22})
+
+    interleaved = {
+        "fastscnn": interleaved_phase(
+            torch, F, K, build_model, make_predict_step, "fastscnn",
+            result["launches"]),
+        "cgnet": interleaved_phase(
+            torch, F, K, build_model, make_predict_step, "cgnet",
+            cgnet["launches"])}
 
     ds_main = [r for r in dsconv_rows
                if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
@@ -942,7 +1016,7 @@ def main() -> int:
          "dsconv": dsconv_rows, "resize_argmax": argmax_rows,
          "resize_ce_sums": ce_rows, "fused_cgblock_pre": cg_rows,
          "predict": result, "train": trained, "cgnet_predict": cgnet,
-         "kernels": kernels, "device": device}, indent=1))
+         "predict_after_train": interleaved, "kernels": kernels, "device": device}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

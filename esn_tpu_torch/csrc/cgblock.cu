@@ -207,13 +207,21 @@ __device__ __forceinline__ void stage_x(const CgArgs& a, const Plan& p, T* xs, c
   const int rmax = u.s0 - a.d + u.urows;  // the unit's rows end here
   const int64_t img = (int64_t)u.img * a.h;
   if (a.xvec) {
-    const int nv = a.c / p.ve, total = p.chunk * nv;
-    for (int i = tid; i < total; i += kThreads) {
-      const int q = i / nv, v = i - q * nv;
-      const int row = q / p.wt, gr = r0 + row, gc = c0 + (q - row * p.wt);
+    // thread's vector v of pixel q (row, col of the chunk), advanced by
+    // kThreads vectors a turn without a division
+    const int nv = a.c / p.ve, dq = kThreads / nv, dv = kThreads % nv;
+    int q = tid / nv, v = tid - q * nv;
+    int row = q / p.wt, col = q - row * p.wt;
+    while (q < p.chunk) {
+      const int gr = r0 + row, gc = c0 + col;
       const bool in = gr >= 0 && gr < a.h && gr < rmax && gc >= 0 && gc < a.w;
       const T* src = in ? x + ((img + gr) * a.w + gc) * a.c + v * p.ve : x;
       esn::cp_async16(xs + q * p.ldx + v * p.ve, src, in);
+      const int carry = v + dv >= nv;
+      v += dv - (carry ? nv : 0);
+      q += dq + carry;
+      col += dq + carry;
+      while (col >= p.wt) col -= p.wt, ++row;
     }
   } else {
     const int total = p.chunk * p.kp;
@@ -248,46 +256,65 @@ __device__ __forceinline__ YPixel y_pixel(const CgArgs& a, const Plan& p, const 
 }
 
 // 2. bf16: xs (mp x kp) @ w1^T (np x kp, [n][k]) on tensor cores; a warp
-// takes 16 pixels x 16 reduced channels an item
+// takes 16 pixels and every reduced channel, 64 at a time: the 16
+// accumulator chains of an item are independent
 __device__ __forceinline__ void reduce_bf16(const CgArgs& a, const Plan& p, const Unit& u,
                                             int step, const __nv_bfloat16* xs,
                                             const __nv_bfloat16* w1t, const float* aff,
                                             __nv_bfloat16* ys, int tid) {
   const float *a1 = aff, *b1 = aff + p.yc, *p1 = aff + 2 * p.yc;
-  const int lane = tid & 31, npairs = p.np / 16, items = (p.mp / 16) * npairs;
+  const int lane = tid & 31;
   // ldmatrix row addresses: A rows m0 + lane%16 at k + 8*(lane/16); B (two
   // n-tiles of 8) rows n0 + lane%8 + 8*(lane/16) at k + 8*((lane/8)%2)
   const int a_off = (lane & 15) * p.ldx + (lane >> 4) * 8;
   const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * p.ldx + ((lane >> 3) & 1) * 8;
-  for (int item = tid >> 5; item < items; item += kWarps) {
-    const int m0 = (item / npairs) * 16, n0 = (item % npairs) * 16;
-    float acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    const __nv_bfloat16* a_row = xs + m0 * p.ldx + a_off;
-    const __nv_bfloat16* b_row = w1t + n0 * p.ldx + b_off;
-    for (int k0 = 0; k0 < p.kp; k0 += 16) {
-      unsigned af[4], bf[4];
-      esn::ldmatrix_x4(af, a_row + k0);
-      esn::ldmatrix_x4(bf, b_row + k0);
-      esn::mma_bf16(acc[0], af, bf[0], bf[1]);
-      esn::mma_bf16(acc[1], af, bf[2], bf[3]);
-    }
-    // acc[i]: rows m0 + lane/4 (+8), columns n0 + 8i + 2*(lane%4) (+1)
+  for (int m0 = (tid >> 5) * 16; m0 < p.mp; m0 += kWarps * 16) {
+    // the two pixels of this lane's accumulator rows: m0 + lane/4 (+8)
+    YPixel yp[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int q = m0 + (lane >> 2) + 8 * hr;
-      if (q >= p.chunk) continue;
-      const YPixel yp = y_pixel(a, p, u, step, q);
+      yp[hr] = y_pixel(a, p, u, step, q < p.chunk ? q : 0);
+      if (q >= p.chunk) yp[hr].offset = -1;
+    }
+    const __nv_bfloat16* a_row = xs + m0 * p.ldx + a_off;
+    for (int n0 = 0; n0 < p.np; n0 += 64) {
+      const int nt = min(8, (p.np - n0) / 8);  // even: np is a multiple of 16
+      float acc[8][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int ch = n0 + 8 * i + 2 * (lane & 3);
-        float v0 = 0.f, v1 = 0.f;
-        if (yp.inside) {
-          v0 = prelu(acc[i][2 * hr] * a1[ch] + b1[ch], p1[ch]);
-          v1 = prelu(acc[i][2 * hr + 1] * a1[ch + 1] + b1[ch + 1], p1[ch + 1]);
+      for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      const __nv_bfloat16* b_row = w1t + n0 * p.ldx + b_off;
+#pragma unroll 2
+      for (int k0 = 0; k0 < p.kp; k0 += 16) {
+        unsigned af[4];
+        esn::ldmatrix_x4(af, a_row + k0);
+#pragma unroll
+        for (int i = 0; i < 8; i += 2) {
+          if (i >= nt) break;
+          unsigned bf[4];
+          esn::ldmatrix_x4(bf, b_row + 8 * i * p.ldx + k0);
+          esn::mma_bf16(acc[i], af, bf[0], bf[1]);
+          esn::mma_bf16(acc[i + 1], af, bf[2], bf[3]);
         }
-        *reinterpret_cast<unsigned*>(ys + yp.offset + ch) = pack_bf16(v0, v1);
+      }
+      // acc[i]: rows m0 + lane/4 (+8), columns n0 + 8i + 2*(lane%4) (+1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i >= nt) break;
+        const int ch = n0 + 8 * i + 2 * (lane & 3);
+        const float2 sa = *reinterpret_cast<const float2*>(a1 + ch);
+        const float2 sb = *reinterpret_cast<const float2*>(b1 + ch);
+        const float2 sp = *reinterpret_cast<const float2*>(p1 + ch);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          if (yp[hr].offset < 0) continue;
+          float v0 = 0.f, v1 = 0.f;
+          if (yp[hr].inside) {
+            v0 = prelu(acc[i][2 * hr] * sa.x + sb.x, sp.x);
+            v1 = prelu(acc[i][2 * hr + 1] * sa.y + sb.y, sp.y);
+          }
+          *reinterpret_cast<unsigned*>(ys + yp[hr].offset + ch) = pack_bf16(v0, v1);
+        }
       }
     }
   }
@@ -362,17 +389,23 @@ __device__ __forceinline__ void stencils(const CgArgs& a, const Plan& p, const U
   const float* tl = taps + c0;              // [9][yc]
   const float* ts = taps + 9 * p.yc + c0;
   T* j = static_cast<T*>(a.j);
-  for (int it = lane; it < (o1 - o0) * pairs; it += p.lanes) {
-    const int o = o0 + it / pairs, col = (it % pairs) * 2;
-    const int ow = u.ow0 + col;
+  // the thread's items: output row o, pixel pair `pair`, advanced by
+  // p.lanes items a turn without a division
+  const int d_o = p.lanes / pairs, d_pair = p.lanes % pairs;
+  int o = o0 + lane / pairs, pair = lane % pairs;
+  for (; o < o1; o += d_o + (pair >= pairs), pair -= pair >= pairs ? pairs : 0) {
+    const int col = pair * 2, ow = u.ow0 + col;
+    pair += d_pair;
     if (ow >= a.w) continue;
+    const int om = o % p.nr;  // ring row of y row o; o + k, k <= 2d < nr, wraps once
     float accl[2][kVe], accs[2][kVe];
 #pragma unroll
     for (int e = 0; e < kVe; ++e) accl[0][e] = accl[1][e] = accs[0][e] = accs[1][e] = 0.f;
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       // local: y rows o + d - 1 + r, ring columns col + d - 1 .. col + d + 2
-      const T* yl = ys + (((o + d - 1 + r) % p.nr) * p.wt + col + d - 1) * p.ldy + c0;
+      const int rl = om + d - 1 + r, rs = om + r * d;
+      const T* yl = ys + ((rl - (rl >= p.nr ? p.nr : 0)) * p.wt + col + d - 1) * p.ldy + c0;
       float yv[4][kVe];
 #pragma unroll
       for (int v = 0; v < 4; ++v)
@@ -392,7 +425,7 @@ __device__ __forceinline__ void stencils(const CgArgs& a, const Plan& p, const U
         }
       }
       // surround: y rows o + r*d, ring columns col + v*d (+1)
-      const T* yr = ys + (((o + r * d) % p.nr) * p.wt + col) * p.ldy + c0;
+      const T* yr = ys + ((rs - (rs >= p.nr ? p.nr : 0)) * p.wt + col) * p.ldy + c0;
 #pragma unroll
       for (int v = 0; v < 3; ++v) {
         float y0[kVe], y1[kVe], wv[kVe];
@@ -425,7 +458,7 @@ __device__ __forceinline__ void stencils(const CgArgs& a, const Plan& p, const U
         ss[e] += js[e];
       }
       T* o_px = out + (int64_t)px * a.c;
-      if (a.jvec) {
+      if (a.jvec) {  // both halves of the concat, 16 bytes each
         *reinterpret_cast<uint4*>(o_px) = pack_j(jl, T());
         *reinterpret_cast<uint4*>(o_px + p.half) = pack_j(js, T());
       } else {
@@ -468,9 +501,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) cgblock_kernel(CgArgs a,
   // 0. parameters, once a block; channels past half are zeros
   if constexpr (kBf16) {
     __nv_bfloat16* w1t = reinterpret_cast<__nv_bfloat16*>(smem + p.o_w1);  // [np][ldx]
-    for (int i = tid; i < p.np * p.ldx; i += kThreads) {
+    for (int i = tid; i < a.c * p.half; i += kThreads) {  // coalesced reads of w1
+      const int ci = i / p.half, k = i - ci * p.half;
+      w1t[k * p.ldx + ci] = __float2bfloat16_rn(a.w1[i]);
+    }
+    for (int i = tid; i < p.np * p.ldx; i += kThreads) {  // the padding
       const int k = i / p.ldx, ci = i - k * p.ldx;
-      w1t[i] = __float2bfloat16_rn(k < p.half && ci < a.c ? a.w1[ci * p.half + k] : 0.f);
+      if (k >= p.half || ci >= a.c) w1t[i] = __float2bfloat16_rn(0.f);
     }
   } else {
     float* w1s = reinterpret_cast<float*>(smem + p.o_w1);  // [kp][np]

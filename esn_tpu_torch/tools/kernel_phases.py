@@ -83,7 +83,8 @@ PHASES = {
         "stencils": [("      if (o1 > o0) stencils<T>(", "      if (o1 > o0 && a.d < 0) stencils<T>(")],
         # the stencils stay live through the channel sums: a store the
         # compiler cannot rule out
-        "stores": [("      if (a.jvec) {", "      if (a.jvec && jl[0] == 123.25f) {")],
+        "stores": [("      if (a.jvec) {  // both", "      if (a.jvec && jl[0] != 123.25f) {\n"
+                    "      } else if (a.jvec) {  // both")],
     }),
 }
 

@@ -441,6 +441,14 @@ def _cgblock_args(seed, n, h, w, c, dtype, device):
     ((2, 6, 5, 24), 4),         # d > H/2 and > W/2
     ((2, 16, 20, 24), 1),
     ((2, 11, 13, 18), 3),       # half = 9: x staged element by element
+    # the strip walk's edges (strips of 32 columns, segments of 8 or more
+    # rows, steps of up to 8 y rows, a ring of rows + 2d)
+    ((1, 5, 3, 16), 6),         # H, W < d < a strip
+    ((3, 33, 65, 64), 2),       # a last strip of 1 column, a last segment of 1 row
+    ((1, 70, 40, 32), 9),       # d > the rows of a step; 2 strips, the last of 8
+    ((1, 40, 70, 128), 4),      # N = 1 at stage3's width; 3 strips, 5 segments
+    ((2, 8, 96, 64), 2),        # H = one segment; 3 full strips
+    ((1, 64, 34, 8), 1),        # half = 4: one bf16 group half empty
 ])
 def test_cgblock_kernel_matches_plain(cuda, shape, d, dtype, sum_tol):
     args = _cgblock_args(0, *shape, dtype, cuda)
@@ -470,6 +478,22 @@ def test_cgblock_kernel_is_deterministic(cuda):
     a = K.fused_cgblock_pre(*args, d=4)
     b = K.fused_cgblock_pre(*args, d=4)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, d", [((3, 33, 65, 64), 2),
+                                      ((2, 40, 70, 128), 4),
+                                      ((2, 11, 13, 18), 3)])
+def test_cgblock_result_does_not_depend_on_the_grid(cuda, shape, d, dtype):
+    """The persistent grid capped at 1, 3 and 7 blocks (other blocks take
+    other units, down to one block that takes them all in turn) and the
+    uncapped grid (more resident blocks than units) give bit-identical j
+    and sums."""
+    args = _cgblock_args(4, *shape, dtype, cuda)
+    want = K.fused_cgblock_pre(*args, d=d)
+    for blocks in (1, 3, 7):
+        got = K.fused_cgblock_pre(*args, d=d, max_blocks=blocks)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), blocks
 
 
 def test_cgblock_kernel_takes_misaligned_x(cuda):
