@@ -859,8 +859,9 @@ def interleaved_phase(torch, F, K, build_model, make_predict_step, arch,
     called after it, bf16 at 3x1024x2048: the predict runs in eval mode
     (``want_launches``, BN running statistics bit for bit as the step left
     them, the class map of a predict of the model put in eval mode by
-    hand). Also the host time of one ``model.eval()``, which every predict
-    call now pays."""
+    hand). Also the host time of what a predict call pays for that: a
+    read of every module's ``training`` flag, and one ``model.eval()`` on the
+    first call after a train step."""
     from esn_tpu_torch.train.optimizers import build_optimizer
     model = build_model(arch, CLASSES, device="cuda",
                         generator=torch.Generator().manual_seed(0))
@@ -893,15 +894,20 @@ def interleaved_phase(torch, F, K, build_model, make_predict_step, arch,
     check(bool(torch.equal(pred, want)),
           f"{arch}: predict after a train step differs from an eval-mode "
           f"predict at {float((pred != want).float().mean()):.3g} of pixels")
-    t0 = time.perf_counter()
-    for _ in range(100):
-        model.eval()
-    eval_ms = 1e3 * (time.perf_counter() - t0) / 100
-    modules = sum(1 for _ in model.modules())
-    print(f"{arch}: model.eval() over {modules} modules {eval_ms:.4f} ms "
-          f"a predict call (host)")
-    return {"launches": launches, "train_loss": loss, "modules": modules,
-            "eval_call_host_ms": eval_ms, "batch": batch_size}
+    modules = list(model.modules())
+    host_ms = {}
+    for name, fn in (("eval", model.eval),
+                     ("check", lambda: any(m.training for m in modules))):
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_ms[name] = 1e3 * (time.perf_counter() - t0) / 100
+    print(f"{arch}: {len(modules)} modules, host time of model.eval() "
+          f"{host_ms['eval']:.4f} ms (the first predict after a train step), "
+          f"of the mode check {host_ms['check']:.4f} ms (every predict)")
+    return {"launches": launches, "train_loss": loss,
+            "modules": len(modules), "eval_call_host_ms": host_ms["eval"],
+            "mode_check_host_ms": host_ms["check"], "batch": batch_size}
 
 
 def main() -> int:

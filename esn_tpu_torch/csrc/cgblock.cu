@@ -15,17 +15,22 @@
 // Both depthwise convs are SAME-padded with zeros: the padding is of y, so
 // y is 0 outside the image (not PReLU(b1), which a zero-padded x gives).
 //
-// What bounds it on an H100: bytes. CGNet's stage3 at batch 8, x
-// (8,128,256,128) bf16, reads 67 MB and writes 67 MB (0.040 ms at 3.35
-// TB/s); its 1x1 reduce is 2.1 G multiply-adds (~0.005 ms on the tensor
-// cores) and the stencils 0.6 G (~0.02 ms of f32 FMAs). The unfused chain
-// writes y, both context maps and the f32 join to device memory; here
-// none of them leaves shared memory, and the kernel's job is to keep the
-// loads, the product and the stores of different pixels in flight at once.
-// The first designs ran one 8-warp block an SM in strict sequence (load a
-// chunk of x through registers, widen it to f32, multiply in f32 FMAs,
-// and only then the stencils, one bf16 a thread), recomputing y on a halo
-// 2.5x the tile.
+// What bounds it on an H100: bytes, by the count. CGNet's stage3 at batch
+// 8, x (8,128,256,128) bf16, reads 67 MB and writes 67 MB (0.040 ms at
+// 3.35 TB/s); its 1x1 reduce is 2.1 G multiply-adds (~0.005 ms on the
+// tensor cores) and the stencils 0.6 G (~0.02 ms of f32 FMAs). The unfused
+// chain writes y, both context maps and the f32 join to device memory;
+// here none of them leaves shared memory, and the kernel's job is to keep
+// the loads, the product and the stores of different pixels in flight at
+// once. The first designs ran one 8-warp block an SM in strict sequence
+// (load a chunk of x through registers, widen it to f32, multiply in f32
+// FMAs, and only then the stencils, one bf16 a thread), recomputing y on
+// a halo 2.5x the tile: 0.743 ms at stage3. This one takes ~0.18 ms there
+// (NVIDIA H100 80GB HBM3, 700.00 W), and what bounds it now is instruction
+// issue at 16 warps an SM: the stencils are ~800 instructions per (pixel
+// pair, 8 channels), a quarter of them unpacking bf16, and knocking them
+// out saves 0.08 ms, the reduce 0.06 ms, the stores 0.01 ms and the loads
+// of x 0.004 ms (tools/kernel_phases.py).
 //
 // Design. Persistent blocks of 256 threads, two on an SM wherever their
 // shared memory fits (every CGNet shape in bf16), each walking over units
@@ -45,7 +50,9 @@
 //      read the buffer and fly during the stencils. A channel count or an
 //      x that is not 16-byte whole takes an element-by-element path;
 //   2. the reduce. bf16: tensor cores, mma.sync m16n8k16 bf16 -> f32, a
-//      warp 16 pixels x 16 reduced channels an item; the affine + PReLU
+//      warp 16 pixels x up to 64 reduced channels an item (narrower
+//      items, which would spread a step's items more evenly over the
+//      warps, measured slower); the affine + PReLU
 //      epilogue writes y as bf16 from the accumulator fragments into the
 //      ring, 0 for pixels outside the image. f32: FMAs (TF32 would break
 //      the f32 tolerance), a thread 4 pixels x 4 channels;
@@ -83,6 +90,9 @@ constexpr int kPlanBlocks = 264;
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
+// a plan forced by esn_cgblock_pre_tune (0: the planner's choice)
+int g_tune[4] = {0, 0, 0, 0};
+
 // the plan of a launch: the units, and the shared-memory layout (byte
 // offsets) for element size `es`
 struct Plan {
@@ -115,9 +125,17 @@ __host__ inline Plan make_plan(int es, int h, int w, int c, int d, int tw, int r
   p.ldx = bf ? p.kp + 8 : p.kp;
   p.np = round_up(p.half, bf ? 16 : 4);
   p.yc = p.np;
-  p.ldy = p.yc + p.ve;
   p.groups = (p.half + p.ve - 1) / p.ve;
   p.lanes = kThreads / p.groups;
+  // A ring pixel's stride in bytes: 16 past its channels, which spreads
+  // the product's accumulator stores over the banks. With 2 or 4 channel
+  // groups, the 8 threads that share a 16-byte load phase in the stencils
+  // read 4 or 2 pixel pairs: the stride that lays those pairs side by side
+  // in the 128 bytes of banks instead (2 * stride = 32 or 64 mod 128).
+  int stride = p.yc * es + 16;
+  if (p.groups == 2 || p.groups == 4)
+    stride = (p.yc * es + 63) / 64 * 64 + p.groups * 8;
+  p.ldy = stride / es;
   int o = 0;
   p.o_w1 = o, o += round_up(bf ? p.np * p.ldx * 2 : p.kp * p.np * 4, 16);
   p.xbytes = round_up(p.mp * p.ldx * es, 16);
@@ -130,9 +148,6 @@ __host__ inline Plan make_plan(int es, int h, int w, int c, int d, int tw, int r
   p.bytes = o;
   return p;
 }
-
-// a plan forced by esn_cgblock_pre_tune (0: the planner's choice)
-int g_tune[4] = {0, 0, 0, 0};
 
 // Strips of up to 32 columns (even: a thread takes two pixels); the most
 // rows a step (8, 4, 2, 1) and two x buffers before one, first among the
@@ -255,9 +270,29 @@ __device__ __forceinline__ YPixel y_pixel(const CgArgs& a, const Plan& p, const 
   return y;
 }
 
+// acc += A (16 pixels x kp, rows at a_row) x B (NT tiles of 8 channels x
+// kp, rows at b_row), NT even: no branch in the loop, so the next k's
+// fragments load while this k's products run
+template <int NT>
+__device__ __forceinline__ void product(float (*acc)[4], const __nv_bfloat16* a_row,
+                                        const __nv_bfloat16* b_row, int kp, int ldx) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    unsigned af[4];
+    esn::ldmatrix_x4(af, a_row + k0);
+#pragma unroll
+    for (int i = 0; i < NT; i += 2) {
+      unsigned bf[4];
+      esn::ldmatrix_x4(bf, b_row + 8 * i * ldx + k0);
+      esn::mma_bf16(acc[i], af, bf[0], bf[1]);
+      esn::mma_bf16(acc[i + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
 // 2. bf16: xs (mp x kp) @ w1^T (np x kp, [n][k]) on tensor cores; a warp
-// takes 16 pixels and every reduced channel, 64 at a time: the 16
-// accumulator chains of an item are independent
+// takes 16 pixels x up to 8 tiles of 8 reduced channels an item, each tile
+// an independent accumulator chain
 __device__ __forceinline__ void reduce_bf16(const CgArgs& a, const Plan& p, const Unit& u,
                                             int step, const __nv_bfloat16* xs,
                                             const __nv_bfloat16* w1t, const float* aff,
@@ -268,7 +303,9 @@ __device__ __forceinline__ void reduce_bf16(const CgArgs& a, const Plan& p, cons
   // n-tiles of 8) rows n0 + lane%8 + 8*(lane/16) at k + 8*((lane/8)%2)
   const int a_off = (lane & 15) * p.ldx + (lane >> 4) * 8;
   const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * p.ldx + ((lane >> 3) & 1) * 8;
-  for (int m0 = (tid >> 5) * 16; m0 < p.mp; m0 += kWarps * 16) {
+  const int nchunks = (p.np + 63) / 64, items = (p.mp / 16) * nchunks;
+  for (int item = tid >> 5; item < items; item += kWarps) {
+    const int m0 = (item / nchunks) * 16, n0 = (item % nchunks) * 64;
     // the two pixels of this lane's accumulator rows: m0 + lane/4 (+8)
     YPixel yp[2];
 #pragma unroll
@@ -278,43 +315,36 @@ __device__ __forceinline__ void reduce_bf16(const CgArgs& a, const Plan& p, cons
       if (q >= p.chunk) yp[hr].offset = -1;
     }
     const __nv_bfloat16* a_row = xs + m0 * p.ldx + a_off;
-    for (int n0 = 0; n0 < p.np; n0 += 64) {
-      const int nt = min(8, (p.np - n0) / 8);  // even: np is a multiple of 16
-      float acc[8][4];
+    const __nv_bfloat16* b_row = w1t + n0 * p.ldx + b_off;
+    const int nt = min(8, (p.np - n0) / 8);  // even: np is a multiple of 16
+    float acc[8][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      const __nv_bfloat16* b_row = w1t + n0 * p.ldx + b_off;
-#pragma unroll 2
-      for (int k0 = 0; k0 < p.kp; k0 += 16) {
-        unsigned af[4];
-        esn::ldmatrix_x4(af, a_row + k0);
+    for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    if (nt == 8)
+      product<8>(acc, a_row, b_row, p.kp, p.ldx);
+    else if (nt == 6)
+      product<6>(acc, a_row, b_row, p.kp, p.ldx);
+    else if (nt == 4)
+      product<4>(acc, a_row, b_row, p.kp, p.ldx);
+    else
+      product<2>(acc, a_row, b_row, p.kp, p.ldx);
+    // acc[i]: rows m0 + lane/4 (+8), columns n0 + 8i + 2*(lane%4) (+1)
 #pragma unroll
-        for (int i = 0; i < 8; i += 2) {
-          if (i >= nt) break;
-          unsigned bf[4];
-          esn::ldmatrix_x4(bf, b_row + 8 * i * p.ldx + k0);
-          esn::mma_bf16(acc[i], af, bf[0], bf[1]);
-          esn::mma_bf16(acc[i + 1], af, bf[2], bf[3]);
+    for (int i = 0; i < 8; ++i) {
+      if (i >= nt) break;
+      const int ch = n0 + 8 * i + 2 * (lane & 3);
+      const float2 sa = *reinterpret_cast<const float2*>(a1 + ch);
+      const float2 sb = *reinterpret_cast<const float2*>(b1 + ch);
+      const float2 sp = *reinterpret_cast<const float2*>(p1 + ch);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        if (yp[hr].offset < 0) continue;
+        float v0 = 0.f, v1 = 0.f;
+        if (yp[hr].inside) {
+          v0 = prelu(acc[i][2 * hr] * sa.x + sb.x, sp.x);
+          v1 = prelu(acc[i][2 * hr + 1] * sa.y + sb.y, sp.y);
         }
-      }
-      // acc[i]: rows m0 + lane/4 (+8), columns n0 + 8i + 2*(lane%4) (+1)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (i >= nt) break;
-        const int ch = n0 + 8 * i + 2 * (lane & 3);
-        const float2 sa = *reinterpret_cast<const float2*>(a1 + ch);
-        const float2 sb = *reinterpret_cast<const float2*>(b1 + ch);
-        const float2 sp = *reinterpret_cast<const float2*>(p1 + ch);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          if (yp[hr].offset < 0) continue;
-          float v0 = 0.f, v1 = 0.f;
-          if (yp[hr].inside) {
-            v0 = prelu(acc[i][2 * hr] * sa.x + sb.x, sp.x);
-            v1 = prelu(acc[i][2 * hr + 1] * sa.y + sb.y, sp.y);
-          }
-          *reinterpret_cast<unsigned*>(ys + yp[hr].offset + ch) = pack_bf16(v0, v1);
-        }
+        *reinterpret_cast<unsigned*>(ys + yp[hr].offset + ch) = pack_bf16(v0, v1);
       }
     }
   }

@@ -80,6 +80,12 @@ PHASES = {
         "reduce": [("        reduce_bf16(a, p, u, step, xs, "
                     "reinterpret_cast<const __nv_bfloat16*>(smem + p.o_w1),\n"
                     "                    aff, ys, tid);", "        (void)xs;")],
+        # the reduce's two halves: the tensor-core loop, and the affine +
+        # PReLU + store of y into the ring
+        "product": [("  for (int k0 = 0; k0 < kp; k0 += 16) {\n    unsigned af[4];",
+                     "  for (int k0 = 0; k0 < kp - 16 * ldx; k0 += 16) {\n    unsigned af[4];")],
+        "epilogue": [("        if (yp[hr].offset < 0) continue;",
+                      "        if (yp[hr].offset < 0 || acc[i][0] != 123.25f) continue;")],
         "stencils": [("      if (o1 > o0) stencils<T>(", "      if (o1 > o0 && a.d < 0) stencils<T>(")],
         # the stencils stay live through the channel sums: a store the
         # compiler cannot rule out
@@ -93,8 +99,7 @@ PHASES = {
 # 0 for the planner's choice
 CGBLOCK_SHAPES = (("stage2", (8, 256, 512, 64), 2), ("stage3", (8, 128, 256, 128), 4))
 CGBLOCK_PLANS = ((0, 0, 0, 0), (0, 8, 1, 0), (0, 4, 2, 0), (0, 4, 1, 0), (0, 2, 2, 0),
-                 (0, 2, 1, 0), (0, 1, 2, 0), (16, 4, 2, 0), (16, 2, 2, 0), (0, 0, 0, 16),
-                 (0, 0, 0, 64))
+                 (0, 2, 1, 0), (0, 1, 2, 0), (16, 4, 2, 0), (0, 0, 0, 16), (0, 0, 0, 64))
 
 
 def edit(text: str, edits, what: str) -> str:

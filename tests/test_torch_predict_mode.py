@@ -94,3 +94,10 @@ def test_predict_after_a_train_step_runs_in_eval_mode(arch, count_calls):
     out = sized(probe)
     assert not model.training and tuple(out.shape) == (2, 48, 100)
 
+    # one submodule alone in train mode (the root's flag does not show it)
+    want = predict(probe)
+    next(model.children()).train()
+    assert not model.training
+    assert torch.equal(predict(probe), want)
+    assert all(not m.training for m in model.modules())
+
