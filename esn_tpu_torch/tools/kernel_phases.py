@@ -4,19 +4,21 @@
 
 Run from the repo root. For each kernel in ``PHASES`` (K3's forward and
 backward in ``csrc/resize_ce.cu``, K1 in ``csrc/resize_argmax.cu``, K2 in
-``csrc/dsconv.cu``, K4 in ``csrc/cgblock.cu``) it builds the kernel's source as it is and, for each
-phase, a copy with that phase taken out (each copy its own ``nvcc``, all
-started together, into ``esn_tpu_torch/build/phases/``), and times each
-build at the main path's shapes (K3 at z (8,128,256,19) r=8, K1 bf16 and
-f32 at y (8,128,256,19) r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and
-head.ds1, K4 bf16 at CGNet's stage2 and stage3) with CUDA events, in turns (all builds, then all again in
-reverse order). A phase's cost is read as the full time less the time
-without it; phases that overlap do not add up. The copies compute wrong
-results and are used for nothing else. K4 is also timed under other
-plans than its planner's (``CGBLOCK_PLANS``: strip width, rows a step, x
-buffers, rows a unit), which compute the same result. Each edit must occur exactly once
-in its source (``edit``), so an edit of a kernel that moves or repeats a
-phase makes this script fail rather than time something else. Exits
+``csrc/dsconv.cu``, K4 in ``csrc/cgblock.cu``) it builds the kernel's
+source as it is and, for each phase, a copy with that phase taken out
+(each copy its own ``nvcc``, all started together, into
+``esn_tpu_torch/build/phases/``), and times each build at the main path's
+shapes (K3 at z (8,128,256,19) r=8, K1 bf16 and f32 at y (8,128,256,19)
+r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and head.ds1, K4 bf16 at
+CGNet's stage2 and stage3) with CUDA events, in turns (all builds, then
+all again in reverse order). A phase's cost is read as the full time less
+the time without it; phases that overlap do not add up. The copies
+compute wrong results and are used for nothing else. K4 is also timed
+under other plans than its planner's (``CGBLOCK_PLANS``: strip width, rows
+a step, x buffers, rows a unit), which compute the same result. Each edit
+must occur exactly once in its source (``edit``), so an edit of a kernel
+that moves or repeats a phase makes this script fail rather than time
+something else. Exits
 non-zero without a CUDA device.
 """
 from __future__ import annotations

@@ -152,10 +152,10 @@ def make_predict_step(model: SegModel, *,
     statistics, leaves them alone and takes the fused eval paths. A call
     reads the ``training`` flag of each module the model had when the step
     was built, and walks the model with ``model.eval()`` only where one is
-    set (the walk costs ~1 ms of host time on these models, a tenth of a
-    Fast-SCNN batch at b8 on an H100; the check some 0.02 ms). Images
-    are cast to ``compute_dtype`` in ``channels_last`` memory; parameters
-    stay f32 and each op casts them to the activation dtype. With ``output_size`` the full-res logits are
+    set: the walk is the costlier by far, and predict is bound by its host
+    time. Images are cast to ``compute_dtype`` in ``channels_last`` memory;
+    parameters stay f32 and each op casts them to the activation dtype.
+    With ``output_size`` the full-res logits are
     resized (f32 bilinear) to it before the argmax; otherwise the model's
     own ``predict`` runs (the fused resize + argmax tail where it has one).
     """
