@@ -27,7 +27,7 @@
 // FMAs, and only then the stencils, one bf16 a thread), recomputing y on
 // a halo 2.5x the tile: 0.743 ms at stage3. This one takes ~0.18 ms there
 // (NVIDIA H100 80GB HBM3, 700.00 W), and what bounds it now is instruction
-// issue at 16 warps an SM: the stencils are ~800 instructions per (pixel
+// throughput at 16 warps an SM: the stencils are ~800 instructions per (pixel
 // pair, 8 channels), a quarter of them unpacking bf16, and knocking them
 // out saves 0.08 ms, the reduce 0.06 ms, the stores 0.01 ms and the loads
 // of x 0.004 ms (tools/kernel_phases.py).
