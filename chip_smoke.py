@@ -24,7 +24,27 @@ from zero:
   first, one train step, then a predict that must run in eval mode (the
   eval launch counts, BN running statistics untouched, the class map of
   an eval-mode predict), and the host time of the per-call
-  ``model.eval()``.
+  ``model.eval()``;
+- the index pool/unpool pair on the card, contiguous and
+  ``channels_last``, f32 and bf16, on inputs with planted ties and at an
+  odd size with ``output_size``: bit for bit the CPU's result;
+- ENet-19 at full width and depth, batch 8, 3x1024x2048, bf16, through
+  ``build_model("enet")``, ``make_predict_step``, ``make_train_step`` and
+  ``make_eval_step``. No kernel lies on its path (every launch count
+  stays 0), so the card is held against the CPU: the f32 predict of a
+  slice, and one f32 train step on a small slice (loss, per-leaf
+  gradients). Train: five steps with the config-5 loss (class-weighted CE
+  + OHEM on the full-resolution logits), a falling loss, moving BN
+  statistics, finite gradients on every leaf, ms/step, peak memory.
+  Eval: labels made from the model's own prediction with a band of
+  ignored rows and ``valid = 6`` of 8 give a diagonal confusion matrix
+  and mIoU 1; an eval step built before a train step and called after it
+  runs in eval mode;
+- Fast-SCNN-19 with the config-5 loss, ``fwd_method=None`` (OHEM needs
+  the full-resolution logits, so the step leaves the fused resize-CE
+  route: ``resize_ce`` launches 0 times, and the script says so): five
+  steps, a falling loss, ms/step and peak memory in turns with the
+  weighted-CE step.
 
 Exits non-zero on any failure, and when no CUDA device is present. The
 last line of standard output is one JSON object; the line before it lists
@@ -136,6 +156,28 @@ CGBLOCK_BF16_DIFFER = 1e-3
 CGBLOCK_MAIN = [("stage2", (BATCH, 256, 512, 64), 2, 2),
                 ("stage3", (BATCH, 128, 256, 128), 4, 20)]
 IGNORE = 255
+# ENet has no kernel to hold against a plain version, so the card is held
+# against the CPU, f32, TF32 off. Predict of a 2-image slice: the class
+# maps differ at no more than ENET_MISMATCH_MAX of the pixels. Where two
+# values of a pool window lie within f32 rounding of each other the two
+# devices may remember other positions (at most ENET_FLIPS_MAX of the
+# windows), and the unpooled value lands one pixel aside: the logits move
+# by up to ~0.4 of their std inside the decoder's receptive field of that
+# window (within 24 pixels of a down2 window, 8 of a down1 window).
+# Outside those fields the logits differ by at most ENET_LOGIT_DIFF_MAX
+# of the CPU logits' std (f32 sums in other orders through ~100 convs),
+# and a mismatch is a near-tie: the CPU's logits of the two classes lie
+# within twice that. One CE + OHEM train step of a 2 x 3 x 256 x 512
+# slice: the loss within TRAIN_LOSS_REL; per-leaf gradient rel-L2 within
+# ENET_GRAD_REL plus TRAIN_GRAD_ABS (train-mode BN makes the f32 gradient
+# ill-conditioned: on the CPU alone, at 2 x 3 x 64 x 128, it moves by up
+# to 1.6e-2 when the two images swap places,
+# tests/test_torch_enet_train.py; read on an H100 against the CPU: 3.2e-2
+# on the worst leaf, 5.8e-3 the median).
+ENET_MISMATCH_MAX, ENET_LOGIT_DIFF_MAX, ENET_GRAD_REL = 1e-4, 1e-3, 8e-2
+ENET_FLIPS_MAX = 1e-5
+ENET_SLICE_HW = (256, 512)
+EVAL_VALID = 6
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once)
 # over HBM_BPS and its operations over the peak rate for their type:
@@ -717,6 +759,36 @@ def class_weights(torch, labels):
     return (1.0 / torch.log(1.10 + hist / hist.sum())).float()
 
 
+def config5_loss(cw):
+    """The reference's config-5 loss: class-weighted CE plus OHEM, both on
+    the same full-resolution NHWC logits."""
+    from esn_tpu_torch.train.losses import cross_entropy, ohem_cross_entropy
+
+    def loss(logits, labels):
+        return (cross_entropy(logits, labels, num_classes=CLASSES,
+                              class_weights=cw, ignore_index=IGNORE)
+                + ohem_cross_entropy(logits, labels, num_classes=CLASSES,
+                                     ignore_index=IGNORE))
+    return loss
+
+
+def config5_step(torch, model, opt, cw, dtype):
+    """adam + poly on ``opt`` with the config-5 loss on the model's own
+    full-resolution logits (``fwd_method=None``); dropout masks from a
+    seeded generator on the model's device."""
+    from esn_tpu_torch.train.losses import fused_resize_ce_spec
+    from esn_tpu_torch.train.schedules import build_schedule
+    from esn_tpu_torch.train.step import make_train_step
+    check(fused_resize_ce_spec(model, "ohem") == (None, None),
+          "OHEM must not take the fused resize-CE route")
+    device = next(model.parameters()).device
+    return make_train_step(
+        model, config5_loss(cw.to(device)), opt,
+        schedule=build_schedule("poly", TRAIN_LR, TRAIN_TOTAL_STEPS),
+        compute_dtype=dtype, fwd_method=None,
+        generator=torch.Generator(device=device).manual_seed(3))
+
+
 def train_step(torch, model, opt, cw, dtype):
     """The default of train.py on a resize-tail model, through the port's
     entry points: class-weighted CE through logits_lowres (the loss owns
@@ -735,12 +807,13 @@ def train_step(torch, model, opt, cw, dtype):
         generator=torch.Generator(device="cuda").manual_seed(3))
 
 
-def train_setup(torch, F):
-    """Fast-SCNN-19 on the card (port init, seed 0), adam, and one seeded
-    batch: smooth images, learnable labels, their class weights."""
+def train_setup(torch, F, arch: str = "fastscnn"):
+    """``arch`` (19 classes) on the card (port init, seed 0), adam, and
+    one seeded batch: smooth images, learnable labels, their class
+    weights."""
     from esn_tpu_torch.models import build_model
     from esn_tpu_torch.train.optimizers import build_optimizer
-    model = build_model("fastscnn", CLASSES, device="cuda",
+    model = build_model(arch, CLASSES, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     opt = build_optimizer("adam", model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -910,6 +983,354 @@ def interleaved_phase(torch, F, K, build_model, make_predict_step, arch,
             "mode_check_host_ms": host_ms["check"], "batch": batch_size}
 
 
+def planted_ties(torch, gen, shape, dtype):
+    """Seeded values with ties inside 2x2 windows: a constant block, two
+    values that alternate, and, once rounded to bf16, a block of values
+    that lie within one bf16 step of each other."""
+    x = torch.randn(shape, generator=gen)
+    x[:, :, 2:10, 4:20] = 0.75
+    x[:, :, 10:12, 0:4] = torch.tensor([[-1.0, 2.0, 2.0, -1.0],
+                                        [2.0, 2.0, -3.0, 2.0]])
+    x[:, :, 12:20, 0:16] = 1.0 + 0.004 * torch.rand((8, 16), generator=gen)
+    return x.to(dtype)
+
+
+def pool_phase(torch):
+    """``max_pool2d_with_indices_2x2`` then ``max_unpool2d_2x2`` on the
+    card against the CPU, bit for bit: values, indices (ties go to the
+    first window position), the unpooled tensor and its memory format;
+    contiguous and channels_last, f32 and bf16, an even size and an odd
+    one with ``output_size``."""
+    from esn_tpu_torch.ops import pooling as P
+    gen = torch.Generator().manual_seed(6)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for channels_last in (False, True):
+            for hw in ((64, 96), (37, 53)):
+                x = planted_ties(torch, gen, (2, 16, *hw), dtype)
+                if channels_last:
+                    x = x.contiguous(memory_format=torch.channels_last)
+                fmt = (torch.channels_last if channels_last
+                       else torch.contiguous_format)
+                xc = x.cuda()
+                check(xc.is_contiguous(memory_format=fmt), "pool input format")
+                v0, i0 = P.max_pool2d_with_indices_2x2(x)
+                v1, i1 = P.max_pool2d_with_indices_2x2(xc)
+                u0 = P.max_unpool2d_2x2(v0, i0, hw)
+                u1 = P.max_unpool2d_2x2(v1, i1, hw)
+                w = 2 * (hw[1] // 2)
+                tied = i0[:, :, 1:5, 2:10]     # the constant block's windows
+                first = (torch.arange(1, 5)[:, None] * 2 * w
+                         + torch.arange(2, 10)[None, :] * 2)
+                windows = x[:, :, :2 * (hw[0] // 2), :w].unflatten(
+                    2, (-1, 2)).unflatten(4, (-1, 2))
+                n_tied = int(((windows == windows.amax((3, 5), keepdim=True))
+                              .sum((3, 5)) > 1).sum())
+                row = {"dtype": str(dtype).split(".")[-1],
+                       "channels_last": channels_last, "hw": list(hw),
+                       "tied_windows": n_tied,
+                       "values_equal": bool(torch.equal(v0, v1.cpu())),
+                       "indices_equal": bool(torch.equal(i0, i1.cpu())),
+                       "unpool_equal": bool(torch.equal(u0, u1.cpu())),
+                       "first_position": bool((tied == first).all()),
+                       "unpool_shape_ok": tuple(u1.shape[2:]) == hw,
+                       "format_kept": bool(P.max_unpool2d_2x2(v1, i1)
+                                           .is_contiguous(memory_format=fmt))}
+                rows.append(row)
+                print("pool/unpool", json.dumps(row))
+    bad = [r for r in rows if not all(v for k, v in r.items() if k not in
+                                      ("dtype", "channels_last", "hw"))]
+    check(not bad, f"pool/unpool on the card differs from the CPU: {bad}")
+    return rows
+
+
+def enet_predict_phase(torch, F, K, build_model, BatchNorm,
+                       make_predict_step):
+    """ENet-19 predict at bf16 b8 3x1024x2048: output, launch counts (all
+    0), img/s; the f32 predict of a 2-image slice on the card against the
+    CPU. Returns the model too (the eval phase scores it)."""
+    model = seeded_model(torch, F, build_model, BatchNorm, seed=0, arch="enet")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = smooth_images(torch, F, gen, BATCH, IMAGE_HW)
+    predict = make_predict_step(model, compute_dtype=torch.bfloat16)
+    predict(images)                                   # warm-up
+    torch.cuda.synchronize()
+    K.reset_launches()
+    pred = predict(images)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print("enet predict launches", json.dumps(launches),
+          "(no kernel lies on ENet's path)")
+    check(not any(launches.values()), f"enet predict launched {launches}")
+    check(tuple(pred.shape) == (BATCH, *IMAGE_HW) and pred.dtype == torch.int32,
+          f"enet predict output {tuple(pred.shape)} {pred.dtype}")
+    lo, hi = int(pred.min()), int(pred.max())
+    check(0 <= lo and hi < CLASSES, f"enet predict classes in [{lo}, {hi}]")
+    n_classes = int((torch.bincount(pred.flatten().long(),
+                                    minlength=CLASSES) > 0).sum())
+    check(n_classes > 3, f"enet predict saw {n_classes} classes")
+    print(f"enet predict output int32 {tuple(pred.shape)}, classes in "
+          f"[{lo}, {hi}], {n_classes} seen")
+
+    # the card against the CPU: f32, TF32 off, a 2-image slice
+    torch.backends.cudnn.allow_tf32 = False
+    x = images[:2].contiguous(memory_format=torch.channels_last)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    indices = {"cuda": [], "cpu": []}     # of down1 and down2, in order
+    hooks = [block.register_forward_hook(
+        lambda _m, _i, out, dev=dev: indices[dev].append(out[1].cpu()))
+        for dev, m in (("cuda", model), ("cpu", cpu_model))
+        for block in (m.down1, m.down2)]
+    with torch.inference_mode():
+        logits = model(x).cpu()
+        t0 = time.perf_counter()
+        logits0 = cpu_model(x.cpu())
+        for hook in hooks:
+            hook.remove()
+        got = make_predict_step(model)(x).cpu()
+        want = make_predict_step(cpu_model)(x.cpu())
+        cpu_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = True    # the library default again
+    # the decoder's receptive field of each window whose index differs
+    flips, field = [], torch.zeros(logits.shape[0], *logits.shape[2:],
+                                   dtype=torch.bool)
+    for i_card, i_cpu, cell, radius in zip(indices["cuda"], indices["cpu"],
+                                           (4, 8), (2, 3)):
+        differ = i_card != i_cpu
+        flips.append(int(differ.sum()))
+        m = F.max_pool2d(differ.any(1, keepdim=True).float(), 2 * radius + 1,
+                         1, radius)
+        field |= F.interpolate(m, scale_factor=cell)[:, 0] > 0
+    windows = sum(i.numel() for i in indices["cpu"])
+    std = float(logits0.std())
+    tol = ENET_LOGIT_DIFF_MAX * std
+    diff = (logits - logits0).abs()
+    mismatch = got != want
+    a = logits0.gather(1, got.long()[:, None]).squeeze(1)
+    b = logits0.gather(1, want.long()[:, None]).squeeze(1)
+    near_ties = bool(((a - b).abs() <= 2 * tol)[mismatch & ~field].all())
+    compared = {"dtype": "float32", "batch": 2,
+                "mismatch_rate": float(mismatch.float().mean()),
+                "mismatch_max": ENET_MISMATCH_MAX,
+                "pool_indices_differ": flips, "pool_windows": windows,
+                "flips_max": ENET_FLIPS_MAX * windows,
+                "pixels_in_their_fields": int(field.sum()),
+                "logit_std": std, "logit_diff_tol": tol,
+                "logit_diff_median": float(diff.flatten()[::97].median()),
+                "logit_max_abs_diff": float(diff.max()),
+                "logit_max_abs_diff_elsewhere": float(
+                    diff.amax(1)[~field].max()),
+                "near_ties_only_elsewhere": near_ties, "cpu_seconds": cpu_s}
+    print("enet predict, the card vs the CPU", json.dumps(compared))
+    check(compared["mismatch_rate"] <= ENET_MISMATCH_MAX
+          and sum(flips) <= compared["flips_max"]
+          and compared["logit_max_abs_diff_elsewhere"] <= tol and near_ties,
+          f"enet predict on the card disagrees with the CPU: {compared}")
+
+    torch.cuda.reset_peak_memory_stats()
+    sec = timed_predict(torch, predict, images, iters=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"enet predict bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: "
+          f"{BATCH / sec:.2f} img/s ({1e3 * sec:.3f} ms/batch); peak "
+          f"{peak_gb:.2f} GB")
+    return model, images, {
+        "launches": launches, "classes_seen": n_classes, "compared": compared,
+        "img_per_s": BATCH / sec, "ms_per_batch": 1e3 * sec,
+        "peak_gb": peak_gb, "batch": BATCH}
+
+
+def compare_step_with_cpu(torch, model, opt, batch, cw):
+    """One f32 config-5 step (TF32 off) on a small slice of the batch,
+    from copies of the same model and optimizer on the card and on the
+    CPU, dropout off: loss and per-leaf gradients."""
+    from esn_tpu_torch.nn import Dropout
+    h, w = ENET_SLICE_HW
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        for sub in m.modules():       # the two devices draw other masks
+            if isinstance(sub, Dropout):
+                sub.rate = 0.0
+        o = type(opt)(m.parameters())
+        o.load_state_dict(opt.state_dict())
+        step = config5_step(torch, m, o, cw, torch.float32)
+        loss = float(step({"image": batch["image"][:2, :, :h, :w].to(dev),
+                           "label": batch["label"][:2, :h, :w].to(dev)})
+                     ["loss"])
+        runs[dev] = (loss, {n: p.grad.detach().cpu()
+                            for n, p in m.named_parameters()})
+        del m, o, step
+    (loss, grads), (loss0, grads0) = runs["cuda"], runs["cpu"]
+    diff = {n: float(torch.linalg.norm(grads[n] - g0))
+            for n, g0 in grads0.items()}
+    norm = {n: float(torch.linalg.norm(g0)) for n, g0 in grads0.items()}
+    excess = {n: diff[n] - ENET_GRAD_REL * norm[n] - TRAIN_GRAD_ABS
+              for n in diff}
+    worst = max(excess, key=excess.get)
+    rel = {n: diff[n] / norm[n] for n in diff if norm[n] > 1e3 * TRAIN_GRAD_ABS}
+    worst_rel = max(rel, key=rel.get)
+    row = {"dtype": "float32", "slice": [2, 3, h, w], "loss": loss,
+           "cpu_loss": loss0, "loss_rel_diff": abs(loss - loss0) / abs(loss0),
+           "loss_rel_max": TRAIN_LOSS_REL, "grad_rel_l2_max": rel[worst_rel],
+           "grad_rel_l2_median": sorted(rel.values())[len(rel) // 2],
+           "grad_rel_l2_worst_leaf": worst_rel,
+           "grad_rel_bound": ENET_GRAD_REL, "grad_abs_bound": TRAIN_GRAD_ABS,
+           "worst_leaf_by_bound": worst, "worst_leaf_diff": diff[worst],
+           "worst_leaf_norm": norm[worst]}
+    print("enet train step, the card vs the CPU", json.dumps(row))
+    check(row["loss_rel_diff"] <= TRAIN_LOSS_REL and excess[worst] <= 0,
+          f"enet train step on the card disagrees with the CPU: {row}")
+    return row
+
+
+def config5_train(torch, K, BatchNorm, name, model, step, batch):
+    """Five config-5 steps on one batch with the launch counts from zero:
+    no kernel launches, a falling loss, BN running stats that move, finite
+    gradients on every leaf."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    stats0 = [m.running_mean.clone() for m in bns]
+    K.reset_launches()
+    losses = [float(step(batch)["loss"]) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"{name} CE + OHEM train launches", json.dumps(launches),
+          "(resize_ce 0: OHEM takes the step off the fused resize-CE "
+          "route)" if name == "fastscnn" else "(no kernel lies on its path)")
+    print(f"{name} CE + OHEM train losses", json.dumps(losses))
+    check(not any(launches.values()),
+          f"{name}: a CE + OHEM step launched {launches}")
+    check(all(math.isfinite(v) for v in losses), f"{name} losses {losses}")
+    check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
+    moved = sum(not torch.equal(m.running_mean, m0)
+                for m, m0 in zip(bns, stats0))
+    check(moved == len(bns), f"{name}: BN running stats moved in {moved} of "
+          f"{len(bns)} layers")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not bad, f"{name}: no finite gradient on {bad[:5]}")
+    return {"launches": launches, "losses": losses, "bn_layers_moved": moved,
+            "leaves": sum(1 for _ in model.parameters())}
+
+
+def enet_train_phase(torch, F, K, BatchNorm):
+    """ENet-19 training at bf16 b8 3x1024x2048 with the config-5 loss: the
+    f32 step of a slice against the CPU, five steps, ms/step, peak
+    memory."""
+    model, opt, batch, cw = train_setup(torch, F, "enet")
+    torch.backends.cudnn.allow_tf32 = False
+    compared = compare_step_with_cpu(torch, model, opt, batch, cw)
+    torch.backends.cudnn.allow_tf32 = True    # the library default again
+    step = config5_step(torch, model, opt, cw, torch.bfloat16)
+    result = config5_train(torch, K, BatchNorm, "enet", model, step, batch)
+    torch.cuda.reset_peak_memory_stats()
+    sec = timed_steps(torch, step, batch, iters=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"enet train (CE + OHEM) bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}:"
+          f" {BATCH / sec:.2f} img/s ({1e3 * sec:.3f} ms/step); peak "
+          f"{peak_gb:.2f} GB")
+    result.update(compared=compared, ms_per_step=1e3 * sec,
+                  img_per_s=BATCH / sec, peak_gb=peak_gb, batch=BATCH)
+    return result
+
+
+def enet_eval_phase(torch, K, build_model, model, images):
+    """``make_eval_step`` on the predict phase's ENet: labels made from
+    its own prediction, with a band of ignored rows, and ``valid`` =
+    EVAL_VALID of 8 give a diagonal confusion matrix over the non-ignored
+    pixels of the first rows and mIoU 1 over the present classes. Then an
+    eval step built before a train step and called after it: eval mode,
+    the buffers untouched, the class map of an eval-mode predict."""
+    from esn_tpu_torch.train.metrics import iou_from_confusion
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    from esn_tpu_torch.train.step import make_eval_step
+    evaluate = make_eval_step(model, CLASSES, ignore_index=IGNORE,
+                              compute_dtype=torch.bfloat16)
+    pred0, _ = evaluate({"image": images, "label": torch.zeros(
+        (BATCH, *IMAGE_HW), dtype=torch.int32, device="cuda")})
+    labels = pred0.clone()
+    labels[:, IMAGE_HW[0] // 2 - 16:IMAGE_HW[0] // 2 + 16] = IGNORE
+    K.reset_launches()
+    pred, cm = evaluate({"image": images, "label": labels,
+                         "valid": EVAL_VALID})
+    torch.cuda.synchronize()
+    check(not any(K.LAUNCHES.values()), f"enet eval launched {K.LAUNCHES}")
+    check(bool(torch.equal(pred, pred0)), "two eval steps differ")
+    counted = int((labels[:EVAL_VALID] != IGNORE).sum())
+    iou, miou = iou_from_confusion(cm)
+    present = int((cm.sum(0) + cm.sum(1) > 0).sum())
+    row = {"cm_sum": int(cm.sum()), "pixels_counted": counted,
+           "off_diagonal": int(cm.sum() - torch.diagonal(cm).sum()),
+           "classes_present": present, "miou": float(miou),
+           "valid": EVAL_VALID, "cm_dtype": str(cm.dtype)}
+    print("enet eval", json.dumps(row))
+    check(tuple(cm.shape) == (CLASSES, CLASSES) and cm.dtype == torch.int64
+          and row["cm_sum"] == counted and row["off_diagonal"] == 0
+          and present > 3 and row["miou"] == 1.0,
+          f"enet eval step: {row}")
+    sec = timed_predict(torch, lambda x: evaluate(
+        {"image": x, "label": labels, "valid": EVAL_VALID}), images, iters=5)
+    row.update(ms_per_batch=1e3 * sec, img_per_s=BATCH / sec)
+    print(f"enet eval step bf16 b{BATCH}: {BATCH / sec:.2f} img/s "
+          f"({1e3 * sec:.3f} ms/batch)")
+
+    # built before a train step, called after it (batch 2)
+    fresh = build_model("enet", CLASSES, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    evaluate = make_eval_step(fresh, CLASSES, ignore_index=IGNORE,
+                              compute_dtype=torch.bfloat16)
+    small = {"image": images[:2], "label": labels[:2]}
+    cw = class_weights(torch, small["label"])
+    step = config5_step(torch, fresh,
+                        build_optimizer("adam", fresh.parameters()), cw,
+                        torch.bfloat16)
+    loss = float(step(small)["loss"])
+    check(fresh.training and math.isfinite(loss),
+          f"enet: after a train step training={fresh.training} loss={loss}")
+    stats = {name: buf.clone() for name, buf in fresh.named_buffers()}
+    pred, cm = evaluate(small)
+    check(not any(m.training for m in fresh.modules()),
+          "enet: the eval step left modules in train mode")
+    moved = [name for name, buf in fresh.named_buffers()
+             if not torch.equal(buf, stats[name])]
+    check(not moved, f"enet: the eval step moved the buffers {moved[:5]}")
+    fresh.eval()
+    with torch.inference_mode():
+        want = fresh.predict(small["image"].to(
+            dtype=torch.bfloat16, memory_format=torch.channels_last))
+    check(bool(torch.equal(pred, want)),
+          "enet: eval after a train step differs from an eval-mode predict")
+    check(int(cm.sum()) == int((small["label"] != IGNORE).sum()),
+          "enet: eval after a train step miscounts")
+    print("enet eval after a train step: eval mode, buffers untouched")
+    row["after_train_loss"] = loss
+    return row
+
+
+def fastscnn_config5_phase(torch, F, K, BatchNorm):
+    """Fast-SCNN-19 with the config-5 loss at bf16 b8 3x1024x2048,
+    ``fwd_method=None``: five steps, then its time and peak memory in
+    turns with the weighted-CE step through the fused resize-CE kernel
+    (the price of leaving the fused tail)."""
+    model, opt, batch, cw = train_setup(torch, F)
+    step = config5_step(torch, model, opt, cw, torch.bfloat16)
+    result = config5_train(torch, K, BatchNorm, "fastscnn", model, step, batch)
+    fused = train_step(torch, model, opt, cw, torch.bfloat16)
+    times, peak = {"ce": [], "ce_ohem": []}, {}
+    for which in ("ce", "ce_ohem", "ce_ohem", "ce"):
+        torch.cuda.reset_peak_memory_stats()
+        times[which].append(timed_steps(
+            torch, fused if which == "ce" else step, batch, iters=5))
+        peak[which] = max(peak.get(which, 0.0),
+                          torch.cuda.max_memory_allocated() / 1e9)
+    ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
+    print(f"fastscnn train bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: CE + "
+          f"OHEM on full-resolution logits {ms['ce_ohem']:.3f} ms/step, peak "
+          f"{peak['ce_ohem']:.2f} GB; weighted CE through the fused resize-CE "
+          f"kernel {ms['ce']:.3f} ms/step, peak {peak['ce']:.2f} GB")
+    result.update(ms_per_step=ms, peak_gb=peak, batch=BATCH)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -962,6 +1383,17 @@ def main() -> int:
         "cgnet": interleaved_phase(
             torch, F, K, build_model, make_predict_step, "cgnet",
             cgnet["launches"])}
+
+    pool_rows = pool_phase(torch)
+    enet_model, enet_images, enet_predict = enet_predict_phase(
+        torch, F, K, build_model, BatchNorm, make_predict_step)
+    enet_eval = enet_eval_phase(torch, K, build_model, enet_model,
+                                enet_images)
+    del enet_model, enet_images
+    torch.cuda.empty_cache()
+    enet_train = enet_train_phase(torch, F, K, BatchNorm)
+    torch.cuda.empty_cache()
+    fastscnn_config5 = fastscnn_config5_phase(torch, F, K, BatchNorm)
 
     ds_main = [r for r in dsconv_rows
                if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
@@ -1022,7 +1454,10 @@ def main() -> int:
          "dsconv": dsconv_rows, "resize_argmax": argmax_rows,
          "resize_ce_sums": ce_rows, "fused_cgblock_pre": cg_rows,
          "predict": result, "train": trained, "cgnet_predict": cgnet,
-         "predict_after_train": interleaved, "kernels": kernels, "device": device}, indent=1))
+         "predict_after_train": interleaved, "pool_unpool": pool_rows,
+         "enet_predict": enet_predict, "enet_eval": enet_eval,
+         "enet_train": enet_train, "fastscnn_config5_train": fastscnn_config5,
+         "kernels": kernels, "device": device}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -11,6 +11,8 @@ reference                 port                   layout
 ========================  =====================  ============================
 params ``kernel`` (HWIO)  ``weight`` (OIHW)      transpose (3, 2, 0, 1)
 params ``kernel`` (I, O)  Dense ``weight`` (O, I)  transpose (1, 0)
+params ``kernel`` (HWIO)  ConvTranspose ``weight``  transpose (2, 3, 0, 1),
+of a transposed conv      (I, O, kh, kw)         both spatial axes flipped
 params ``scale``          BN ``weight``          as is
 params ``bias``           ``bias``               as is
 params ``alpha``          PReLU ``weight``       as is
@@ -19,6 +21,14 @@ stats ``mean``/``var``    ``running_mean/var``   as is
 
 Leaves are numpy arrays on the reference side and CPU tensors on the
 port's; values are copied bit for bit.
+
+A transposed conv's kernel cannot be told from a conv's by its shape, so
+every function here takes the port's ``model`` and reads from it which
+modules are ``ConvTranspose`` (the reference applies such a kernel as a
+stride-1 conv over the zero-inserted input, torch as the gradient of a
+conv: the spatial flip lies between the two). Without a model every
+rank-4 kernel is a conv's, which is right for a model without
+transposed convs.
 
 Training state crosses too: any params-shaped tree (gradients, Adam
 moments) maps by the same rules (:func:`params_state_dict`,
@@ -30,10 +40,12 @@ comes back out (:func:`adam_state`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Set, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
+
+from .nn.layers import ConvTranspose
 
 _PARAMS = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "alpha": "weight"}
@@ -42,6 +54,26 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 # (rank 4: a conv, HWIO <-> OIHW; rank 2: a Dense, (I, O) <-> (O, I))
 _KERNEL_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
 _KERNEL_FROM_TORCH = {4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def _transposed_modules(model: Optional[torch.nn.Module]) -> Set[str]:
+    """Names of ``model``'s transposed convs (none without a model)."""
+    if model is None:
+        return set()
+    return {name for name, m in model.named_modules()
+            if isinstance(m, ConvTranspose)}
+
+
+def _kernel_to_torch(arr: np.ndarray, transposed: bool) -> np.ndarray:
+    if transposed:      # (kh, kw, in, out) -> (in, out, kh, kw), flipped
+        return arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    return arr.transpose(*_KERNEL_TO_TORCH[arr.ndim])
+
+
+def _kernel_from_torch(arr: np.ndarray, transposed: bool) -> np.ndarray:
+    if transposed:      # (in, out, kh, kw) -> (kh, kw, in, out), flipped
+        return arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return arr.transpose(*_KERNEL_FROM_TORCH[arr.ndim])
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -53,9 +85,13 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield prefix + (name,), np.asarray(node)
 
 
-def to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Reference variables -> port ``state_dict`` (CPU tensors)."""
+def to_state_dict(variables: Mapping,
+                  model: Optional[torch.nn.Module] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Reference variables -> port ``state_dict`` (CPU tensors); ``model``
+    (the port's) says which kernels are transposed convs'."""
     out: Dict[str, torch.Tensor] = {}
+    transposed = _transposed_modules(model)
     for coll, names in (("params", _PARAMS), ("stats", _STATS)):
         for path, arr in _leaves(variables.get(coll, {})):
             *mod, leaf = path
@@ -67,25 +103,29 @@ def to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                     raise ValueError(f"{'/'.join(path)}: kernel must be "
                                      f"HWIO or (in, out), got shape "
                                      f"{arr.shape}")
-                arr = arr.transpose(*_KERNEL_TO_TORCH[arr.ndim])
+                arr = _kernel_to_torch(arr, ".".join(mod) in transposed)
             key = ".".join([*mod, names[leaf]])
             out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
 
 
-def to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
-    """Port ``state_dict`` -> reference variables (numpy leaves).
-    ``num_batches_tracked`` entries, if any, are dropped."""
-    bn_modules = {k.rsplit(".", 1)[0] for k in state_dict
-                  if k.endswith(".running_mean")}
-    return _to_variables(state_dict, bn_modules)
+def to_variables(state_dict: Mapping[str, torch.Tensor],
+                 model: Optional[torch.nn.Module] = None
+                 ) -> Dict[str, Dict]:
+    """Port ``state_dict`` -> reference variables (numpy leaves); ``model``
+    says which weights are transposed convs'. ``num_batches_tracked``
+    entries, if any, are dropped."""
+    bn_modules = {k.rpartition(".")[0] for k in state_dict
+                  if k.rpartition(".")[2] == "running_mean"}
+    return _to_variables(state_dict, bn_modules, _transposed_modules(model))
 
 
 def _to_variables(state_dict: Mapping[str, torch.Tensor],
-                  bn_modules: Set[str]) -> Dict[str, Dict]:
+                  bn_modules: Set[str], transposed: Set[str]
+                  ) -> Dict[str, Dict]:
     variables: Dict[str, Dict] = {"params": {}, "stats": {}}
     for key, value in state_dict.items():
-        mod, name = key.rsplit(".", 1)
+        mod, _, name = key.rpartition(".")
         arr = value.detach().cpu().contiguous().numpy()
         if name == "num_batches_tracked":
             continue
@@ -97,22 +137,24 @@ def _to_variables(state_dict: Mapping[str, torch.Tensor],
             coll, leaf = "params", "scale"
         elif name == "weight" and arr.ndim in _KERNEL_FROM_TORCH:
             coll, leaf = "params", "kernel"
-            arr = arr.transpose(*_KERNEL_FROM_TORCH[arr.ndim])
+            arr = _kernel_from_torch(arr, mod in transposed)
         elif name == "weight" and arr.ndim == 1:
             coll, leaf = "params", "alpha"
         else:
             raise KeyError(f"{key}: no mapping for shape {arr.shape}")
         node = variables[coll]
-        for part in mod.split("."):
+        for part in filter(None, mod.split(".")):
             node = node.setdefault(part, {})
         node[leaf] = np.array(arr, copy=True, order="C")
     return variables
 
 
-def params_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+def params_state_dict(tree: Mapping,
+                      model: Optional[torch.nn.Module] = None
+                      ) -> Dict[str, torch.Tensor]:
     """A params-shaped reference tree (gradients, Adam moments) -> CPU
     tensors keyed by the port's parameter names, in the port's layout."""
-    return to_state_dict({"params": tree})
+    return to_state_dict({"params": tree}, model)
 
 
 def params_tree(named: Mapping[str, torch.Tensor],
@@ -121,7 +163,8 @@ def params_tree(named: Mapping[str, torch.Tensor],
     reference tree (numpy leaves, reference layout)."""
     bn_modules = {name for name, m in model.named_modules()
                   if hasattr(m, "running_mean")}
-    return _to_variables(named, bn_modules)["params"]
+    return _to_variables(named, bn_modules,
+                         _transposed_modules(model))["params"]
 
 
 def _find_adam(opt_state: Any) -> Any:
@@ -145,7 +188,8 @@ def load_adam_state(optimizer: torch.optim.Optimizer,
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no adam state (count/mu/nu) in the optimizer state")
-    mu, nu = params_state_dict(adam.mu), params_state_dict(adam.nu)
+    mu = params_state_dict(adam.mu, model)
+    nu = params_state_dict(adam.nu, model)
     count = float(np.asarray(adam.count))
     sd = optimizer.state_dict()
     names = [name for name, _ in model.named_parameters()]

@@ -1,3 +1,3 @@
-"""Model zoo of the port: Fast-SCNN and CGNet so far."""
-from . import cgnet, fastscnn  # noqa: F401  (register the models)
+"""Model zoo of the port: Fast-SCNN, CGNet and ENet so far."""
+from . import cgnet, enet, fastscnn  # noqa: F401  (register the models)
 from .registry import available_models, build_model, register  # noqa: F401

@@ -59,6 +59,39 @@ class Conv(nn.Module):
                         groups=self.groups, bias=self.bias)
 
 
+class ConvTranspose(nn.Module):
+    """Transposed 2D convolution with torch shape semantics, weight
+    ``(in, out, kh, kw)``, Kaiming fan-out init (``fan_out = kh*kw*out``,
+    as the reference's)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: IntOr2, *,
+                 stride: IntOr2 = 1, padding: IntOr2 = 0,
+                 output_padding: IntOr2 = 0, bias: bool = True):
+        super().__init__()
+        self.in_ch, self.out_ch = in_ch, out_ch
+        self.kernel = _pair(kernel)
+        self.stride, self.padding = stride, padding
+        self.output_padding = output_padding
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, *self.kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # drawn in OIHW, where the initializer reads its fans, then put
+        # into the (in, out, kh, kw) layout
+        kh, kw = self.kernel
+        _copy_(self.weight, init.kaiming_normal("fan_out")(
+            generator, (self.out_ch, self.in_ch, kh, kw)).transpose(0, 1))
+        if self.bias is not None:
+            _copy_(self.bias, init.bias_for_fan_in(kh * kw * self.in_ch)(
+                generator, self.bias.shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return C.conv2d_transpose(x, self.weight, stride=self.stride,
+                                  padding=self.padding,
+                                  output_padding=self.output_padding,
+                                  bias=self.bias)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm2d with the reference's numerics.
 

@@ -34,5 +34,21 @@ def depthwise_conv2d(x: torch.Tensor, weight: torch.Tensor, *,
                   dilation=dilation, groups=x.shape[1], bias=bias)
 
 
+def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, *,
+                     stride: IntOr2 = 1, padding: IntOr2 = 0,
+                     output_padding: IntOr2 = 0,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Transposed conv with torch shape semantics:
+    ``out = (H - 1)*s - 2p + k + output_padding``. x: NCHW, weight:
+    (in, out, kh, kw), torch's own layout: against the reference's HWIO
+    kernel, which it applies as a stride-1 conv over the zero-inserted
+    input, both spatial axes are flipped (``esn_tpu_torch.convert`` does
+    it). The reference's subpixel and zero-insert lowerings are TPU
+    workarounds and have no counterpart here."""
+    b = None if bias is None else bias.to(x.dtype)
+    return F.conv_transpose2d(x, weight.to(x.dtype), b, stride=stride,
+                              padding=padding, output_padding=output_padding)
+
+
 def conv_output_size(size: int, k: int, s: int, p: int, d: int = 1) -> int:
     return (size + 2 * p - d * (k - 1) - 1) // s + 1

@@ -2,10 +2,11 @@
 
     python3 -m esn_tpu_torch.tools.profile_predict [MODEL]
 
-MODEL is a registered model name (default ``fastscnn``; ``cgnet`` for
-CGNet-19). Run from the repo root. Uses ``chip_smoke.py``'s seeded model
+MODEL is a registered model name (default ``fastscnn``; ``cgnet``,
+``enet``). Run from the repo root. Uses ``chip_smoke.py``'s seeded model
 and images (bf16, batch 8, 3x1024x2048) and profiles 5 predicts with the
-kernels, then 5 with their plain versions, each after one untraced
+kernels, then 5 with their plain versions (skipped where predict
+launches no kernel: the two would be the same), each after one untraced
 warm-up predict. For each it prints the host-clock ms per batch (synchronised,
 profiler on), the summed device time of the CUDA kernels per batch, the
 device idle share, and the kernels by device time. Predict runs on one
@@ -77,6 +78,7 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = S.smooth_images(torch, F, gen, S.BATCH, S.IMAGE_HW)
     predict = make_predict_step(model, compute_dtype=torch.bfloat16)
+    K.reset_launches()
     for label in ("kernels", "plain"):
         ctx = (S.plain_versions(K) if label == "plain"
                else contextlib.nullcontext())
@@ -92,6 +94,9 @@ def main(argv: list[str]) -> int:
         for e in kernels[:TOP]:
             print(f"{_device_us(e) / STEPS / 1e3:9.3f} ms "
                   f"{e.count // STEPS:4d}x  {e.key[:110]}")
+        if not any(K.LAUNCHES.values()):
+            print("no kernel on this model's path: no plain pass")
+            break
     return 0
 
 

@@ -1,12 +1,17 @@
-"""Device-time profile of the Fast-SCNN-19 train step on one CUDA card.
+"""Device-time profile of a model's train step on one CUDA card.
 
-    python3 -m esn_tpu_torch.tools.profile_train
+    python3 -m esn_tpu_torch.tools.profile_train [MODEL] [--loss LOSS]
 
-Run from the repo root. Uses ``chip_smoke.py``'s training setup (bf16,
-batch 8, 3x1024x2048, seeded smooth images and learnable labels, class
-weights from their histogram, adam + poly, weighted CE through
-``logits_lowres``) and profiles 5 train steps with the kernel, then 5 with
-the plain versions, each after one untraced warm-up step. For each it
+MODEL is a registered model name (default ``fastscnn``; ``enet``). LOSS is
+``ce`` (weighted CE through ``logits_lowres`` and the fused resize-CE
+kernel; resize-tail models only, their default) or ``ce_ohem`` (the
+config-5 loss, weighted CE + OHEM on the model's own full-resolution
+logits; the default of a conv-tail model). Run from the repo root. Uses
+``chip_smoke.py``'s training setup (bf16, batch 8, 3x1024x2048, seeded
+smooth images and learnable labels, class weights from their histogram,
+adam + poly) and profiles 5 train steps with the kernel, then 5 with
+the plain versions (skipped where the step launches no kernel: the two
+would be the same), each after one untraced warm-up step. For each it
 prints the host-clock ms per step with the profiler on and, from 5 more
 steps, with it off (synchronised), the summed device time of the CUDA
 kernels per step, the device idle share, and the kernels by device time.
@@ -17,6 +22,7 @@ Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import subprocess
 import sys
@@ -27,7 +33,11 @@ from .profile_predict import STEPS, TOP, _device_us, profile
 REPO = Path(__file__).resolve().parents[2]
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("model", nargs="?", default="fastscnn")
+    parser.add_argument("--loss", choices=["ce", "ce_ohem"], default=None)
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -42,8 +52,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     print("torch", torch.__version__, "cuda", torch.version.cuda)
-    model, opt, batch, cw = S.train_setup(torch, F)
-    step = S.train_step(torch, model, opt, cw, torch.bfloat16)
+    model, opt, batch, cw = S.train_setup(torch, F, args.model)
+    loss = args.loss or ("ce" if model.LOGITS_TAIL == "resize" else "ce_ohem")
+    print("model", args.model, "loss", loss)
+    make_step = S.train_step if loss == "ce" else S.config5_step
+    step = make_step(torch, model, opt, cw, torch.bfloat16)
+    K.reset_launches()
     for label in ("kernel", "plain"):
         ctx = (S.plain_versions(K) if label == "plain"
                else contextlib.nullcontext())
@@ -60,8 +74,11 @@ def main() -> int:
         for e in kernels[:TOP]:
             print(f"{_device_us(e) / STEPS / 1e3:9.3f} ms "
                   f"{e.count // STEPS:4d}x  {e.key[:110]}")
+        if not any(K.LAUNCHES.values()):
+            print("no kernel on this step's path: no plain pass")
+            break
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -16,6 +16,7 @@ import torch
 from ..nn import SegModel, set_dropout_generator
 from ..ops.classify import argmax_lastdim
 from ..ops.resize import resize_bilinear
+from .metrics import confusion_matrix
 
 _MASK63 = (1 << 63) - 1
 
@@ -172,3 +173,46 @@ def make_predict_step(model: SegModel, *,
         return model.predict(x)
 
     return predict
+
+
+def make_eval_step(model: SegModel, num_classes: int, *,
+                   ignore_index: int = 255,
+                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """Build ``eval_step(batch) -> (pred (N, H, W) int32, cm (K, K)
+    int64)`` for batches ``{"image": (N, C, H, W) float, "label":
+    (N, H, W) int}``; both results stay on the model's device
+    (``eval_step.device``), where the batch is moved if it lies elsewhere.
+
+    The prediction is the model's own ``predict`` (the fused resize +
+    argmax tail where it has one), run as :func:`make_predict_step` runs
+    it: in eval mode on every call, whatever a train step left behind.
+    With ``"valid"`` (an int) in the batch only the first ``valid`` rows
+    count: the padded tail rows of a fixed-shape eval batch
+    (``train.evaluation.pad_batch_to``) are masked to ``ignore_index``
+    before the confusion matrix. The reference's ``trace_count`` has no
+    counterpart: nothing is traced or compiled here.
+    """
+    predict = make_predict_step(model, compute_dtype=compute_dtype)
+    device = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pred = predict(batch["image"].to(device))
+        labels = batch["label"].to(device)
+        if pred.shape != labels.shape:
+            raise ValueError(
+                f"model output {tuple(pred.shape[1:])} != label "
+                f"{tuple(labels.shape[1:])}"
+                f" - the eval resolution must be divisible by the model's"
+                f" output stride (the reference assumes this implicitly:"
+                f" CamVid 360x480, Cityscapes 1024x2048 are both divisible"
+                f" by 8). Fix: --val_size H,W with compatible H,W.")
+        if "valid" in batch:
+            labels = labels.clone()
+            labels[int(batch["valid"]):] = ignore_index
+        return pred, confusion_matrix(pred, labels, num_classes,
+                                      ignore_index)
+
+    eval_step.device = device
+    return eval_step

@@ -1,6 +1,6 @@
 """The port stands alone: importing all of ``esn_tpu_torch`` and running a
-Fast-SCNN and a CGNet predict on the CPU loads neither ``jax`` nor
-``esn_tpu``.
+Fast-SCNN, a CGNet and an ENet predict on the CPU loads neither ``jax``
+nor ``esn_tpu``.
 
 Checked in a fresh interpreter, since this test process imports both
 packages for the parity tests.
@@ -25,7 +25,7 @@ from esn_tpu_torch.ops import kernels
 from esn_tpu_torch.train.step import make_predict_step
 images = torch.randn((1, 3, 64, 128), generator=torch.Generator().manual_seed(1))
 preds = {}
-for arch in ("fastscnn", "cgnet"):
+for arch in ("fastscnn", "cgnet", "enet"):
     model = build_model(arch, 19, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     pred = make_predict_step(model)(images)
@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     for name in ("esn_tpu_torch.convert", "esn_tpu_torch.models.fastscnn",
-                 "esn_tpu_torch.models.cgnet",
+                 "esn_tpu_torch.models.cgnet", "esn_tpu_torch.models.enet",
+                 "esn_tpu_torch.train.metrics",
+                 "esn_tpu_torch.train.evaluation",
                  "esn_tpu_torch.ops.kernels.cgblock",
                  "esn_tpu_torch.ops.kernels.dsconv",
                  "esn_tpu_torch.ops.kernels.resize_argmax",
@@ -59,7 +61,8 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.train.step", "esn_tpu_torch.utils.params"):
         assert name in out["modules"]
     assert out["pred"] == {"fastscnn": [[1, 64, 128], "torch.int32"],
-                           "cgnet": [[1, 64, 128], "torch.int32"]}
+                           "cgnet": [[1, 64, 128], "torch.int32"],
+                           "enet": [[1, 64, 128], "torch.int32"]}
     # a CPU tensor runs the plain versions: no kernel launched
     assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
                                "resize_ce_fwd": 0, "resize_ce_bwd": 0,

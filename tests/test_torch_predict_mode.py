@@ -20,7 +20,8 @@ from esn_tpu_torch.models.cgnet import CGBlock
 from esn_tpu_torch.ops import kernels as K
 from esn_tpu_torch.train import losses as L
 from esn_tpu_torch.train.optimizers import build_optimizer
-from esn_tpu_torch.train.step import make_predict_step, make_train_step
+from esn_tpu_torch.train.step import (make_eval_step, make_predict_step,
+                                      make_train_step)
 
 CLASSES = 19
 # the wrapper that each model's eval path calls, and the blocks that call it
@@ -38,6 +39,7 @@ def _batch(seed, hw=(64, 128)):
 
 def _train_step(model):
     fused, method = L.fused_resize_ce_spec(model, "ce")
+    fused = fused or L.cross_entropy       # a conv-tail model: plain CE
     return make_train_step(
         model, partial(fused, num_classes=CLASSES),
         build_optimizer("adam", model.parameters()), fwd_method=method,
@@ -101,3 +103,31 @@ def test_predict_after_a_train_step_runs_in_eval_mode(arch, count_calls):
     assert torch.equal(predict(probe), want)
     assert all(not m.training for m in model.modules())
 
+
+@pytest.mark.parametrize("arch", ["cgnet", "enet", "fastscnn"])
+def test_eval_step_after_a_train_step_runs_in_eval_mode(arch):
+    """An eval step built before a train step and called after it: eval
+    mode in every module, the buffers untouched, and the class map and
+    confusion matrix of the model put in eval mode by hand."""
+    kw = FUSED.get(arch, (None, None, {}))[2]
+    model = build_model(arch, CLASSES, device="cpu",
+                        generator=torch.Generator().manual_seed(0), **kw)
+    images, labels = _batch(0)
+    evaluate = make_eval_step(model, CLASSES)     # built before the step
+    step = _train_step(model)
+    step({"image": images, "label": labels})
+    assert model.training
+
+    stats = {name: buf.clone() for name, buf in model.named_buffers()}
+    probe, probe_labels = _batch(1)
+    pred, cm = evaluate({"image": probe, "label": probe_labels})
+    assert all(not m.training for m in model.modules())
+    for name, buf in model.named_buffers():
+        assert torch.equal(buf, stats[name]), name
+    model.eval()
+    with torch.inference_mode():
+        want = model.predict(probe.contiguous(
+            memory_format=torch.channels_last))
+    assert pred.dtype == torch.int32 and torch.equal(pred, want)
+    assert int(cm.sum()) == probe_labels.numel()
+    assert int(torch.diagonal(cm).sum()) == int((want == probe_labels).sum())
