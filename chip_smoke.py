@@ -44,7 +44,15 @@ from zero:
   the full-resolution logits, so the step leaves the fused resize-CE
   route: ``resize_ce`` launches 0 times, and the script says so): five
   steps, a falling loss, ms/step and peak memory in turns with the
-  weighted-CE step.
+  weighted-CE step;
+- the user's entry points: ``esn_tpu_torch.cli.train`` on Fast-SCNN-19,
+  Cityscapes-shaped synthetic data (1024x2048 sources, 512x1024 crops),
+  batch 8, bf16, two epochs of two steps with validation every epoch
+  (ms/step, img/s, the host's share, val ms/batch, peak memory; K3 once
+  forward and once backward a step, K2 4 times and K1 once a val batch);
+  the prefetched batches against the loader's; two resumes from epoch 1
+  against the straight run; ``cli.test`` against the Trainer's mIoU;
+  ``cli.predict``'s PNGs against the predict step's maps.
 
 Exits non-zero on any failure, and when no CUDA device is present. The
 last line of standard output is one JSON object; the line before it lists
@@ -70,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import io
 import json
 import math
 import subprocess
@@ -178,6 +187,31 @@ ENET_MISMATCH_MAX, ENET_LOGIT_DIFF_MAX, ENET_GRAD_REL = 1e-4, 1e-3, 8e-2
 ENET_FLIPS_MAX = 1e-5
 ENET_SLICE_HW = (256, 512)
 EVAL_VALID = 6
+# The CLI phase: items in the train, val and test splits (two train steps
+# an epoch, one val and one test batch). Resume: two runs resumed from
+# model_1.ckpt repeat epoch 2 of the straight run. The step count and lr
+# must be equal, the epoch's mean loss within RESUME_LOSS_REL; and by each
+# gap of _epoch2_gaps the straight run must lie no further from the first
+# resumed run than RESUME_NOISE times the two resumed runs lie from each
+# other (the card's own run-to-run noise). Not bit for bit: on the card
+# the backward of bilinear upsampling (the PPM and fusion upsamples) and
+# of adaptive pooling adds with atomics, in no fixed order, in bf16 too.
+# Read on an H100 (this script, two runs), bf16, resume vs straight and
+# resume vs resume: the parameters' update 0.137 / 0.135 and 0.131 /
+# 0.125 apart, the median leaf 0.111 / 0.107 and 0.101 / 0.098, the first
+# moments 0.419 / 0.420 and 0.451 / 0.417, the BN statistics' update
+# 7.4e-5 / 4.5e-5 and 1.9e-4 / 4.0e-5, the loss 1.8e-5 and 2.3e-4. Leaves
+# whose gradient is zero in exact arithmetic (a projection's BN bias
+# feeding a train-mode BN, which takes out any per-channel shift) carry
+# rounding noise, which adam scales to full-size steps: they dominate the
+# parameters' and the moments' gaps, whose ratio is steady (1.0-1.1). The
+# statistics' gap comes from step 4's forward alone and its ratio
+# varies, so it may also lie under RESUME_FLOOR: statistics that were not
+# restored would be ~1 apart. On the CPU a resume is bit for bit
+# (tests/test_torch_trainer.py).
+CLI_TRAIN, CLI_VAL, CLI_TEST = 16, 8, 8
+RESUME_LOSS_REL, RESUME_NOISE, RESUME_FLOOR = 5e-3, 4.0, {"stats": 1e-3}
+
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once)
 # over HBM_BPS and its operations over the peak rate for their type:
@@ -752,11 +786,12 @@ def learnable_labels(torch, F, gen, n, hw):
 
 
 def class_weights(torch, labels):
-    """``1 / ln(1.10 + p_c)`` from the labels' class histogram: the
-    reference's formula (esn_tpu/data/inform.py), written out here."""
-    hist = torch.bincount(labels[labels != IGNORE].long(),
-                          minlength=CLASSES).double()
-    return (1.0 / torch.log(1.10 + hist / hist.sum())).float()
+    """The reference's class weights ``1 / ln(1.10 + p_c)`` of the labels'
+    class histogram, through the port's ``data.inform``."""
+    from esn_tpu_torch.data.inform import compute_class_weights
+    hist = torch.bincount(labels[labels != IGNORE].long(), minlength=CLASSES)
+    return torch.from_numpy(compute_class_weights(hist.cpu().numpy())).to(
+        labels.device)
 
 
 def config5_loss(cw):
@@ -1331,6 +1366,275 @@ def fastscnn_config5_phase(torch, F, K, BatchNorm):
     return result
 
 
+def _cli(main, argv):
+    """``main(argv)`` with its standard output captured; returns the
+    output (the CLIs print their report)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    check(rc == 0, f"{main.__module__} returned {rc}")
+    return buf.getvalue()
+
+
+def _launch_delta(K, run):
+    """``run()`` with the launch counts from zero; returns (its result,
+    the counts)."""
+    K.reset_launches()
+    out = run()
+    return out, dict(K.LAUNCHES)
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _state(torch, path):
+    return torch.load(path, map_location="cpu", weights_only=True)["state"]
+
+
+def _epoch2_gaps(one, a, b):
+    """How far run b's epoch 2 lies from run a's, both from the state
+    ``one``: the rel-L2 of the epoch's update of all parameters together,
+    of all BN running statistics together, and its median over the
+    leaves; the rel-L2 of all adam first moments together."""
+    import numpy as np
+    import torch
+
+    def cat(ts):
+        return torch.cat([t.double().flatten() for t in ts])
+
+    def update(run, k):
+        return run["model"][k].double() - one["model"][k].double()
+
+    stats = [k for k in a["model"]
+             if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in a["model"]
+              if a["model"][k].is_floating_point() and k not in stats]
+    moments = [[s["exp_avg"] for s in run["optimizer"]["state"].values()]
+               for run in (a, b)]
+    return {
+        "params": _rel(cat([update(b, k) for k in params]),
+                       cat([update(a, k) for k in params])),
+        "stats": _rel(cat([update(b, k) for k in stats]),
+                      cat([update(a, k) for k in stats])),
+        "median_leaf": float(np.median([_rel(update(b, k), update(a, k))
+                                        for k in params + stats])),
+        "exp_avg": _rel(cat(moments[1]), cat(moments[0]))}
+
+def cli_phase(torch, K):
+    """The user's entry points, ``esn_tpu_torch.cli.train`` / ``test`` /
+    ``predict``, on Fast-SCNN-19 and Cityscapes-shaped synthetic data
+    (1024x2048 sources, the dataset's default crop 512x1024), batch 8,
+    bf16 on the card:
+
+    1. train: two epochs of 16 items (2 steps each), validation every
+       epoch at the source resolution; ms/step, img/s, the host's share of
+       a step, val ms/batch and peak memory from the run's
+       ``events.jsonl``; launches: K3 forward and backward once a step,
+       K2 4 times and K1 once a val batch.
+    2. the prefetcher: an epoch of the train loader through
+       ``device_prefetch``, held on the card while the card works, equals
+       the loader's own batches.
+    3. resume: two runs from ``model_1.ckpt`` repeat epoch 2: the step
+       count and lr exactly, the loss within RESUME_LOSS_REL, and the
+       straight run as close to a resumed one as the two resumed runs are
+       to each other (RESUME_NOISE, RESUME_FLOOR).
+    4. ``cli.test --checkpoint model_2.ckpt`` at the train run's val
+       batch gives the Trainer's epoch-2 mIoU and per-class IoU.
+    5. ``cli.predict``'s grey PNGs, read back with the port's own reader,
+       equal ``make_predict_step``'s maps (as labelIDs).
+
+    The val split is written as packed ``.npy`` records (the
+    ``SyntheticDataset`` items the train run's val split holds), so that
+    ``cli.test`` scores the same images as the Trainer: on synthetic data
+    the test CLI's val split has another seed, as the reference's. The
+    train and test splits stay synthetic.
+    """
+    import tempfile
+
+    import numpy as np
+
+    from esn_tpu_torch.cli import predict as cli_predict
+    from esn_tpu_torch.cli import test as cli_test
+    from esn_tpu_torch.cli import train as cli_train
+    from esn_tpu_torch.data import (CITYSCAPES, BatchLoader, SyntheticDataset,
+                                    build_dataset_test, device_prefetch)
+    from esn_tpu_torch.data.palettes import trainid_to_labelid
+    from esn_tpu_torch.data.png import read_png
+    from esn_tpu_torch.models import build_model
+    from esn_tpu_torch.train import checkpoint as ckpt
+    from esn_tpu_torch.train.step import make_predict_step
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        val = SyntheticDataset(CITYSCAPES, length=CLI_VAL, seed=1)
+        (root / "cityscapes").mkdir(parents=True)
+        lines = []
+        for i in range(len(val)):
+            item = val[i]
+            name = f"val_{i:05d}.npy"
+            np.save(root / "cityscapes" / name, np.concatenate(
+                [item["image"], item["label"][..., None].astype(np.uint8)], -1))
+            lines.append(name)
+        (root / "cityscapes" / "cityscapes_val_list.txt").write_text(
+            "\n".join(lines) + "\n")
+        result["pack_val_s"] = time.perf_counter() - t0
+
+        common = ["--model", "FastSCNN", "--dataset", "cityscapes",
+                  "--data_root", str(root), "--compute_dtype", "bfloat16"]
+        train_args = common + [
+            "--batch_size", str(BATCH), "--max_epochs", "2", "--val_epochs",
+            "1", "--synthetic_len", str(CLI_TRAIN), "--num_workers", "4"]
+
+        # 1. train
+        straight = Path(tmp) / "straight"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, launches = _launch_delta(K, lambda: _cli(
+            cli_train.main, train_args + ["--savedir", str(straight)]))
+        result["train_run_s"] = time.perf_counter() - t0
+        run_dir = straight / "cityscapes" / f"FastSCNNbs{BATCH}gpu1_train"
+        events = [json.loads(line) for line in
+                  (run_dir / "events.jsonl").read_text().splitlines()]
+        check(len(events) == 2, f"train events {len(events)}")
+        check(all(math.isfinite(e["loss"]) for e in events),
+              f"train losses {[e['loss'] for e in events]}")
+        check(all(0.0 <= e["miou"] <= 1.0 for e in events),
+              f"val mIoU {[e['miou'] for e in events]}")
+        steps = CLI_TRAIN // BATCH
+        want = {"resize_ce_fwd": 2 * steps, "resize_ce_bwd": 2 * steps,
+                "dsconv": 2 * 4 * (CLI_VAL // BATCH),
+                "resize_argmax": 2 * (CLI_VAL // BATCH), "cgblock": 0}
+        check(launches == want, f"train CLI launches {launches}, want "
+              f"{want}")
+        last = events[-1]
+        ms_step = 1e3 * last["train_s"] / steps
+        result.update(
+            launches=launches, losses=[e["loss"] for e in events],
+            miou=[e["miou"] for e in events], ms_per_step=ms_step,
+            img_per_s=BATCH * steps / last["train_s"],
+            host_ms_per_step=last["host_step"]["mean_ms"],
+            host_share=last["host_step"]["mean_ms"] / ms_step,
+            val_ms_per_batch=1e3 * last["val_s"] / (CLI_VAL // BATCH),
+            epoch_s=[e["time_s"] for e in events],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+        # 2. the prefetcher against the loader (the Trainer's train
+        # loader: seed 0, shuffled by epoch, drop_last)
+        loader = BatchLoader(
+            SyntheticDataset(CITYSCAPES, length=CLI_TRAIN),
+            BATCH, shuffle=True, drop_last=True, num_workers=4)
+        held, work = [], []
+        for batch in device_prefetch(iter(loader), "cuda"):
+            held.append(batch)      # the card works on it while the
+            work.append(batch["image"].float().mean())  # next one copies
+        expect = list(iter(loader))
+        check(len(held) == len(expect) == steps, "prefetched batch count")
+        for got, ref in zip(held, expect):
+            for key in ("image", "label"):
+                check(got[key].device.type == "cuda" and np.array_equal(
+                    got[key].cpu().numpy(), ref[key]),
+                    f"prefetched {key} differs from the loader's")
+            check(got["name"] == ref["name"], "prefetched names differ")
+        result["prefetch_batches_equal"] = len(held)
+        del held, work
+
+        # 3. resume from epoch 1, twice
+        runs = {}
+        for name in ("resumed", "resumed_again"):
+            _cli(cli_train.main, train_args + [
+                "--savedir", str(Path(tmp) / name), "--resume",
+                str(run_dir / "model_1.ckpt")])
+            d = Path(tmp) / name / "cityscapes" / f"FastSCNNbs{BATCH}gpu1_train"
+            ev = [json.loads(line) for line in
+                  (d / "events.jsonl").read_text().splitlines()]
+            check(len(ev) == 1 and ev[0]["epoch"] == 2, f"{name} events {ev}")
+            runs[name] = (ev[0], _state(torch, d / "model_2.ckpt"))
+        one = _state(torch, run_dir / "model_1.ckpt")
+        straight = _state(torch, run_dir / "model_2.ckpt")
+        (ev_r, r1), (_, r2) = runs["resumed"], runs["resumed_again"]
+        resume = {"step": [straight["step"], r1["step"]],
+                  "lr": [events[1]["lr"], ev_r["lr"]],
+                  "loss_rel": abs(ev_r["loss"] - events[1]["loss"])
+                  / abs(events[1]["loss"]),
+                  "vs_straight": _epoch2_gaps(one, straight, r1),
+                  "vs_resumed": _epoch2_gaps(one, r2, r1),
+                  "bit_identical": all(
+                      torch.equal(straight["model"][k], r1["model"][k])
+                      for k in straight["model"])}
+        print("cli resume", json.dumps(resume))
+        check(straight["step"] == r1["step"] == 2 * steps,
+              f"resumed step {resume['step']}")
+        check(events[1]["lr"] == ev_r["lr"], f"resumed lr {resume['lr']}")
+        check(resume["loss_rel"] <= RESUME_LOSS_REL,
+              f"resumed loss {resume['loss_rel']} > {RESUME_LOSS_REL}")
+        bad = [k for k, v in resume["vs_straight"].items()
+               if v > max(RESUME_NOISE * resume["vs_resumed"][k],
+                          RESUME_FLOOR.get(k, 0.0)) + 1e-12]
+        check(not bad, f"resume: {bad} beyond {RESUME_NOISE}x the gap "
+              f"between two resumed runs (floors {RESUME_FLOOR}): {resume}")
+        result["resume"] = resume
+
+        # 4. cli.test on model_2.ckpt, at the train run's val batch
+        (out, test_launches) = _launch_delta(K, lambda: _cli(cli_test.main, common + [
+            "--checkpoint", str(run_dir / "model_2.ckpt"),
+            "--batch_size", str(BATCH), "--synthetic_len", str(CLI_TRAIN)]))
+        report = {line.split(":")[0].strip(): float(line.split(":")[1])
+                  for line in out.splitlines()
+                  if line.startswith("  ") and ":" in line}
+        check(f"{report['meanIoU']:.4f}" == f"{last['miou']:.4f}",
+              f"cli.test mIoU {report['meanIoU']} != the Trainer's "
+              f"{last['miou']}")
+        names = [n for n in report if n != "meanIoU"]
+        worst = max(abs(report[n] - v)
+                    for n, v in zip(names, last["per_class_iou"]))
+        check(worst <= 5.1e-5, f"cli.test per-class IoU off by {worst}")
+        check(test_launches["dsconv"] == 4 * (CLI_VAL // BATCH)
+              and test_launches["resize_argmax"] == CLI_VAL // BATCH,
+              f"cli.test launches {test_launches}")
+        result["test"] = {"miou": report["meanIoU"],
+                          "launches": test_launches}
+
+        # 5. cli.predict: its grey PNGs against the predict step's maps
+        pred_dir = Path(tmp) / "pred"
+        (_, predict_launches) = _launch_delta(K, lambda: _cli(cli_predict.main, common + [
+            "--checkpoint", str(run_dir / "model_2.ckpt"), "--batch_size",
+            str(BATCH), "--synthetic_len", str(CLI_TEST),
+            "--save_seg_dir", str(pred_dir)]))
+        check(predict_launches["dsconv"] == 4 * (CLI_TEST // BATCH)
+              and predict_launches["resize_argmax"] == CLI_TEST // BATCH,
+              f"cli.predict launches {predict_launches}")
+        _, test_loader, transform = build_dataset_test(
+            "cityscapes", none_gt=True, root=str(root), batch_size=BATCH,
+            synthetic_len=CLI_TEST)
+        model = build_model("fastscnn", CLASSES, device="cuda")
+        ckpt.load_variables(str(run_dir / "model_2.ckpt"), model)
+        predict = make_predict_step(model, compute_dtype=torch.bfloat16)
+        n_png = 0
+        for batch in test_loader:
+            maps = predict(transform(torch.from_numpy(batch["image"]).to(
+                "cuda"))).cpu().numpy()
+            for pred, name in zip(maps, batch["name"]):
+                grey = read_png(str(pred_dir / name))
+                check(np.array_equal(grey, trainid_to_labelid(pred)),
+                      f"cli.predict {name} differs from the predict step")
+                n_png += 1
+        check(n_png == CLI_TEST, f"{n_png} PNGs compared")
+        result["predict"] = {"pngs_equal": n_png, "launches": predict_launches}
+    print(f"cli train fastscnn cityscapes bf16 b{BATCH} "
+          f"{IMAGE_HW[1]}x{IMAGE_HW[0]} sources: "
+          f"{result['ms_per_step']:.3f} ms/step "
+          f"({result['img_per_s']:.2f} img/s; host "
+          f"{result['host_ms_per_step']:.3f} ms/step, share "
+          f"{result['host_share']:.3f}), val {result['val_ms_per_batch']:.3f}"
+          f" ms/batch, peak {result['peak_gb']:.2f} GB, launches "
+          + json.dumps(result["launches"]))
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1394,6 +1698,8 @@ def main() -> int:
     enet_train = enet_train_phase(torch, F, K, BatchNorm)
     torch.cuda.empty_cache()
     fastscnn_config5 = fastscnn_config5_phase(torch, F, K, BatchNorm)
+    torch.cuda.empty_cache()
+    cli = cli_phase(torch, K)
 
     ds_main = [r for r in dsconv_rows
                if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
@@ -1457,6 +1763,7 @@ def main() -> int:
          "predict_after_train": interleaved, "pool_unpool": pool_rows,
          "enet_predict": enet_predict, "enet_eval": enet_eval,
          "enet_train": enet_train, "fastscnn_config5_train": fastscnn_config5,
+         "cli": cli,
          "kernels": kernels, "device": device}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

@@ -35,12 +35,15 @@ moments) maps by the same rules (:func:`params_state_dict`,
 :func:`params_tree`), and an optax ``adam`` state (``ScaleByAdamState``
 ``count``/``mu``/``nu``, inside the reference's
 ``add_decayed_weights``/``scale_by_adam``/``scale_by_learning_rate``
-chain) loads into a ``torch.optim.Adam`` (:func:`load_adam_state`) and
-comes back out (:func:`adam_state`).
+chain, live or as a restored checkpoint's dicts) loads into a
+``torch.optim.Adam`` (:func:`load_adam_state`) and comes back out
+(:func:`adam_state`); an optax ``trace`` (SGD momentum) loads into a
+``torch.optim.SGD`` (:func:`load_sgd_state`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Set, Tuple
+from typing import (Any, Callable, Dict, Iterator, Mapping, NamedTuple,
+                    Optional, Set, Tuple)
 
 import numpy as np
 import torch
@@ -167,39 +170,100 @@ def params_tree(named: Mapping[str, torch.Tensor],
                          _transposed_modules(model))["params"]
 
 
-def _find_adam(opt_state: Any) -> Any:
-    """The ``ScaleByAdamState`` (anything with count/mu/nu) in a chain."""
-    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
-        return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for sub in opt_state:
-            found = _find_adam(sub)
-            if found is not None:
-                return found
+_ADAM_FIELDS = ("count", "mu", "nu")
+
+
+def _find_fields(opt_state: Any, fields: Tuple[str, ...]
+                 ) -> Optional[Tuple[Any, ...]]:
+    """The ``fields`` of the first state in an optax chain state that has
+    them all: the live state (NamedTuples in a tuple) or a restored
+    checkpoint's (flax writes a tuple as a dict keyed ``'0'``, ``'1'``,
+    ... and a NamedTuple as a dict keyed by its field names)."""
+    if isinstance(opt_state, Mapping):
+        if all(k in opt_state for k in fields):
+            return tuple(opt_state[k] for k in fields)
+        subs = opt_state.values()
+    elif all(hasattr(opt_state, a) for a in fields):
+        return tuple(getattr(opt_state, a) for a in fields)
+    elif isinstance(opt_state, (tuple, list)):
+        subs = opt_state
+    else:
+        return None
+    for sub in subs:
+        found = _find_fields(sub, fields)
+        if found is not None:
+            return found
     return None
 
 
-def load_adam_state(optimizer: torch.optim.Optimizer,
-                    model: torch.nn.Module, opt_state: Any) -> None:
-    """Load the optax adam state in ``opt_state`` (its ``count``, ``mu``,
-    ``nu``) into ``optimizer``, a ``torch.optim.Adam`` over
-    ``model.parameters()`` in their order: per parameter ``step`` =
-    count, ``exp_avg`` = mu, ``exp_avg_sq`` = nu."""
-    adam = _find_adam(opt_state)
-    if adam is None:
-        raise ValueError("no adam state (count/mu/nu) in the optimizer state")
-    mu = params_state_dict(adam.mu, model)
-    nu = params_state_dict(adam.nu, model)
-    count = float(np.asarray(adam.count))
+class AdamMoments(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
+
+
+def _find_adam(opt_state: Any) -> Optional[AdamMoments]:
+    """``(count, mu, nu)`` of the ``ScaleByAdamState`` in a chain state."""
+    found = _find_fields(opt_state, _ADAM_FIELDS)
+    return None if found is None else AdamMoments(*found)
+
+
+def _load_per_parameter(optimizer: torch.optim.Optimizer,
+                        model: torch.nn.Module,
+                        state_of: Callable[[str], Dict[str, Any]]) -> None:
+    """Set ``optimizer``'s state of each of ``model``'s parameters to
+    ``state_of(name)``; the optimizer must hold ``model.parameters()`` in
+    their order, in one param group."""
     sd = optimizer.state_dict()
     names = [name for name, _ in model.named_parameters()]
     if sorted(sd["param_groups"][0]["params"]) != list(range(len(names))):
         raise ValueError("optimizer must hold model.parameters() in order, "
                          "in one param group")
-    sd["state"] = {i: {"step": torch.tensor(count), "exp_avg": mu[name],
-                       "exp_avg_sq": nu[name]}
-                   for i, name in enumerate(names)}
+    sd["state"] = {i: state_of(name) for i, name in enumerate(names)}
     optimizer.load_state_dict(sd)
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module, opt_state: Any) -> None:
+    """Load the optax adam state in ``opt_state`` (its ``count``, ``mu``,
+    ``nu``) into ``optimizer``, a ``torch.optim.Adam`` (or ``AdamW``) over
+    ``model.parameters()`` in their order: per parameter ``step`` =
+    count, ``exp_avg`` = mu, ``exp_avg_sq`` = nu."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (count/mu/nu) in the optimizer state")
+    count, mu, nu = adam
+    mu = params_state_dict(mu, model)
+    nu = params_state_dict(nu, model)
+    count = float(np.asarray(count))
+    _load_per_parameter(optimizer, model, lambda name: {
+        "step": torch.tensor(count), "exp_avg": mu[name],
+        "exp_avg_sq": nu[name]})
+
+
+def load_sgd_state(optimizer: torch.optim.Optimizer,
+                   model: torch.nn.Module, opt_state: Any) -> None:
+    """Load the optax ``trace`` (heavy-ball momentum) in ``opt_state``
+    into ``optimizer``, a ``torch.optim.SGD`` with momentum over
+    ``model.parameters()``: per parameter ``momentum_buffer`` = trace
+    (both update ``m * buffer + gradient``)."""
+    found = _find_fields(opt_state, ("trace",))
+    if found is None:
+        raise ValueError("no momentum (trace) state in the optimizer state")
+    trace = params_state_dict(found[0], model)
+    _load_per_parameter(optimizer, model,
+                        lambda name: {"momentum_buffer": trace[name]})
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module, opt_state: Any) -> None:
+    """The reference's optimizer state into the port's optimizer of the
+    same kind (``train/optimizers.py``): SGD's momentum, or adam's and
+    adamw's moments and count."""
+    if isinstance(optimizer, torch.optim.SGD):
+        load_sgd_state(optimizer, model, opt_state)
+    else:
+        load_adam_state(optimizer, model, opt_state)
 
 
 def adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module

@@ -1,6 +1,7 @@
-"""The port stands alone: importing all of ``esn_tpu_torch`` and running a
-Fast-SCNN, a CGNet and an ENet predict on the CPU loads neither ``jax``
-nor ``esn_tpu``.
+"""The port stands alone: importing all of ``esn_tpu_torch`` (its CLIs
+too) and running a Fast-SCNN, a CGNet and an ENet predict on the CPU loads
+none of ``jax``, ``esn_tpu``, ``flax``, ``msgpack``, ``cv2``, ``PIL`` or
+``matplotlib`` (the card's machine has none of the last five).
 
 Checked in a fresh interpreter, since this test process imports both
 packages for the parity tests.
@@ -34,8 +35,9 @@ print(json.dumps({
     "modules": names,
     "pred": preds,
     "launches": kernels.LAUNCHES,
-    "loaded": sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "esn_tpu")),
+    "loaded": sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "esn_tpu", "flax", "msgpack", "cv2", "PIL",
+        "matplotlib")),
 }))
 """
 
@@ -48,7 +50,16 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    for name in ("esn_tpu_torch.convert", "esn_tpu_torch.models.fastscnn",
+    for name in ("esn_tpu_torch.cli", "esn_tpu_torch.cli.train",
+                 "esn_tpu_torch.cli.test", "esn_tpu_torch.cli.predict",
+                 "esn_tpu_torch.data.augment", "esn_tpu_torch.data.builders",
+                 "esn_tpu_torch.data.datasets", "esn_tpu_torch.data.inform",
+                 "esn_tpu_torch.data.loader", "esn_tpu_torch.data.palettes",
+                 "esn_tpu_torch.data.png", "esn_tpu_torch.train.checkpoint",
+                 "esn_tpu_torch.train.state", "esn_tpu_torch.train.trainer",
+                 "esn_tpu_torch.utils.msgpack_decode",
+                 "esn_tpu_torch.utils.profiling", "esn_tpu_torch.utils.seed",
+                 "esn_tpu_torch.convert", "esn_tpu_torch.models.fastscnn",
                  "esn_tpu_torch.models.cgnet", "esn_tpu_torch.models.enet",
                  "esn_tpu_torch.train.metrics",
                  "esn_tpu_torch.train.evaluation",
