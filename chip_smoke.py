@@ -50,9 +50,9 @@ from zero:
   batch 8, bf16, two epochs of two steps with validation every epoch
   (ms/step, img/s, the host's share, val ms/batch, peak memory; K3 once
   forward and once backward a step, K2 4 times and K1 once a val batch);
-  the prefetched batches against the loader's; two resumes from epoch 1
-  against the straight run; ``cli.test`` against the Trainer's mIoU;
-  ``cli.predict``'s PNGs against the predict step's maps.
+  the prefetched batches against the loader's; resumes from epoch 1
+  against the straight run, in bf16 and in f32; ``cli.test`` against the
+  Trainer's mIoU; ``cli.predict``'s PNGs against the predict step's maps.
 
 Exits non-zero on any failure, and when no CUDA device is present. The
 last line of standard output is one JSON object; the line before it lists
@@ -188,28 +188,43 @@ ENET_FLIPS_MAX = 1e-5
 ENET_SLICE_HW = (256, 512)
 EVAL_VALID = 6
 # The CLI phase: items in the train, val and test splits (two train steps
-# an epoch, one val and one test batch). Resume: two runs resumed from
-# model_1.ckpt repeat epoch 2 of the straight run. The step count and lr
-# must be equal, the epoch's mean loss within RESUME_LOSS_REL; and by each
-# gap of _epoch2_gaps the straight run must lie no further from the first
-# resumed run than RESUME_NOISE times the two resumed runs lie from each
-# other (the card's own run-to-run noise). Not bit for bit: on the card
-# the backward of bilinear upsampling (the PPM and fusion upsamples) and
-# of adaptive pooling adds with atomics, in no fixed order, in bf16 too.
-# Read on an H100 (this script, two runs), bf16, resume vs straight and
-# resume vs resume: the parameters' update 0.137 / 0.135 and 0.131 /
-# 0.125 apart, the median leaf 0.111 / 0.107 and 0.101 / 0.098, the first
-# moments 0.419 / 0.420 and 0.451 / 0.417, the BN statistics' update
-# 7.4e-5 / 4.5e-5 and 1.9e-4 / 4.0e-5, the loss 1.8e-5 and 2.3e-4. Leaves
-# whose gradient is zero in exact arithmetic (a projection's BN bias
-# feeding a train-mode BN, which takes out any per-channel shift) carry
-# rounding noise, which adam scales to full-size steps: they dominate the
-# parameters' and the moments' gaps, whose ratio is steady (1.0-1.1). The
-# statistics' gap comes from step 4's forward alone and its ratio
-# varies, so it may also lie under RESUME_FLOOR: statistics that were not
-# restored would be ~1 apart. On the CPU a resume is bit for bit
-# (tests/test_torch_trainer.py).
+# an epoch, one val and one test batch). Resume: runs resumed from
+# model_1.ckpt repeat epoch 2 of a straight run. Not bit for bit on the
+# card: the backward of bilinear upsampling (the PPM and fusion upsamples)
+# and of adaptive pooling adds with atomics, in no fixed order. On the CPU
+# a resume is bit for bit (tests/test_torch_trainer.py).
+#
+# The strict check is in f32, TF32 off, cuDNN deterministic: the straight
+# run and one resume, the step count and lr equal, and the rel-L2 of the
+# epoch-2 update of all parameters together, of all BN running statistics
+# together, and of all adam first moments together, each within its
+# RESUME_F32 limit. Left out: the leaves whose gradient is zero in exact
+# arithmetic (a projection's BN bias feeding a train-mode BN, which takes
+# out any per-channel shift; found in f64 on the CPU, under ZERO_GRAD_REL
+# of the largest gradient: 1e-10 against 2e-5 for the next leaf), which
+# carry rounding noise only. Read on an H100, two runs of this script:
+# parameters 9.7e-4 and 1.2e-3, statistics 8.1e-8 and 9.1e-8, first
+# moments 3.3e-3 and 3.7e-3 (the train-mode BN makes the f32 gradient
+# ill-conditioned, and the atomics' noise grows through it). The check
+# also runs two faulty resumes, which must fail these limits: one that
+# drops the optimizer's state (read 1.28 / 1.3e-3 / 0.87 on the same
+# three) and one that resets the BN statistics (0.013 / 0.98 / 0.041).
+# One that loses the step count fails the step and lr checks
+# (chip_smoke.json keeps the readings, "resume_f32").
+#
+# The bf16 check (the CLI's own dtype) is a smoke check: two resumes, the
+# step count and lr equal, the epoch's mean loss within RESUME_LOSS_REL,
+# and by each gap of _epoch2_gaps the straight run no further from the
+# first resume than RESUME_NOISE times the two resumes from each other.
+# Its gaps are large (parameters 0.13, first moments 0.42-0.45: in bf16 the
+# zero-gradient leaves' rounding noise is far above adam's eps, so adam
+# scales it to full-size steps), so it catches parameters or statistics
+# that were not restored (~1 apart; the statistics' gap, from step 4's
+# forward alone, varies run to run and is floored at RESUME_FLOOR), not a
+# lost optimizer state: that is the f32 check's work.
 CLI_TRAIN, CLI_VAL, CLI_TEST = 16, 8, 8
+RESUME_F32 = {"params": 1e-2, "stats": 1e-5, "exp_avg": 3e-2}
+ZERO_GRAD_REL = 1e-8
 RESUME_LOSS_REL, RESUME_NOISE, RESUME_FLOOR = 5e-3, 4.0, {"stats": 1e-3}
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -587,7 +602,8 @@ def resize_ce_case(K, torch, gen, shape, r, eps, weighted, timed=False,
 
 
 def resize_ce_phase(torch, K):
-    """K3 at the train step's shape and at odd shapes, f32, TF32 off."""
+    """K3 at the train step's shape, at the CLI phase's (a 512x1024 crop)
+    and at odd shapes, f32, TF32 off."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -599,8 +615,11 @@ def resize_ce_phase(torch, K):
                            scale=100.0),
             resize_ce_case(K, torch, gen, (1, 7, 12, 64), 4, 0.1, True),
             resize_ce_case(K, torch, gen, (1, 8, 8, CLASSES), 8, 0.0, True,
-                           all_ignored=True)]
+                           all_ignored=True),
+            resize_ce_case(K, torch, gen, (BATCH, 64, 128, CLASSES), 8, 0.0,
+                           True)]
     rows[0]["layer"] = "train loss tail"
+    rows[-1]["layer"] = "CLI train crop (512x1024)"
     for row in rows:
         print("kernel", json.dumps(row))
     check(all(r["within_tol"] for r in rows),
@@ -1393,11 +1412,13 @@ def _state(torch, path):
     return torch.load(path, map_location="cpu", weights_only=True)["state"]
 
 
-def _epoch2_gaps(one, a, b):
+def _epoch2_gaps(one, a, b, skip=frozenset(), order=()):
     """How far run b's epoch 2 lies from run a's, both from the state
     ``one``: the rel-L2 of the epoch's update of all parameters together,
     of all BN running statistics together, and its median over the
-    leaves; the rel-L2 of all adam first moments together."""
+    leaves; the rel-L2 of all adam first moments together. The parameters
+    named in ``skip`` are left out (``order``: the parameters' names in
+    the optimizer's order)."""
     import numpy as np
     import torch
 
@@ -1409,9 +1430,11 @@ def _epoch2_gaps(one, a, b):
 
     stats = [k for k in a["model"]
              if k.endswith(("running_mean", "running_var"))]
-    params = [k for k in a["model"]
-              if a["model"][k].is_floating_point() and k not in stats]
-    moments = [[s["exp_avg"] for s in run["optimizer"]["state"].values()]
+    params = [k for k in a["model"] if a["model"][k].is_floating_point()
+              and k not in stats and k not in skip]
+    keep = [i for i in a["optimizer"]["state"]
+            if not order or order[i] not in skip]
+    moments = [[run["optimizer"]["state"][i]["exp_avg"] for i in keep]
                for run in (a, b)]
     return {
         "params": _rel(cat([update(b, k) for k in params]),
@@ -1421,6 +1444,103 @@ def _epoch2_gaps(one, a, b):
         "median_leaf": float(np.median([_rel(update(b, k), update(a, k))
                                         for k in params + stats])),
         "exp_avg": _rel(cat(moments[1]), cat(moments[0]))}
+
+
+def zero_gradient_leaves(torch, F):
+    """(Fast-SCNN-19's parameter names in the optimizer's order, those
+    whose gradient is zero in exact arithmetic): one f64 backward of CE
+    on the CPU, 2x3x64x128, train mode, dropout off; a gradient under
+    ZERO_GRAD_REL of the largest."""
+    from esn_tpu_torch.models import build_model
+    model = build_model("fastscnn", CLASSES, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    model.double().train()
+    model.head.drop.rate = 0.0
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 3, 64, 128), generator=gen, dtype=torch.float64)
+    lab = torch.randint(0, CLASSES, (2, 64, 128), generator=gen)
+    F.cross_entropy(model(x), lab).backward()
+    grads = {n: float(p.grad.abs().max())
+             for n, p in model.named_parameters()}
+    top = max(grads.values())
+    return list(grads), {n for n, g in grads.items()
+                         if g <= ZERO_GRAD_REL * top}
+
+
+def _losing(load, what):
+    """A faulty ``checkpoint.load_checkpoint``: ``load``, then the
+    optimizer's state dropped or the BN statistics reset."""
+    def faulty(path, state):
+        state, meta = load(path, state)
+        if what == "optimizer":
+            state.optimizer.state.clear()
+        else:
+            for name, buf in state.model.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.zero_()
+                elif name.endswith("running_var"):
+                    buf.fill_(1.0)
+        return state, meta
+    return faulty
+
+
+def check_f32_resume(torch, F, cli_train, args, tmp):
+    """The strict resume check (see RESUME_F32): two epochs straight, then
+    epoch 2 again from its ``model_1.ckpt``, f32, TF32 off, cuDNN
+    deterministic. Two faulty resumes, one that drops the optimizer's
+    state and one that resets the BN statistics, must fail the same
+    limits. Returns the readings."""
+    from esn_tpu_torch.train import checkpoint as ckpt
+    order, skip = zero_gradient_leaves(torch, F)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load = ckpt.load_checkpoint
+
+    def train(name, *extra):
+        _cli(cli_train.main, args + ["--savedir", str(Path(tmp) / name),
+                                     *extra])
+        d = Path(tmp) / name / "cityscapes" / f"FastSCNNbs{BATCH}gpu1_train"
+        return d, json.loads((d / "events.jsonl").read_text()
+                             .splitlines()[-1])
+
+    try:
+        d, ev_s = train("f32_straight")
+        resume = ("--resume", str(d / "model_1.ckpt"))
+        runs = {"resumed": train("f32_resumed", *resume)}
+        for what in ("optimizer", "statistics"):
+            ckpt.load_checkpoint = _losing(load, what)
+            try:
+                runs[f"without_{what}"] = train(f"f32_without_{what}",
+                                                *resume)
+            finally:
+                ckpt.load_checkpoint = load
+    finally:
+        torch.backends.cudnn.deterministic = det
+    one, straight = (_state(torch, d / f"model_{e}.ckpt") for e in (1, 2))
+    out = {"skipped": sorted(skip)}
+    for name, (rd, ev) in runs.items():
+        st = _state(torch, rd / "model_2.ckpt")
+        out[name] = {"step": st["step"], "lr": ev["lr"],
+                     "loss_rel": abs(ev["loss"] - ev_s["loss"])
+                     / abs(ev_s["loss"]),
+                     "gaps": _epoch2_gaps(one, straight, st, skip, order)}
+    print("cli resume f32", json.dumps(out))
+    check(len(skip) < 0.1 * len(order), f"zero-gradient leaves {skip}")
+    got = out["resumed"]
+    check(got["step"] == straight["step"] and got["lr"] == ev_s["lr"],
+          f"f32 resume: step {got['step']}, lr {got['lr']}")
+    bad = {k: got["gaps"][k] for k, limit in RESUME_F32.items()
+           if not got["gaps"][k] <= limit}
+    check(not bad, f"f32 resume: {bad} beyond {RESUME_F32}: {out}")
+    for name, keys in (("without_optimizer", ("params", "exp_avg")),
+                       ("without_statistics", ("stats",))):
+        gaps = out[name]["gaps"]
+        check(all(gaps[k] > RESUME_F32[k] for k in keys),
+              f"f32 resume {name} passes the limits {RESUME_F32}: {gaps}")
+    return out
+
 
 def cli_phase(torch, K):
     """The user's entry points, ``esn_tpu_torch.cli.train`` / ``test`` /
@@ -1436,10 +1556,12 @@ def cli_phase(torch, K):
     2. the prefetcher: an epoch of the train loader through
        ``device_prefetch``, held on the card while the card works, equals
        the loader's own batches.
-    3. resume: two runs from ``model_1.ckpt`` repeat epoch 2: the step
-       count and lr exactly, the loss within RESUME_LOSS_REL, and the
-       straight run as close to a resumed one as the two resumed runs are
-       to each other (RESUME_NOISE, RESUME_FLOOR).
+    3. resume: in bf16, two runs from ``model_1.ckpt`` repeat epoch 2:
+       the step count and lr exactly, the loss within RESUME_LOSS_REL,
+       and the straight run as close to a resumed one as the two resumed
+       runs are to each other (RESUME_NOISE, RESUME_FLOOR); in f32, a
+       straight run and a resume within RESUME_F32, and two faulty
+       resumes beyond it (``check_f32_resume``).
     4. ``cli.test --checkpoint model_2.ckpt`` at the train run's val
        batch gives the Trainer's epoch-2 mIoU and per-class IoU.
     5. ``cli.predict``'s grey PNGs, read back with the port's own reader,
@@ -1577,6 +1699,10 @@ def cli_phase(torch, K):
         check(not bad, f"resume: {bad} beyond {RESUME_NOISE}x the gap "
               f"between two resumed runs (floors {RESUME_FLOOR}): {resume}")
         result["resume"] = resume
+        f32_args = [a if a != "bfloat16" else "float32" for a in train_args]
+        result["resume_f32"] = check_f32_resume(
+            torch, torch.nn.functional, cli_train,
+            f32_args + ["--val_epochs", "2"], tmp)
 
         # 4. cli.test on model_2.ckpt, at the train run's val batch
         (out, test_launches) = _launch_delta(K, lambda: _cli(cli_test.main, common + [

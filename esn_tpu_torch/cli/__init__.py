@@ -30,8 +30,3 @@ def parse_hw(text: str):
     h, w = (int(v) for v in str(text).replace("x", ",").split(","))
     return h, w
 
-
-def default_dtype(compute_dtype, cuda: bool) -> str:
-    """``--compute_dtype``, else bfloat16 on the card and float32 on the
-    CPU."""
-    return compute_dtype or ("bfloat16" if cuda else "float32")

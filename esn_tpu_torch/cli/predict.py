@@ -9,7 +9,7 @@ the port's own PNG writer. On the CUDA device unless ``--cuda False``.
 import argparse
 import sys
 
-from . import default_dtype, parse_hw, str2bool
+from . import parse_hw, str2bool
 
 
 def parse_args(argv=None):
@@ -46,7 +46,7 @@ def main(argv=None):
     from ..models import build_model
     from ..train import checkpoint as ckpt
     from ..train.step import make_predict_step
-    from ..train.trainer import COMPUTE_DTYPES, resolve_device
+    from ..train.trainer import resolve_compute_dtype, resolve_device
 
     device = resolve_device("cuda" if args.cuda else "cpu")
     kw = {"root": args.data_root} if args.data_root else {}
@@ -60,7 +60,7 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
         ckpt.load_variables(args.checkpoint, model)
-    dtype = COMPUTE_DTYPES[default_dtype(args.compute_dtype, args.cuda)]
+    dtype = resolve_compute_dtype(args.compute_dtype, device)
     predict = make_predict_step(model, compute_dtype=dtype)
 
     count = 0

@@ -11,7 +11,7 @@ import argparse
 import os
 import sys
 
-from . import default_dtype, parse_hw, str2bool
+from . import parse_hw, str2bool
 
 
 def parse_args(argv=None):
@@ -89,7 +89,8 @@ def main(argv=None):
     from ..models import build_model
     from ..train import checkpoint as ckpt
     from ..train.step import make_eval_step
-    from ..train.trainer import COMPUTE_DTYPES, TrainConfig, resolve_device
+    from ..train.trainer import (TrainConfig, resolve_compute_dtype,
+                                 resolve_device)
 
     device = resolve_device("cuda" if args.cuda else "cpu")
     kw = {"root": args.data_root} if args.data_root else {}
@@ -115,7 +116,7 @@ def main(argv=None):
     elif args.checkpoint:
         candidates = [args.checkpoint]
 
-    dtype = COMPUTE_DTYPES[default_dtype(args.compute_dtype, args.cuda)]
+    dtype = resolve_compute_dtype(args.compute_dtype, device)
     # one eval step for the whole sweep: checkpoints load into its model
     eval_step = make_eval_step(model, spec.num_classes,
                                ignore_index=spec.ignore_label,

@@ -15,7 +15,7 @@ one device. Options the port does not run yet (``--spatial`` > 1,
 import argparse
 import sys
 
-from . import default_dtype, parse_hw, str2bool
+from . import parse_hw, str2bool
 
 
 def parse_args(argv=None):
@@ -108,7 +108,7 @@ def config_from_args(args):
         num_workers=args.num_workers, train_type=args.train_type,
         resume=args.resume, savedir=args.savedir, log_file=args.logFile,
         seed=args.seed, val_epochs=args.val_epochs,
-        compute_dtype=default_dtype(args.compute_dtype, args.cuda),
+        compute_dtype=args.compute_dtype,
         grad_accum=args.grad_accum, synthetic_len=args.synthetic_len,
         profile_dir=args.profile_dir, remat=args.remat, spatial=args.spatial,
         encoder_checkpoint=args.encoder_checkpoint,
@@ -128,7 +128,7 @@ def main(argv=None):
     print(f"=> model {cfg.model} ({trainer.n_params} params), "
           f"dataset {cfg.dataset}, crop {cfg.input_size}, "
           f"loss {cfg.loss}, optim {cfg.optim}/{cfg.lr_schedule}, "
-          f"{cfg.device} {cfg.compute_dtype}")
+          f"{cfg.device} {trainer.compute_dtype}")
     miou = trainer.fit()
     print(f"=> final mIoU: {miou:.4f}")
     return 0

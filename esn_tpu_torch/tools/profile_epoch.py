@@ -1,21 +1,19 @@
-"""Where a Trainer epoch's time goes on one CUDA card: input, augmentation,
-the step.
+"""Where a Trainer epoch's time goes on one CUDA card: input, the step's
+host call, the card.
 
     python3 -m esn_tpu_torch.tools.profile_epoch [--out PATH]
 
 Builds the Trainer as ``python -m esn_tpu_torch.cli.train --model
-FastSCNN --dataset cityscapes --batch_size 8 --compute_dtype bfloat16``
-builds it (synthetic 1024x2048 sources, the default 512x1024 crop,
+FastSCNN --dataset cityscapes --batch_size 8`` builds it on the card
+(bf16, synthetic 1024x2048 sources, the default 512x1024 crop,
 ``--synthetic_len 32``: 4 steps an epoch), takes one untimed epoch,
 then, host clock throughout:
 
-- one epoch as ``Trainer.train_epoch`` runs it, ms per step;
-- one epoch with its batches through ``device_prefetch``, each step
-  timed in parts: the wait for the batch, augmentation (host), the step
-  (host), then a synchronize;
+- one epoch as ``Trainer.train_epoch`` runs it, ms per step, and its
+  step timer's parts: the wait for each batch, each step's host call
+  (augmentation and the train step's dispatch), and the synchronize that
+  closes the epoch; the kernels' launches a step;
 - the loader alone, ms a batch, with and without ``device_prefetch``;
-- the same step parts with the epoch's batches already on the card, and
-  the ms per step of those batches without a synchronize between steps;
 - ``torch.profiler`` over one epoch: kernel launches a step
   (``cudaLaunchKernel``) and the host-side entries by self time.
 
@@ -29,30 +27,6 @@ import json
 import sys
 import tempfile
 import time
-
-STEP_PARTS = ("wait", "augment", "step", "sync")
-
-
-def _parts(torch, trainer, epoch, batches):
-    """Per step: ms waiting for the batch, augmenting it (host), the
-    train step (host), and the synchronize after it."""
-    from ..train.step import fold_in
-    rows, it = [], iter(batches)
-    for i in range(len(trainer.train_loader)):
-        t0 = time.perf_counter()
-        batch = next(it)
-        t1 = time.perf_counter()
-        gen = torch.Generator().manual_seed(fold_in(trainer.cfg.seed, epoch, i))
-        draws = trainer.augment.draw(gen, batch["image"].shape[0])
-        x, y = trainer.augment(batch["image"], batch["label"], draws)
-        t2 = time.perf_counter()
-        trainer.train_step({"image": x, "label": y})
-        t3 = time.perf_counter()
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        rows.append(dict(zip(STEP_PARTS, (1e3 * (t1 - t0), 1e3 * (t2 - t1),
-                                          1e3 * (t3 - t2), 1e3 * (t4 - t3)))))
-    return rows
 
 
 def _loader_ms(torch, trainer, epoch, prefetch):
@@ -75,7 +49,6 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_epoch: no CUDA device", file=sys.stderr)
         return 1
-    from ..data.loader import device_prefetch
     from ..ops import kernels as K
     from ..train.trainer import TrainConfig, Trainer
 
@@ -85,45 +58,34 @@ def main(argv: list[str]) -> int:
         trainer = Trainer(TrainConfig(
             model="FastSCNN", dataset="cityscapes", input_size=(512, 1024),
             batch_size=8, max_epochs=100, synthetic_len=32,
-            compute_dtype="bfloat16", data_root=tmp + "/none", savedir=tmp,
-            device="cuda"))
+            data_root=tmp + "/none", savedir=tmp, device="cuda"))
         out["trainer_build_s"] = time.perf_counter() - t0
+        out["compute_dtype"] = str(trainer.compute_dtype)
         steps = len(trainer.train_loader)
         t0 = time.perf_counter()
         trainer.train_epoch(0)
         torch.cuda.synchronize()
         out["warmup_epoch_s"] = time.perf_counter() - t0
 
+        timer = trainer.step_timer
+        timer.reset()
+        K.reset_launches()
         t0 = time.perf_counter()
         trainer.train_epoch(1)
         out["epoch_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / steps
-        trainer.train_loader.set_epoch(2)
-        K.reset_launches()
-        out["prefetched"] = _parts(torch, trainer, 2, device_prefetch(
-            iter(trainer.train_loader), trainer.device))
         out["kernel_launches_per_step"] = {k: v / steps
                                            for k, v in K.LAUNCHES.items()}
-        out["loader_ms_per_batch"] = _loader_ms(torch, trainer, 3, False)
-        out["prefetch_loader_ms_per_batch"] = _loader_ms(torch, trainer, 4,
+        out["parts"] = {part: timer.summary(part)
+                        for part in ("wait", "step", "sync")}
+        timer.reset()
+        out["loader_ms_per_batch"] = _loader_ms(torch, trainer, 2, False)
+        out["prefetch_loader_ms_per_batch"] = _loader_ms(torch, trainer, 3,
                                                          True)
-        trainer.train_loader.set_epoch(5)
-        held = list(device_prefetch(iter(trainer.train_loader),
-                                    trainer.device))
-        torch.cuda.synchronize()
-        out["held"] = _parts(torch, trainer, 5, held)
-        t0 = time.perf_counter()
-        for i, batch in enumerate(held):
-            draws = trainer.augment.draw(torch.Generator().manual_seed(i), 8)
-            x, y = trainer.augment(batch["image"], batch["label"], draws)
-            trainer.train_step({"image": x, "label": y})
-        torch.cuda.synchronize()
-        out["held_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / steps
-        del held
 
         activities = [torch.profiler.ProfilerActivity.CPU,
                       torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
-            trainer.train_epoch(6)
+            trainer.train_epoch(4)
             torch.cuda.synchronize()
         events = prof.key_averages()
         launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
@@ -131,10 +93,6 @@ def main(argv: list[str]) -> int:
         out["host_self_ms_per_step"] = [
             (e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
             for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:15]]
-    for name in ("prefetched", "held"):
-        rows = out[name]
-        out[name + "_mean"] = {p: sum(r[p] for r in rows) / len(rows)
-                               for p in STEP_PARTS}
     text = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

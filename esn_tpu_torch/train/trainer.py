@@ -76,7 +76,7 @@ class TrainConfig:
     log_file: str = "log.txt"
     seed: int = 1
     val_epochs: int = 50        # validate every N epochs
-    compute_dtype: str = "float32"   # the CLI picks bfloat16 on the card
+    compute_dtype: Optional[str] = None  # None: bf16 on cuda, f32 on cpu
     grad_accum: int = 1
     data_root: str = data_builders.DEFAULT_ROOT
     synthetic_len: int = 64     # only used when real data is absent
@@ -133,6 +133,15 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def resolve_compute_dtype(name: Optional[str], device) -> torch.dtype:
+    """``name`` ("float32" | "bfloat16") as a dtype; None is bfloat16 on
+    the CUDA device and float32 on the CPU."""
+    if name is None:
+        return torch.bfloat16 if torch.device(device).type == "cuda" \
+            else torch.float32
+    return COMPUTE_DTYPES[name]
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig):
         check_ported(cfg)
@@ -171,7 +180,8 @@ class Trainer:
             warmup_steps=cfg.warmup_iters, warmup_factor=cfg.warmup_factor)
         self.optimizer = build_optimizer(cfg.optim, self.model.parameters(),
                                          weight_decay=cfg.weight_decay)
-        compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        self.compute_dtype = compute_dtype = resolve_compute_dtype(
+            cfg.compute_dtype, self.device)
         self.train_step = make_train_step(
             self.model, self.loss_fn, self.optimizer, schedule=self.schedule,
             compute_dtype=compute_dtype, grad_accum=cfg.grad_accum,
@@ -191,7 +201,7 @@ class Trainer:
         self._log_path = os.path.join(cfg.run_dir, cfg.log_file)
         self._jsonl_path = os.path.join(cfg.run_dir, "events.jsonl")
         self._history = []  # (epoch, loss, lr, miou or None)
-        self._step_timer = profiling.StepTimer()
+        self.step_timer = profiling.StepTimer()
         self._log_header()
 
     @property
@@ -207,7 +217,7 @@ class Trainer:
             f.write(f"Model: {self.cfg.model}  dataset: {self.cfg.dataset}  "
                     f"params: {self.n_params}\n")
             f.write(f"device: {self.device} ({name})  "
-                    f"compute_dtype: {self.cfg.compute_dtype}\n")
+                    f"compute_dtype: {self.compute_dtype}\n")
             f.write("epoch\tlr\tloss_train\tmIoU_val\ttime_s\n")
 
     def _class_names(self):
@@ -228,26 +238,31 @@ class Trainer:
                  "time_s": seconds, **walls}
         if iou is not None:
             event["per_class_iou"] = [round(float(v), 6) for v in iou]
-        steps = self._step_timer.summary()
-        if steps:
-            event["host_step"] = steps  # dispatch + input time, not device
-            self._step_timer.reset()
+        # host times, not device: augment + step dispatch, the wait for
+        # each batch, the epoch's closing synchronize
+        for key, part in (("host_step", "step"), ("wait_step", "wait"),
+                          ("sync", "sync")):
+            summary = self.step_timer.summary(part)
+            if summary:
+                event[key] = summary
+        self.step_timer.reset()
         with open(self._jsonl_path, "a") as f:
             f.write(json.dumps(event) + "\n")
 
     # ---------------------------------------------------------------- train
     def train_epoch(self, epoch: int) -> Tuple[float, float]:
         """One epoch; returns (mean loss, last lr). The losses stay on the
-        device until the epoch's end."""
+        device until the epoch's end. The step timer takes each step's
+        host time, its wait for the batch and the closing synchronize."""
         cfg = self.cfg
         self.train_loader.set_epoch(epoch)
         losses, lr = [], 0.0
         do_trace = bool(cfg.profile_dir) and epoch == self.start_epoch
-        batches = device_prefetch(iter(self.train_loader), self.device,
-                                  size=2)
+        batches = self.step_timer.iterate(device_prefetch(
+            iter(self.train_loader), self.device, size=2), "wait")
         with profiling.trace(cfg.profile_dir if do_trace else None):
             for i, batch in enumerate(batches):
-                with self._step_timer.step():
+                with self.step_timer.step():
                     images, labels = batch["image"], batch["label"]
                     gen = torch.Generator().manual_seed(
                         fold_in(cfg.seed, epoch, i))
@@ -258,7 +273,8 @@ class Trainer:
                         metrics = self.train_step({"image": x, "label": y})
                     losses.append(metrics["loss"])
                     lr = metrics.get("lr", cfg.lr)
-        mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
+        with self.step_timer.step("sync"):
+            mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
         return mean_loss, float(lr)
 
     def validate(self) -> Tuple[np.ndarray, float]:

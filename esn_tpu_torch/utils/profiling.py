@@ -8,16 +8,17 @@
 - :func:`annotate`: a named region in that trace.
 - :func:`nan_guard`: autograd's anomaly mode with its NaN check: a
   backward that makes a NaN raises where it did.
-- :class:`StepTimer`: host wall time per step. The card runs
-  asynchronously, so without a synchronize this is the host's dispatch
-  and input time, which is what shows a data stall.
+- :class:`StepTimer`: host wall time per step, by part. The card runs
+  asynchronously, so without a synchronize a step's time is the host's
+  dispatch; the wait for the next batch is what shows a data stall.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
-from typing import Iterator, List, Optional
+from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -56,30 +57,45 @@ def nan_guard(enable: bool = True) -> Iterator[None]:
 
 
 class StepTimer:
-    """Host-side step timing: ``with timer.step(): ...`` then
-    ``.summary()``."""
+    """Host-side timing of a loop's parts: ``with timer.step(): ...`` times
+    the part "step", ``with timer.step("sync"): ...`` another part, and
+    ``timer.iterate(batches, "wait")`` each ``next`` of an iterator; then
+    ``.summary()`` or ``.summary(part)``."""
 
     def __init__(self):
-        self._durations: List[float] = []
+        self._durations: Dict[str, List[float]] = collections.defaultdict(
+            list)
 
     @contextlib.contextmanager
-    def step(self) -> Iterator[None]:
+    def step(self, part: str = "step") -> Iterator[None]:
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self._durations.append(time.perf_counter() - t0)
+            self._durations[part].append(time.perf_counter() - t0)
+
+    def iterate(self, iterable: Iterable, part: str = "wait") -> Iterator:
+        """``iterable``'s items, the time of each ``next`` under ``part``."""
+        it = iter(iterable)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self._durations[part].append(time.perf_counter() - t0)
+            yield item
 
     def __len__(self):
-        return len(self._durations)
+        return len(self._durations["step"])
 
     def reset(self):
         self._durations.clear()
 
-    def summary(self) -> Optional[dict]:
-        if not self._durations:
+    def summary(self, part: str = "step") -> Optional[dict]:
+        if not self._durations.get(part):
             return None
-        d = np.asarray(self._durations) * 1e3
+        d = np.asarray(self._durations[part]) * 1e3
         return {"steps": int(d.size),
                 "mean_ms": float(d.mean()),
                 "p50_ms": float(np.percentile(d, 50)),

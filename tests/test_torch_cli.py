@@ -22,6 +22,7 @@ from esn_tpu_torch.cli import train as train_cli
 from esn_tpu_torch.models import build_model
 from esn_tpu_torch.train import checkpoint as ckpt
 from esn_tpu_torch.train.step import make_predict_step
+from esn_tpu_torch.train.trainer import resolve_compute_dtype
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,12 +64,17 @@ def test_config_from_args():
         ["--model", "FastSCNN", "--dataset", "cityscapes", "--use_ohem",
          "--cuda", "False", "--synthetic_hw", "64x128"]))
     assert (cfg.input_size, cfg.loss, cfg.device, cfg.compute_dtype) == (
-        (512, 1024), "ohem", "cpu", "float32")
+        (512, 1024), "ohem", "cpu", None)
+    assert resolve_compute_dtype(cfg.compute_dtype, cfg.device) \
+        == torch.float32
     assert cfg.synthetic_hw == (64, 128)
     cfg = train_cli.config_from_args(train_cli.parse_args(["--input_size",
                                                            "72,96"]))
     assert (cfg.device, cfg.compute_dtype, cfg.input_size) == (
-        "cuda", "bfloat16", (72, 96))
+        "cuda", None, (72, 96))
+    assert resolve_compute_dtype(cfg.compute_dtype, cfg.device) \
+        == torch.bfloat16
+    assert resolve_compute_dtype("float32", "cuda") == torch.float32
 
 
 @pytest.mark.parametrize("flags,item", [

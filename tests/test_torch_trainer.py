@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from esn_tpu_torch.train.trainer import TrainConfig, Trainer
+from esn_tpu_torch.utils import profiling
 
 TINY = dict(
     dataset="camvid", input_size=(72, 96), max_epochs=2, batch_size=2,
@@ -68,6 +69,48 @@ def test_trainer_end_to_end(straight):
     assert log.startswith("Model: ENet  dataset: camvid")
     assert log.count(" IoU: ") == 2 * 11
     assert trainer.train_step.count == 2 * len(trainer.train_loader) == 6
+
+
+def test_trainer_logs_host_times_and_resolves_its_dtype(straight):
+    """Each epoch's event has the step timer's parts: 3 steps' host call
+    and wait for the batch, one closing sync; no dtype given is f32 on
+    the CPU."""
+    cfg, trainer, _ = straight
+    assert cfg.compute_dtype is None and trainer.compute_dtype == torch.float32
+    for e in _events(cfg):
+        assert e["host_step"]["steps"] == e["wait_step"]["steps"] == 3
+        assert e["sync"]["steps"] == 1
+        assert all(e[k]["mean_ms"] >= 0.0
+                   for k in ("host_step", "wait_step", "sync"))
+    with open(os.path.join(cfg.run_dir, "log.txt")) as f:
+        assert "compute_dtype: torch.float32" in f.read()
+
+
+def test_step_timer_parts():
+    timer = profiling.StepTimer()
+    seen = []
+    for item in timer.iterate(range(4), "wait"):
+        with timer.step():
+            seen.append(item)
+    with timer.step("sync"):
+        pass
+    assert seen == [0, 1, 2, 3] and len(timer) == 4
+    assert timer.summary("wait")["steps"] == 4
+    assert timer.summary()["steps"] == 4 and timer.summary("sync")["steps"] == 1
+    assert timer.summary("other") is None
+    closed = []
+
+    def source():
+        try:
+            yield from range(10)
+        finally:
+            closed.append(True)
+    it = timer.iterate(source())
+    next(it)
+    it.close()
+    assert closed == [True]
+    timer.reset()
+    assert timer.summary() is None and timer.summary("wait") is None
 
 
 def test_resume_is_exact(straight, tmp_path):
