@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``esn_tpu_torch/csrc``, checks each kernel
-against its plain PyTorch version at the shapes Fast-SCNN's predict and
+against its plain PyTorch version at the shapes the models' predicts and
 train step and CGNet's predict give it (plus odd-size cases), then drives
 these paths through the port's entry points, each with the launch counts
 from zero:
@@ -45,6 +45,22 @@ from zero:
   route: ``resize_ce`` launches 0 times, and the script says so): five
   steps, a falling loss, ms/step and peak memory in turns with the
   weighted-CE step;
+- ContextNet-19 (config 5), b8 bf16 3x1024x2048: predict (``dsconv`` 5
+  launches, ``resize_argmax`` 1; against the plain versions; img/s), five
+  weighted-CE train steps through ``logits_lowres`` (``resize_ce`` 1
+  forward and 1 backward a step; one f32 step against the plain
+  versions), the config-5 step (``resize_ce`` 0) timed in turns with the
+  weighted-CE one, a predict after a train step; K2 is also held against
+  its plain version at the two ContextNet shapes no other path gives;
+- EDANet-19 (config 3), b8 bf16 3x512x1024: predict (``resize_argmax``
+  1, held at its shape too) and five weighted-CE train steps
+  (``resize_ce`` 1 + 1 a step), as ContextNet's;
+- ERFNet-19 (config 3, 3x512x1024), SegNet-11 and LinkNet-11 (config 2,
+  3x352x480: both need sides that are multiples of 32), b8 bf16: no
+  kernel lies on their paths (every count 0), so each is held against
+  the CPU as ENet is (the f32 predict of a 2-image slice, SegNet's
+  outside the fields of its flipped pool windows; one f32 train step of
+  a slice), five weighted-CE steps, ms/step, peak memory, img/s;
 - the user's entry points: ``esn_tpu_torch.cli.train`` on Fast-SCNN-19,
   Cityscapes-shaped synthetic data (1024x2048 sources, 512x1024 crops),
   batch 8, bf16, two epochs of two steps with validation every epoch
@@ -54,13 +70,15 @@ from zero:
   against the straight run, in bf16 and in f32; ``cli.test`` against the
   Trainer's mIoU; ``cli.predict``'s PNGs against the predict step's maps.
 
-Exits non-zero on any failure, and when no CUDA device is present. The
-last line of standard output is one JSON object; the line before it lists
-the kernels. ``ms``/``plain_ms``/``bound_ms``: for ``fused_dsconv`` the
-sum of its four layers' bf16 times per predict, each timed at its own
-shape; for ``resize_argmax`` its time per predict; for ``resize_ce_sums``
-forward + backward per train step (``chip_smoke.json`` keeps the two
-apart: ``fwd_ms``, ``bwd_ms``, their bounds, and the forward's SFU floor
+Each phase prints its seconds. Exits non-zero on any failure, and when
+no CUDA device is present. The last line of standard output is one JSON
+object; the line before it lists the kernels, and ``launches by model``
+above them each model's launch counts. ``ms``/``plain_ms``/``bound_ms``:
+for ``fused_dsconv`` the sum of Fast-SCNN's four layers' bf16 times per
+predict, each timed at its own shape; for ``resize_argmax`` its time per
+predict; for ``resize_ce_sums`` forward + backward per train step
+(``chip_smoke.json`` keeps the two apart: ``fwd_ms``, ``bwd_ms``, their
+bounds, and the forward's SFU floor
 ``fwd_sfu_floor_ms``); for ``fused_cgblock_pre`` its bf16
 time per CGNet predict (2 launches at the stage2 shape, 20 at stage3's);
 its ``launches`` are CGNet's. ``bound_ms`` is computed from this run's
@@ -123,8 +141,12 @@ PREDICT_MISMATCH_MAX = {"float32": 1e-4, "bfloat16": 0.05}
 # ... and the largest low-res logit difference between the two runs, as a
 # share of the plain run's logit std, which bounds what counts as a near
 # tie there. From readings on an H100: f32 5.1e-6 (bound ~10x), bf16
-# 0.121, i.e. 0.25 against a std of 2.06 (bound ~2x).
+# 0.121, i.e. 0.25 against a std of 2.06 (bound ~2x). ContextNet's own
+# bf16 bound: its five DSConvs round where the plain versions do not, and
+# its logits spread less (read: 0.34375 against a std of 1.33, 0.26; the
+# same 0.34375 as Fast-SCNN's, about 5 bf16 steps of its largest logits).
 LOWRES_DIFF_MAX = {"float32": 5e-5, "bfloat16": 0.25}
+LOWRES_DIFF_MAX_BY_MODEL = {"ContextNet": {"float32": 5e-5, "bfloat16": 0.5}}
 VAR_FLOOR = 0.01
 # resize_ce_sums (K3) against its plain version, f32, TF32 off:
 # |dS| <= RESIZE_CE_SUM_REL * |S| (and N alike): both sum f32 terms over
@@ -186,6 +208,47 @@ IGNORE = 255
 ENET_MISMATCH_MAX, ENET_LOGIT_DIFF_MAX, ENET_GRAD_REL = 1e-4, 1e-3, 8e-2
 ENET_FLIPS_MAX = 1e-5
 ENET_SLICE_HW = (256, 512)
+# ERFNet (config 3) and SegNet and LinkNet (config 2, CamVid's 11 classes)
+# launch no kernel either and are held against the CPU as ENet is, f32,
+# TF32 off: (classes, input H x W of the b8 bf16 runs, the H x W of the
+# 2-image slice of the f32 train step). SegNet and LinkNet need sides that
+# are multiples of 32, in the reference too: CamVid's 360x480 runs at
+# 352x480.
+CONFIG3_HW = (512, 1024)
+ZOO_CONV = {"erfnet": (19, CONFIG3_HW, (256, 512)),
+            "segnet": (11, (352, 480), (256, 352)),
+            "linknet": (11, (352, 480), (256, 352))}
+# (classes, input H x W) of each model's runs here where they are not
+# config 5's (19 classes at 1024x2048): EDANet runs at config 3's size
+MODEL_INPUT = {"edanet": (CLASSES, CONFIG3_HW),
+               **{arch: (c, hw) for arch, (c, hw, _) in ZOO_CONV.items()}}
+# Predict of a 2-image slice, the card against the CPU: outside the
+# fields of the pool windows whose index differs between the devices
+# (SegNet's five index pools; the others have none) the logits differ by
+# at most ZOO_LOGIT_DIFF_MAX of the CPU logits' std and a mismatch is a
+# near-tie (the CPU's logits of the two classes within twice that); at
+# most ZOO_MISMATCH_MAX of the pixels outside the fields differ. The f32
+# logits of ERFNet and SegNet are ill-conditioned: on the CPU the
+# reference's own f32 logits lie up to 1.1e-3 (ERFNet, 0.8 of its std) and
+# 2.0e-4 (SegNet) from its f64 ones (tests/test_torch_erfnet_edanet.py,
+# tests/test_torch_segnet_linknet.py). The f32 train step of the slice:
+# per-leaf gradient rel-L2 within ZOO_GRAD_REL plus TRAIN_GRAD_ABS (on the
+# CPU against an f64 oracle at 2x3x64x128: ERFNet 3.0e-2, SegNet 7.6e-3,
+# LinkNet 2.2e-4 at 2x3x64x96; read on an H100 against the CPU at these
+# slices: ERFNet 3.6e-2, SegNet 1.6e-2, LinkNet 1.0e-2, train-mode BN
+# making the f32 gradient ill-conditioned as ENet's), leaving out the
+# leaves whose gradient is zero in exact arithmetic
+# (``zero_gradient_leaves``: a conv bias that a train-mode BN follows;
+# ERFNet's stem bias read 5.2e-6 on the card against 5.2e-6 on the CPU at
+# the 256x512 slice, noise on both sides).
+# SegNet's CPU step takes the card step's pool positions
+# (``replayed_index_pools``): left to break near-ties in its windows
+# itself, it moved the per-leaf gradients by 6.5e-2 (median; 9.5e-2 at
+# most) against the card's (read on an H100; its f32 predict of 2 images
+# found 16 windows whose index differs between the devices).
+ZOO_MISMATCH_MAX = 1e-3
+ZOO_LOGIT_DIFF_MAX = {"erfnet": 5e-3, "segnet": 2e-3, "linknet": 1e-3}
+ZOO_GRAD_REL = {"erfnet": 8e-2, "segnet": 3e-2, "linknet": 3e-2}
 EVAL_VALID = 6
 # The CLI phase: items in the train, val and test splits (two train steps
 # an epoch, one val and one test batch). Resume: runs resumed from
@@ -386,16 +449,20 @@ def kernel_phase(torch, F, K):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # the four eval DSConvs of Fast-SCNN at batch 8
-    main = [("ltd.ds1", (BATCH, 512, 1024, 32), 48, 2),
-            ("ltd.ds2", (BATCH, 256, 512, 48), 64, 2),
-            ("head.ds1", (BATCH, 128, 256, 128), 128, 1),
-            ("head.ds2", (BATCH, 128, 256, 128), 128, 1)]
+    # the four eval DSConvs of Fast-SCNN at batch 8, and the two of
+    # ContextNet's five whose shapes no other path gives (its shallow.ds3,
+    # ds1 and ds2 are Fast-SCNN's head shape)
+    main = [("fastscnn", "ltd.ds1", (BATCH, 512, 1024, 32), 48, 2),
+            ("fastscnn", "ltd.ds2", (BATCH, 256, 512, 48), 64, 2),
+            ("fastscnn", "head.ds1", (BATCH, 128, 256, 128), 128, 1),
+            ("fastscnn", "head.ds2", (BATCH, 128, 256, 128), 128, 1),
+            ("contextnet", "shallow.ds1", (BATCH, 512, 1024, 32), 64, 2),
+            ("contextnet", "shallow.ds2", (BATCH, 256, 512, 64), 128, 2)]
     dsconv_rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, shape, cout, stride in main:
+        for model, name, shape, cout, stride in main:
             row = dsconv_case(K, torch, gen, shape, cout, stride, dtype)
-            row["layer"] = name
+            row.update(model=model, layer=name)
             dsconv_rows.append(row)
         row = dsconv_case(K, torch, gen, (2, 37, 53, 24), 16, 2, dtype,
                           act1="relu6", act2="none")
@@ -406,6 +473,11 @@ def kernel_phase(torch, F, K):
         row = resize_argmax_case(K, torch, F, gen, (BATCH, 128, 256, CLASSES),
                                  8, dtype)
         row["layer"] = "predict tail"
+        argmax_rows.append(row)
+        # EDANet's tail at config 3's 512x1024
+        row = resize_argmax_case(K, torch, F, gen, (BATCH, 64, 128, CLASSES),
+                                 8, dtype)
+        row["layer"] = "edanet predict tail"
         argmax_rows.append(row)
         # odd: h not a multiple of the band, a partial column tile; r = 5
         # with C = 64, the shared-memory instantiation
@@ -639,15 +711,15 @@ def smooth_images(torch, F, gen, n, hw):
 
 
 def seeded_model(torch, F, build_model, BatchNorm, seed: int,
-                 arch: str = "fastscnn"):
-    """``arch`` (19 classes) on the card: port init from a seeded
+                 arch: str = "fastscnn", classes: int = CLASSES):
+    """``arch`` (``classes`` classes) on the card: port init from a seeded
     generator, BN affines drawn from it too, running stats from one train
     pass at momentum 1 over a seeded batch, with each variance floored at
     VAR_FLOOR (random weights leave near-dead channels whose tiny batch
     variance would scale them by up to 1/sqrt(eps))."""
     from esn_tpu_torch.nn import set_dropout_generator
     gen = torch.Generator().manual_seed(seed)
-    model = build_model(arch, CLASSES, device="cuda", generator=gen)
+    model = build_model(arch, classes, device="cuda", generator=gen)
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     with torch.no_grad():
         for bn in bns:
@@ -705,13 +777,15 @@ def compare_with_plain(torch, F, K, model, make_predict_step, images, dtype):
         near_ties = bool((gap <= 2 * delta + ARGMAX_GAP[name] * mag)
                          [mismatch].all())
     std = float(y_plain.float().std())
+    diff_max = LOWRES_DIFF_MAX_BY_MODEL.get(type(model).__name__,
+                                            LOWRES_DIFF_MAX)[name]
     row = {"model": type(model).__name__, "dtype": name,
            "batch": images.shape[0],
            "mismatch_rate": float(mismatch.float().mean()),
            "mismatch_max": PREDICT_MISMATCH_MAX[name],
            "lowres_logit_max_abs_diff": delta,
            "lowres_logit_std": std,
-           "lowres_diff_max": LOWRES_DIFF_MAX[name] * std,
+           "lowres_diff_max": diff_max * std,
            "near_ties_only": near_ties}
     print("predict vs plain", json.dumps(row))
     check(row["mismatch_rate"] <= row["mismatch_max"]
@@ -733,14 +807,14 @@ def timed_predict(torch, predict, images, iters: int = 10) -> float:
 
 
 def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step,
-                  arch, want_launches):
-    """``arch`` predict at bf16 b8 3x1024x2048: the launch counts of one
+                  arch, want_launches, hw=IMAGE_HW):
+    """``arch`` predict at bf16 b8 3 x ``hw``: the launch counts of one
     predict (``want_launches``), the class map, agreement with the plain
     versions in bf16 and f32, img/s with the kernels and with the plain
     versions, peak memory."""
     model = seeded_model(torch, F, build_model, BatchNorm, seed=0, arch=arch)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    images = smooth_images(torch, F, gen, BATCH, IMAGE_HW)
+    images = smooth_images(torch, F, gen, BATCH, hw)
     predict = make_predict_step(model, compute_dtype=torch.bfloat16)
     predict(images)                                   # warm-up
     torch.cuda.synchronize()
@@ -753,7 +827,7 @@ def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step,
     print(f"{arch} predict launches", json.dumps(launches))
     check(launches == want_launches,
           f"{arch}: launch counts per predict {launches}")
-    check(tuple(pred.shape) == (BATCH, *IMAGE_HW) and pred.dtype == torch.int32,
+    check(tuple(pred.shape) == (BATCH, *hw) and pred.dtype == torch.int32,
           f"predict output {tuple(pred.shape)} {pred.dtype}")
     lo, hi = int(pred.min()), int(pred.max())
     check(0 <= lo and hi < CLASSES, f"predict classes in [{lo}, {hi}]")
@@ -781,21 +855,21 @@ def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
     img_s = {k: BATCH / (v / 1e3) for k, v in ms.items()}
-    print(f"{arch} predict bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: "
+    print(f"{arch} predict bf16 b{BATCH} {hw[1]}x{hw[0]}: "
           f"{img_s['kernel']:.2f} img/s ({ms['kernel']:.3f} ms/batch) with "
           f"the kernels, {img_s['plain']:.2f} img/s ({ms['plain']:.3f} "
           f"ms/batch) with the plain versions; peak {peak_gb:.2f} GB")
     return {"launches": launches, "classes_seen": n_classes,
             "compared": compared, "img_per_s": img_s["kernel"],
             "plain_img_per_s": img_s["plain"], "ms_per_batch": ms,
-            "peak_gb": peak_gb, "batch": BATCH}
+            "peak_gb": peak_gb, "batch": BATCH, "hw": list(hw)}
 
 
-def learnable_labels(torch, F, gen, n, hw):
+def learnable_labels(torch, F, gen, n, hw, classes=CLASSES):
     """Seeded labels a network can fit: the argmax of a smooth random
-    19-class field (1/16 resolution, upsampled), with a band of ignored
-    rows across the middle."""
-    low = torch.randn((n, CLASSES, hw[0] // 16, hw[1] // 16), generator=gen,
+    ``classes``-class field (1/16 resolution, upsampled), with a band of
+    ignored rows across the middle."""
+    low = torch.randn((n, classes, hw[0] // 16, hw[1] // 16), generator=gen,
                       device=gen.device)
     field = F.interpolate(low, size=hw, mode="bilinear", align_corners=False)
     labels = field.argmax(1).to(torch.int32)
@@ -804,11 +878,11 @@ def learnable_labels(torch, F, gen, n, hw):
     return labels
 
 
-def class_weights(torch, labels):
+def class_weights(torch, labels, classes=CLASSES):
     """The reference's class weights ``1 / ln(1.10 + p_c)`` of the labels'
     class histogram, through the port's ``data.inform``."""
     from esn_tpu_torch.data.inform import compute_class_weights
-    hist = torch.bincount(labels[labels != IGNORE].long(), minlength=CLASSES)
+    hist = torch.bincount(labels[labels != IGNORE].long(), minlength=classes)
     return torch.from_numpy(compute_class_weights(hist.cpu().numpy())).to(
         labels.device)
 
@@ -819,9 +893,9 @@ def config5_loss(cw):
     from esn_tpu_torch.train.losses import cross_entropy, ohem_cross_entropy
 
     def loss(logits, labels):
-        return (cross_entropy(logits, labels, num_classes=CLASSES,
+        return (cross_entropy(logits, labels, num_classes=cw.numel(),
                               class_weights=cw, ignore_index=IGNORE)
-                + ohem_cross_entropy(logits, labels, num_classes=CLASSES,
+                + ohem_cross_entropy(logits, labels, num_classes=cw.numel(),
                                      ignore_index=IGNORE))
     return loss
 
@@ -844,37 +918,40 @@ def config5_step(torch, model, opt, cw, dtype):
 
 
 def train_step(torch, model, opt, cw, dtype):
-    """The default of train.py on a resize-tail model, through the port's
-    entry points: class-weighted CE through logits_lowres (the loss owns
-    the x8 upsample), poly lr on ``opt``; dropout masks from a seeded
-    generator on the card."""
-    from esn_tpu_torch.train.losses import fused_resize_ce_spec
+    """The default of train.py, through the port's entry points: class-
+    weighted CE, through logits_lowres on a resize-tail model (the loss
+    owns the x8 upsample: the fused resize-CE kernel), on the full logits
+    on a conv-tail model; poly lr on ``opt``; dropout masks from a seeded
+    generator on the model's device."""
+    from esn_tpu_torch.train.losses import cross_entropy, fused_resize_ce_spec
     from esn_tpu_torch.train.schedules import build_schedule
     from esn_tpu_torch.train.step import make_train_step
     fused, method = fused_resize_ce_spec(model, "ce")
-    loss = functools.partial(fused, num_classes=CLASSES, class_weights=cw,
-                             ignore_index=IGNORE)
+    device = next(model.parameters()).device
+    loss = functools.partial(fused or cross_entropy, num_classes=cw.numel(),
+                             class_weights=cw.to(device), ignore_index=IGNORE)
     return make_train_step(
         model, loss, opt,
         schedule=build_schedule("poly", TRAIN_LR, TRAIN_TOTAL_STEPS),
         compute_dtype=dtype, fwd_method=method,
-        generator=torch.Generator(device="cuda").manual_seed(3))
+        generator=torch.Generator(device=device).manual_seed(3))
 
 
-def train_setup(torch, F, arch: str = "fastscnn"):
-    """``arch`` (19 classes) on the card (port init, seed 0), adam, and
-    one seeded batch: smooth images, learnable labels, their class
+def train_setup(torch, F, arch: str = "fastscnn", hw=IMAGE_HW,
+                classes: int = CLASSES):
+    """``arch`` on the card (port init, seed 0), adam, and one seeded
+    batch of 3 x ``hw``: smooth images, learnable labels, their class
     weights."""
     from esn_tpu_torch.models import build_model
     from esn_tpu_torch.train.optimizers import build_optimizer
-    model = build_model(arch, CLASSES, device="cuda",
+    model = build_model(arch, classes, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     opt = build_optimizer("adam", model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(3)
-    images = smooth_images(torch, F, gen, BATCH, IMAGE_HW)
-    labels = learnable_labels(torch, F, gen, BATCH, IMAGE_HW)
+    images = smooth_images(torch, F, gen, BATCH, hw)
+    labels = learnable_labels(torch, F, gen, BATCH, hw, classes)
     return model, opt, {"image": images, "label": labels}, class_weights(
-        torch, labels)
+        torch, labels, classes)
 
 
 def compare_train_step(torch, K, model, opt, batch, cw):
@@ -926,13 +1003,13 @@ def timed_steps(torch, step, batch, iters: int = 10) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-def train_phase(torch, F, K, BatchNorm):
-    """Fast-SCNN-19 training at bf16 b8 3x1024x2048 through the port's
-    entry points: launch counts, a falling loss over five steps on one
-    batch, BN running stats that move, the f32 step against the plain
-    versions, and the step's time with the kernel and with the plain
-    versions."""
-    model, opt, batch, cw = train_setup(torch, F)
+def train_phase(torch, F, K, BatchNorm, arch="fastscnn", hw=IMAGE_HW):
+    """``arch`` (a resize-tail model, 19 classes) training at bf16 b8 3 x
+    ``hw`` through the port's entry points: launch counts, a falling loss
+    over five steps on one batch, BN running stats that move, the f32 step
+    against the plain versions, and the step's time with the kernel and
+    with the plain versions."""
+    model, opt, batch, cw = train_setup(torch, F, arch, hw)
     torch.backends.cudnn.allow_tf32 = False
     compared = compare_train_step(torch, K, model, opt, batch, cw)
     torch.backends.cudnn.allow_tf32 = True    # the library default again
@@ -945,8 +1022,8 @@ def train_phase(torch, F, K, BatchNorm):
     losses = [float(step(batch)["loss"]) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    print("train launches", json.dumps(launches))
-    print("train losses", json.dumps(losses))
+    print(f"{arch} train launches", json.dumps(launches))
+    print(f"{arch} train losses", json.dumps(losses))
     check(launches == {"dsconv": 0, "resize_argmax": 0,
                        "resize_ce_fwd": TRAIN_STEPS,
                        "resize_ce_bwd": TRAIN_STEPS, "cgblock": 0},
@@ -970,14 +1047,15 @@ def train_phase(torch, F, K, BatchNorm):
                           torch.cuda.max_memory_allocated() / 1e9)
     ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
     img_s = {k: BATCH / (v / 1e3) for k, v in ms.items()}
-    print(f"train bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: "
+    print(f"{arch} train bf16 b{BATCH} {hw[1]}x{hw[0]}: "
           f"{img_s['kernel']:.2f} img/s ({ms['kernel']:.3f} ms/step) with "
           f"the kernel, {img_s['plain']:.2f} img/s ({ms['plain']:.3f} "
           f"ms/step) with the plain versions; peak {peak['kernel']:.2f} GB "
           f"vs {peak['plain']:.2f} GB")
     return {"launches": launches, "losses": losses, "bn_layers_moved": moved,
             "compared": compared, "ms_per_step": ms, "img_per_s": img_s,
-            "peak_gb": peak, "batch": BATCH, "class_weights": cw.tolist()}
+            "peak_gb": peak, "batch": BATCH, "hw": list(hw),
+            "class_weights": cw.tolist()}
 
 
 def interleaved_phase(torch, F, K, build_model, make_predict_step, arch,
@@ -1193,13 +1271,21 @@ def enet_predict_phase(torch, F, K, build_model, BatchNorm,
         "peak_gb": peak_gb, "batch": BATCH}
 
 
-def compare_step_with_cpu(torch, model, opt, batch, cw):
-    """One f32 config-5 step (TF32 off) on a small slice of the batch,
-    from copies of the same model and optimizer on the card and on the
-    CPU, dropout off: loss and per-leaf gradients."""
+def compare_step_with_cpu(torch, model, opt, batch, cw, name="enet",
+                          make_step=None, slice_hw=ENET_SLICE_HW,
+                          grad_rel=ENET_GRAD_REL, skip=frozenset(),
+                          replay_pools=False):
+    """One f32 step (TF32 off; ``make_step``, the config-5 step by
+    default) on a small slice of the batch, from copies of the same model
+    and optimizer on the card and on the CPU, dropout off: loss and
+    per-leaf gradients, but for the leaves in ``skip`` (gradient 0 in
+    exact arithmetic: both devices read rounding noise there). With
+    ``replay_pools`` the CPU step takes the card step's index-pool
+    positions (``replayed_index_pools``)."""
     from esn_tpu_torch.nn import Dropout
-    h, w = ENET_SLICE_HW
-    runs = {}
+    make_step = make_step or config5_step
+    h, w = slice_hw
+    runs, pools = {}, []
     for dev in ("cuda", "cpu"):
         m = copy.deepcopy(model).to(dev)
         for sub in m.modules():       # the two devices draw other masks
@@ -1207,52 +1293,61 @@ def compare_step_with_cpu(torch, model, opt, batch, cw):
                 sub.rate = 0.0
         o = type(opt)(m.parameters())
         o.load_state_dict(opt.state_dict())
-        step = config5_step(torch, m, o, cw, torch.float32)
-        loss = float(step({"image": batch["image"][:2, :, :h, :w].to(dev),
-                           "label": batch["label"][:2, :h, :w].to(dev)})
-                     ["loss"])
+        step = make_step(torch, m, o, cw, torch.float32)
+        pooled = (contextlib.nullcontext() if not replay_pools
+                  else recorded_index_pools(pools) if dev == "cuda"
+                  else replayed_index_pools(pools))
+        with pooled:
+            loss = float(step({"image": batch["image"][:2, :, :h, :w].to(dev),
+                               "label": batch["label"][:2, :h, :w].to(dev)})
+                         ["loss"])
         runs[dev] = (loss, {n: p.grad.detach().cpu()
                             for n, p in m.named_parameters()})
         del m, o, step
     (loss, grads), (loss0, grads0) = runs["cuda"], runs["cpu"]
     diff = {n: float(torch.linalg.norm(grads[n] - g0))
-            for n, g0 in grads0.items()}
-    norm = {n: float(torch.linalg.norm(g0)) for n, g0 in grads0.items()}
-    excess = {n: diff[n] - ENET_GRAD_REL * norm[n] - TRAIN_GRAD_ABS
+            for n, g0 in grads0.items() if n not in skip}
+    norm = {n: float(torch.linalg.norm(grads0[n])) for n in diff}
+    excess = {n: diff[n] - grad_rel * norm[n] - TRAIN_GRAD_ABS
               for n in diff}
     worst = max(excess, key=excess.get)
     rel = {n: diff[n] / norm[n] for n in diff if norm[n] > 1e3 * TRAIN_GRAD_ABS}
     worst_rel = max(rel, key=rel.get)
     row = {"dtype": "float32", "slice": [2, 3, h, w], "loss": loss,
+           "zero_gradient_leaves_left_out": len(skip),
+           "cpu_took_the_card_pool_positions": replay_pools,
            "cpu_loss": loss0, "loss_rel_diff": abs(loss - loss0) / abs(loss0),
            "loss_rel_max": TRAIN_LOSS_REL, "grad_rel_l2_max": rel[worst_rel],
            "grad_rel_l2_median": sorted(rel.values())[len(rel) // 2],
            "grad_rel_l2_worst_leaf": worst_rel,
-           "grad_rel_bound": ENET_GRAD_REL, "grad_abs_bound": TRAIN_GRAD_ABS,
+           "grad_rel_bound": grad_rel, "grad_abs_bound": TRAIN_GRAD_ABS,
            "worst_leaf_by_bound": worst, "worst_leaf_diff": diff[worst],
            "worst_leaf_norm": norm[worst]}
-    print("enet train step, the card vs the CPU", json.dumps(row))
+    print(f"{name} train step, the card vs the CPU", json.dumps(row))
     check(row["loss_rel_diff"] <= TRAIN_LOSS_REL and excess[worst] <= 0,
-          f"enet train step on the card disagrees with the CPU: {row}")
+          f"{name} train step on the card disagrees with the CPU: {row}")
     return row
 
 
-def config5_train(torch, K, BatchNorm, name, model, step, batch):
-    """Five config-5 steps on one batch with the launch counts from zero:
-    no kernel launches, a falling loss, BN running stats that move, finite
-    gradients on every leaf."""
+def steps_check(torch, K, BatchNorm, name, model, step, batch,
+                loss_name="CE + OHEM"):
+    """Five steps on one batch with the launch counts from zero, of a
+    step that launches no kernel (the config-5 loss, or any loss of a
+    conv-tail model): no kernel launches, a falling loss, BN running stats
+    that move, finite gradients on every leaf."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     stats0 = [m.running_mean.clone() for m in bns]
     K.reset_launches()
     losses = [float(step(batch)["loss"]) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    print(f"{name} CE + OHEM train launches", json.dumps(launches),
+    print(f"{name} {loss_name} train launches", json.dumps(launches),
           "(resize_ce 0: OHEM takes the step off the fused resize-CE "
-          "route)" if name == "fastscnn" else "(no kernel lies on its path)")
-    print(f"{name} CE + OHEM train losses", json.dumps(losses))
+          "route)" if model.LOGITS_TAIL == "resize"
+          else "(no kernel lies on its path)")
+    print(f"{name} {loss_name} train losses", json.dumps(losses))
     check(not any(launches.values()),
-          f"{name}: a CE + OHEM step launched {launches}")
+          f"{name}: a {loss_name} step launched {launches}")
     check(all(math.isfinite(v) for v in losses), f"{name} losses {losses}")
     check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
     moved = sum(not torch.equal(m.running_mean, m0)
@@ -1275,7 +1370,7 @@ def enet_train_phase(torch, F, K, BatchNorm):
     compared = compare_step_with_cpu(torch, model, opt, batch, cw)
     torch.backends.cudnn.allow_tf32 = True    # the library default again
     step = config5_step(torch, model, opt, cw, torch.bfloat16)
-    result = config5_train(torch, K, BatchNorm, "enet", model, step, batch)
+    result = steps_check(torch, K, BatchNorm, "enet", model, step, batch)
     torch.cuda.reset_peak_memory_stats()
     sec = timed_steps(torch, step, batch, iters=5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1360,28 +1455,209 @@ def enet_eval_phase(torch, K, build_model, model, images):
     return row
 
 
-def fastscnn_config5_phase(torch, F, K, BatchNorm):
-    """Fast-SCNN-19 with the config-5 loss at bf16 b8 3x1024x2048,
-    ``fwd_method=None``: five steps, then its time and peak memory in
-    turns with the weighted-CE step through the fused resize-CE kernel
-    (the price of leaving the fused tail)."""
-    model, opt, batch, cw = train_setup(torch, F)
+def config5_ab_phase(torch, F, K, BatchNorm, arch="fastscnn", iters=5):
+    """``arch`` (a resize-tail model: Fast-SCNN-19 or ContextNet-19) with
+    the config-5 loss at bf16 b8 3x1024x2048, ``fwd_method=None``: five
+    steps, then its time and peak memory in turns with the weighted-CE
+    step through the fused resize-CE kernel (the same model and step with
+    and without K3: the price of leaving the fused tail)."""
+    model, opt, batch, cw = train_setup(torch, F, arch)
     step = config5_step(torch, model, opt, cw, torch.bfloat16)
-    result = config5_train(torch, K, BatchNorm, "fastscnn", model, step, batch)
+    result = steps_check(torch, K, BatchNorm, arch, model, step, batch)
     fused = train_step(torch, model, opt, cw, torch.bfloat16)
     times, peak = {"ce": [], "ce_ohem": []}, {}
     for which in ("ce", "ce_ohem", "ce_ohem", "ce"):
         torch.cuda.reset_peak_memory_stats()
         times[which].append(timed_steps(
-            torch, fused if which == "ce" else step, batch, iters=5))
+            torch, fused if which == "ce" else step, batch, iters=iters))
         peak[which] = max(peak.get(which, 0.0),
                           torch.cuda.max_memory_allocated() / 1e9)
     ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
-    print(f"fastscnn train bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: CE + "
+    print(f"{arch} train bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: CE + "
           f"OHEM on full-resolution logits {ms['ce_ohem']:.3f} ms/step, peak "
           f"{peak['ce_ohem']:.2f} GB; weighted CE through the fused resize-CE "
           f"kernel {ms['ce']:.3f} ms/step, peak {peak['ce']:.2f} GB")
     result.update(ms_per_step=ms, peak_gb=peak, batch=BATCH)
+    return result
+
+
+@contextlib.contextmanager
+def replayed_index_pools(store):
+    """Make every ``max_pool2d_with_indices_2x2`` call take the next
+    indices of ``store`` (recorded on the card by
+    ``recorded_index_pools``) in place of its own: the values at those
+    positions (a gather, whose gradient reaches those positions, as the
+    pool's does), so that a CPU run follows the card's pool positions
+    where the two would break a near-tie in a window otherwise."""
+    from esn_tpu_torch.ops import pooling as P
+    real = P.max_pool2d_with_indices_2x2
+
+    def replaying(x):
+        idx = store.pop(0).to(x.device)
+        plane = x[:, :, :2 * idx.shape[2], :2 * idx.shape[3]].flatten(2)
+        return plane.gather(2, idx.flatten(2)).view_as(idx), idx
+    P.max_pool2d_with_indices_2x2 = replaying
+    try:
+        yield
+    finally:
+        P.max_pool2d_with_indices_2x2 = real
+
+
+@contextlib.contextmanager
+def recorded_index_pools(store):
+    """Append the indices of every ``max_pool2d_with_indices_2x2`` call
+    (the models look it up in ``esn_tpu_torch.ops.pooling`` at call time)
+    to ``store``, on the CPU."""
+    from esn_tpu_torch.ops import pooling as P
+    real = P.max_pool2d_with_indices_2x2
+
+    def recording(x):
+        values, idx = real(x)
+        store.append(idx.cpu())
+        return values, idx
+    P.max_pool2d_with_indices_2x2 = recording
+    try:
+        yield
+    finally:
+        P.max_pool2d_with_indices_2x2 = real
+
+
+def segnet_field_radii():
+    """SegNet's decoder receptive radius (full-resolution pixels) of a
+    value that the unpool of pool level i puts one place aside: one cell
+    of 2^i pixels, then the n_i 3x3 convs at that level, those of every
+    finer level and the head conv."""
+    from esn_tpu_torch.models.segnet import VGG_CFG
+    n = [k for _, k in VGG_CFG]
+    return [2 ** i * (1 + n[i]) + sum(2 ** k * n[k] for k in range(i)) + 1
+            for i in range(len(n))]
+
+
+def zoo_predict_vs_cpu(torch, F, model, x, arch):
+    """The f32 logits and class map of ``x`` on the card against the CPU
+    (TF32 off): mismatches outside the receptive fields of the pool
+    windows whose remembered position differs between the devices must
+    be near-ties and rare, and the logits there close."""
+    from esn_tpu_torch.ops.classify import argmax_lastdim
+    from esn_tpu_torch.train.step import make_predict_step
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = copy.deepcopy(model).to("cpu")
+    indices = {"cuda": [], "cpu": []}
+    with torch.inference_mode():
+        with recorded_index_pools(indices["cuda"]):
+            logits = model(x).cpu()
+        got = make_predict_step(model)(x).cpu()
+        t0 = time.perf_counter()
+        with recorded_index_pools(indices["cpu"]):
+            logits0 = cpu_model(x.cpu())
+        cpu_s = time.perf_counter() - t0
+        want = argmax_lastdim(logits0.permute(0, 2, 3, 1))
+    torch.backends.cudnn.allow_tf32 = True    # the library default again
+    n, _, h, w = logits.shape
+    field = torch.zeros((n, h, w), dtype=torch.bool)
+    flips = []
+    radii = segnet_field_radii() if indices["cpu"] else []
+    for i_card, i_cpu, radius in zip(indices["cuda"], indices["cpu"], radii):
+        differ = (i_card != i_cpu).any(1, keepdim=True).float()
+        flips.append(int((i_card != i_cpu).sum()))
+        cell = h // differ.shape[2]
+        r = -(-radius // cell) + 1
+        m = F.max_pool2d(differ, 2 * r + 1, 1, r)
+        field |= F.interpolate(m, scale_factor=cell)[:, 0] > 0
+    windows = sum(i.numel() for i in indices["cpu"])
+    std = float(logits0.std())
+    tol = ZOO_LOGIT_DIFF_MAX[arch] * std
+    diff = (logits - logits0).abs().amax(1)
+    mismatch = got != want
+    a = logits0.gather(1, got.long()[:, None]).squeeze(1)
+    b = logits0.gather(1, want.long()[:, None]).squeeze(1)
+    outside = ~field
+    row = {"dtype": "float32", "batch": n, "hw": [h, w],
+           "mismatch_rate": float(mismatch.float().mean()),
+           "mismatch_rate_elsewhere": float(
+               (mismatch & outside).sum()) / max(int(outside.sum()), 1),
+           "mismatch_max": ZOO_MISMATCH_MAX,
+           "pool_indices_differ": flips, "pool_windows": windows,
+           "field_share": float(field.float().mean()),
+           "logit_std": std, "logit_diff_tol": tol,
+           "logit_max_abs_diff": float(diff.max()),
+           "logit_max_abs_diff_elsewhere": float(diff[outside].max()),
+           "near_ties_only_elsewhere": bool(
+               ((a - b).abs() <= 2 * tol)[mismatch & outside].all()),
+           "cpu_seconds": cpu_s}
+    print(f"{arch} predict, the card vs the CPU", json.dumps(row))
+    check(row["mismatch_rate_elsewhere"] <= ZOO_MISMATCH_MAX
+          and row["field_share"] <= 0.5
+          and row["logit_max_abs_diff_elsewhere"] <= tol
+          and row["near_ties_only_elsewhere"],
+          f"{arch} predict on the card disagrees with the CPU: {row}")
+    return row
+
+
+def zoo_conv_phase(torch, F, K, BatchNorm, build_model, make_predict_step,
+                   arch):
+    """``arch`` (ERFNet, SegNet or LinkNet; ZOO_CONV gives its classes and
+    sizes) at full width and depth, b8 bf16, through ``build_model``,
+    ``make_predict_step`` and ``make_train_step``. No kernel lies on its
+    path, so the card is held against the CPU, as ENet is: predict (every
+    launch count 0, the f32 predict of a 2-image slice against the CPU,
+    img/s), one f32 train step of a slice against the CPU (loss, per-leaf
+    gradients), five steps with class-weighted CE on the full logits (a
+    falling loss, moving BN statistics, finite gradients on every leaf),
+    ms/step and peak memory."""
+    classes, hw, slice_hw = ZOO_CONV[arch]
+    model = seeded_model(torch, F, build_model, BatchNorm, seed=0, arch=arch,
+                         classes=classes)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = smooth_images(torch, F, gen, BATCH, hw)
+    predict = make_predict_step(model, compute_dtype=torch.bfloat16)
+    predict(images)                                   # warm-up
+    torch.cuda.synchronize()
+    K.reset_launches()
+    pred = predict(images)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"{arch} predict launches", json.dumps(launches),
+          "(no kernel lies on its path)")
+    check(not any(launches.values()), f"{arch} predict launched {launches}")
+    check(tuple(pred.shape) == (BATCH, *hw) and pred.dtype == torch.int32,
+          f"{arch} predict output {tuple(pred.shape)} {pred.dtype}")
+    lo, hi = int(pred.min()), int(pred.max())
+    check(0 <= lo and hi < classes, f"{arch} predict classes in [{lo}, {hi}]")
+    compared = zoo_predict_vs_cpu(
+        torch, F, model, images[:2].contiguous(
+            memory_format=torch.channels_last), arch)
+    torch.cuda.reset_peak_memory_stats()
+    sec = timed_predict(torch, predict, images, iters=5)
+    predict_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{arch} predict bf16 b{BATCH} {hw[1]}x{hw[0]}: {BATCH / sec:.2f} "
+          f"img/s ({1e3 * sec:.3f} ms/batch); peak {predict_peak:.2f} GB")
+    result = {"predict": {"launches": launches, "compared": compared,
+                          "img_per_s": BATCH / sec, "ms_per_batch": 1e3 * sec,
+                          "peak_gb": predict_peak}}
+    del model, predict, images, pred
+    torch.cuda.empty_cache()
+
+    model, opt, batch, cw = train_setup(torch, F, arch, hw, classes)
+    torch.backends.cudnn.allow_tf32 = False
+    _, zero = zero_gradient_leaves(torch, F, arch, classes)
+    compared = compare_step_with_cpu(torch, model, opt, batch, cw, name=arch,
+                                     make_step=train_step, slice_hw=slice_hw,
+                                     grad_rel=ZOO_GRAD_REL[arch], skip=zero,
+                                     replay_pools=arch == "segnet")
+    torch.backends.cudnn.allow_tf32 = True    # the library default again
+    step = train_step(torch, model, opt, cw, torch.bfloat16)
+    train = steps_check(torch, K, BatchNorm, arch, model, step, batch,
+                        loss_name="CE")
+    torch.cuda.reset_peak_memory_stats()
+    sec = timed_steps(torch, step, batch, iters=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{arch} train (CE) bf16 b{BATCH} {hw[1]}x{hw[0]}: "
+          f"{BATCH / sec:.2f} img/s ({1e3 * sec:.3f} ms/step); peak "
+          f"{peak_gb:.2f} GB")
+    train.update(compared=compared, ms_per_step=1e3 * sec,
+                 img_per_s=BATCH / sec, peak_gb=peak_gb)
+    result.update(train=train, batch=BATCH, hw=list(hw), classes=classes)
     return result
 
 
@@ -1446,19 +1722,23 @@ def _epoch2_gaps(one, a, b, skip=frozenset(), order=()):
         "exp_avg": _rel(cat(moments[1]), cat(moments[0]))}
 
 
-def zero_gradient_leaves(torch, F):
-    """(Fast-SCNN-19's parameter names in the optimizer's order, those
-    whose gradient is zero in exact arithmetic): one f64 backward of CE
-    on the CPU, 2x3x64x128, train mode, dropout off; a gradient under
-    ZERO_GRAD_REL of the largest."""
+def zero_gradient_leaves(torch, F, arch="fastscnn", classes=CLASSES):
+    """(``arch``'s parameter names in the optimizer's order, those whose
+    gradient is zero in exact arithmetic, such as a conv bias that a
+    train-mode BN follows): one f64 backward of CE on the CPU, 2x3x64x128,
+    train mode, dropout off; a gradient under ZERO_GRAD_REL of the
+    largest."""
     from esn_tpu_torch.models import build_model
-    model = build_model("fastscnn", CLASSES, device="cpu",
+    from esn_tpu_torch.nn import Dropout
+    model = build_model(arch, classes, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     model.double().train()
-    model.head.drop.rate = 0.0
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
     gen = torch.Generator().manual_seed(0)
     x = torch.randn((2, 3, 64, 128), generator=gen, dtype=torch.float64)
-    lab = torch.randint(0, CLASSES, (2, 64, 128), generator=gen)
+    lab = torch.randint(0, classes, (2, 64, 128), generator=gen)
     F.cross_entropy(model(x), lab).backward()
     grads = {n: float(p.grad.abs().max())
              for n, p in model.named_parameters()}
@@ -1793,42 +2073,95 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ptxas.log").write_text(info.log)
 
-    dsconv_rows, argmax_rows = kernel_phase(torch, F, K)
-    ce_rows = resize_ce_phase(torch, K)
-    cg_rows = cgblock_phase(torch, K)
-    result = predict_phase(
-        torch, F, K, build_model, BatchNorm, make_predict_step, "fastscnn",
-        {"dsconv": 4, "resize_argmax": 1, "resize_ce_fwd": 0,
-         "resize_ce_bwd": 0, "cgblock": 0})
-    trained = train_phase(torch, F, K, BatchNorm)
-    cgnet = predict_phase(
-        torch, F, K, build_model, BatchNorm, make_predict_step, "cgnet",
-        {"dsconv": 0, "resize_argmax": 1, "resize_ce_fwd": 0,
-         "resize_ce_bwd": 0, "cgblock": 22})
+    seconds = {}
+
+    def phase(name, fn, *args, **kw):
+        """``fn(*args, **kw)``, its seconds printed and kept; the cache
+        emptied after it."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    dsconv_rows, argmax_rows = phase("kernels", kernel_phase, torch, F, K)
+    ce_rows = phase("resize_ce", resize_ce_phase, torch, K)
+    cg_rows = phase("cgblock", cgblock_phase, torch, K)
+    none = {"dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
+            "resize_ce_bwd": 0, "cgblock": 0}
+    result = phase("fastscnn_predict", predict_phase, torch, F, K,
+                   build_model, BatchNorm, make_predict_step, "fastscnn",
+                   {**none, "dsconv": 4, "resize_argmax": 1})
+    trained = phase("fastscnn_train", train_phase, torch, F, K, BatchNorm)
+    cgnet = phase("cgnet_predict", predict_phase, torch, F, K, build_model,
+                  BatchNorm, make_predict_step, "cgnet",
+                  {**none, "resize_argmax": 1, "cgblock": 22})
 
     interleaved = {
-        "fastscnn": interleaved_phase(
-            torch, F, K, build_model, make_predict_step, "fastscnn",
-            result["launches"]),
-        "cgnet": interleaved_phase(
-            torch, F, K, build_model, make_predict_step, "cgnet",
-            cgnet["launches"])}
+        arch: phase(f"{arch}_predict_after_train", interleaved_phase, torch,
+                    F, K, build_model, make_predict_step, arch, launches)
+        for arch, launches in (("fastscnn", result["launches"]),
+                               ("cgnet", cgnet["launches"]))}
 
-    pool_rows = pool_phase(torch)
-    enet_model, enet_images, enet_predict = enet_predict_phase(
-        torch, F, K, build_model, BatchNorm, make_predict_step)
-    enet_eval = enet_eval_phase(torch, K, build_model, enet_model,
-                                enet_images)
+    pool_rows = phase("pool_unpool", pool_phase, torch)
+    enet_model, enet_images, enet_predict = phase(
+        "enet_predict", enet_predict_phase, torch, F, K, build_model,
+        BatchNorm, make_predict_step)
+    enet_eval = phase("enet_eval", enet_eval_phase, torch, K, build_model,
+                      enet_model, enet_images)
     del enet_model, enet_images
-    torch.cuda.empty_cache()
-    enet_train = enet_train_phase(torch, F, K, BatchNorm)
-    torch.cuda.empty_cache()
-    fastscnn_config5 = fastscnn_config5_phase(torch, F, K, BatchNorm)
-    torch.cuda.empty_cache()
-    cli = cli_phase(torch, K)
+    enet_train = phase("enet_train", enet_train_phase, torch, F, K,
+                       BatchNorm)
+    fastscnn_config5 = phase("fastscnn_config5", config5_ab_phase, torch, F,
+                             K, BatchNorm, "fastscnn")
+
+    # ContextNet-19, config 5: K2 x5 and K1 a predict, K3 a train step
+    contextnet = {"predict": phase(
+        "contextnet_predict", predict_phase, torch, F, K, build_model,
+        BatchNorm, make_predict_step, "contextnet",
+        {**none, "dsconv": 5, "resize_argmax": 1})}
+    contextnet["train"] = phase("contextnet_train", train_phase, torch, F, K,
+                                BatchNorm, "contextnet")
+    contextnet["config5"] = phase("contextnet_config5", config5_ab_phase,
+                                  torch, F, K, BatchNorm, "contextnet")
+    interleaved["contextnet"] = phase(
+        "contextnet_predict_after_train", interleaved_phase, torch, F, K,
+        build_model, make_predict_step, "contextnet",
+        contextnet["predict"]["launches"])
+    # EDANet-19, config 3 (512x1024): K1 a predict, K3 a train step
+    edanet = {"predict": phase(
+        "edanet_predict", predict_phase, torch, F, K, build_model, BatchNorm,
+        make_predict_step, "edanet", {**none, "resize_argmax": 1},
+        hw=CONFIG3_HW)}
+    edanet["train"] = phase("edanet_train", train_phase, torch, F, K,
+                            BatchNorm, "edanet", hw=CONFIG3_HW)
+    # ERFNet (config 3), SegNet and LinkNet (config 2): no kernel
+    zoo = {arch: phase(arch, zoo_conv_phase, torch, F, K, BatchNorm,
+                       build_model, make_predict_step, arch)
+           for arch in ZOO_CONV}
+    cli = phase("cli", cli_phase, torch, K)
+
+    launches = {
+        "fastscnn": {"predict": result["launches"],
+                     "train_5_steps": trained["launches"],
+                     "config5_5_steps": fastscnn_config5["launches"]},
+        "cgnet": {"predict": cgnet["launches"]},
+        "enet": {"predict": enet_predict["launches"],
+                 "config5_5_steps": enet_train["launches"]},
+        "contextnet": {"predict": contextnet["predict"]["launches"],
+                       "train_5_steps": contextnet["train"]["launches"],
+                       "config5_5_steps": contextnet["config5"]["launches"]},
+        "edanet": {"predict": edanet["predict"]["launches"],
+                   "train_5_steps": edanet["train"]["launches"]},
+        **{arch: {"predict": r["predict"]["launches"],
+                  "train_5_steps": r["train"]["launches"]}
+           for arch, r in zoo.items()}}
+    print("launches by model", json.dumps(launches))
 
     ds_main = [r for r in dsconv_rows
-               if r["dtype"] == "bfloat16" and r["layer"] != "odd"]
+               if r["dtype"] == "bfloat16" and r.get("model") == "fastscnn"]
     tail = next(r for r in argmax_rows
                 if r["dtype"] == "bfloat16" and r["layer"] == "predict tail")
     cg_main = [r for r in cg_rows
@@ -1889,7 +2222,8 @@ def main() -> int:
          "predict_after_train": interleaved, "pool_unpool": pool_rows,
          "enet_predict": enet_predict, "enet_eval": enet_eval,
          "enet_train": enet_train, "fastscnn_config5_train": fastscnn_config5,
-         "cli": cli,
+         "contextnet": contextnet, "edanet": edanet, **zoo, "cli": cli,
+         "launches": launches, "phase_seconds": seconds,
          "kernels": kernels, "device": device}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

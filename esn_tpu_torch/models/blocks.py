@@ -1,4 +1,4 @@
-"""Shared blocks (counterpart of the Fast-SCNN and CGNet part of
+"""Shared blocks (counterpart of the plain paths of
 ``esn_tpu/models/blocks.py``). NCHW; convs feeding BN carry no bias.
 Submodule names equal the reference's scope names."""
 from __future__ import annotations
@@ -9,9 +9,11 @@ import torch
 from torch import nn
 
 from .. import nn as enn
+from ..nn.layers import IntOr2, _pair
 from ..ops import kernels as K
 from ..ops import pooling as P
 from ..ops import resize as R
+
 
 def _act_module(act: Optional[str], ch: int) -> Optional[nn.Module]:
     if act is None or act == "none":
@@ -28,33 +30,46 @@ def _act_module(act: Optional[str], ch: int) -> Optional[nn.Module]:
 
 
 class ConvBNAct(nn.Module):
-    """conv (no bias, "same" padding) -> BN (``bn_eps``) -> activation."""
+    """conv -> BN (``bn_eps``) -> activation. ``padding`` None is "same"
+    for stride 1, ``dilation * (k - 1) // 2`` per axis; the conv carries a
+    bias only without BN unless ``bias`` says otherwise; ``bn=False`` drops
+    the BN (``self.bn`` is None)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *,
-                 stride: int = 1, groups: int = 1, act: str = "prelu",
+    def __init__(self, in_ch: int, out_ch: int, kernel: IntOr2 = 3, *,
+                 stride: IntOr2 = 1, padding: Optional[IntOr2] = None,
+                 dilation: IntOr2 = 1, groups: int = 1, act: str = "prelu",
+                 bn: bool = True, bias: Optional[bool] = None,
                  bn_eps: float = 1e-5):
         super().__init__()
+        if padding is None:
+            (kh, kw), (dh, dw) = _pair(kernel), _pair(dilation)
+            ph, pw = dh * (kh - 1) // 2, dw * (kw - 1) // 2
+            padding = ph if ph == pw else (ph, pw)
         self.conv = enn.Conv(in_ch, out_ch, kernel, stride=stride,
-                             padding=(kernel - 1) // 2, groups=groups,
-                             bias=False)
-        self.bn = enn.BatchNorm(out_ch, eps=bn_eps)
+                             padding=padding, dilation=dilation,
+                             groups=groups,
+                             bias=(not bn) if bias is None else bias)
+        self.bn = enn.BatchNorm(out_ch, eps=bn_eps) if bn else None
         self.act = _act_module(act, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
         return self.act(x) if self.act is not None else x
 
 
 class BNAct(nn.Module):
-    """BN -> PReLU."""
+    """BN -> activation (PReLU by default)."""
 
-    def __init__(self, ch: int, *, bn_eps: float):
+    def __init__(self, ch: int, act: str = "prelu", *, bn_eps: float = 1e-5):
         super().__init__()
         self.bn = enn.BatchNorm(ch, eps=bn_eps)
-        self.act = enn.PReLU(ch)
+        self.act = _act_module(act, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.bn(x))
+        x = self.bn(x)
+        return self.act(x) if self.act is not None else x
 
 
 class DSConv(nn.Module):
@@ -171,3 +186,65 @@ class InputInjection(nn.Module):
         for _ in range(self.times):
             x = P.avg_pool2d(x, 3, 2, 1)
         return x
+
+
+class DownsamplerConcat(nn.Module):
+    """conv 3x3 s2 (bias) || 2x2 max pool -> concat -> BN + act (ERFNet's
+    DownsamplerBlock). When ``out_ch <= in_ch`` the conv makes all
+    ``out_ch`` channels and nothing is pooled."""
+
+    def __init__(self, in_ch: int, out_ch: int, act: str = "relu",
+                 bn_eps: float = 1e-3):
+        super().__init__()
+        self.concat_pool = out_ch > in_ch
+        conv_out = out_ch - in_ch if self.concat_pool else out_ch
+        self.conv = enn.Conv(in_ch, conv_out, 3, stride=2, padding=1,
+                             bias=True)
+        self.post = BNAct(out_ch, act, bn_eps=bn_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        if self.concat_pool:
+            y = torch.cat([y, P.max_pool2d(x, 2, 2)], dim=1)
+        return self.post(y)
+
+
+class NonBottleneck1d(nn.Module):
+    """ERFNet's factorised residual unit: (kx1 -> relu -> 1xk -> BN relu)
+    then the dilated pair (kx1 -> relu -> 1xk -> BN), spatial dropout,
+    residual add, relu. Biased convs, BN eps 1e-3."""
+
+    def __init__(self, ch: int, k: int = 3, *, dilation: int = 1,
+                 dropout: float = 0.0, bn_eps: float = 1e-3):
+        super().__init__()
+        pad, d = (k - 1) // 2, dilation
+        self.p1a = enn.Conv(ch, ch, (k, 1), padding=(pad, 0), bias=True)
+        self.p1b = enn.Conv(ch, ch, (1, k), padding=(0, pad), bias=True)
+        self.bn1 = enn.BatchNorm(ch, eps=bn_eps)
+        self.p2a = enn.Conv(ch, ch, (k, 1), padding=(pad * d, 0),
+                            dilation=(d, 1), bias=True)
+        self.p2b = enn.Conv(ch, ch, (1, k), padding=(0, pad * d),
+                            dilation=(1, d), bias=True)
+        self.bn2 = enn.BatchNorm(ch, eps=bn_eps)
+        self.drop = enn.SpatialDropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.p1b(enn.relu(self.p1a(x)))
+        y = enn.relu(self.bn1(y))
+        y = self.p2b(enn.relu(self.p2a(y)))
+        y = self.drop(self.bn2(y))
+        return enn.relu(x + y)
+
+
+class UpsamplerBlock(nn.Module):
+    """3x3 stride-2 transposed conv (bias, output padding 1) -> BN + act."""
+
+    def __init__(self, in_ch: int, out_ch: int, act: str = "relu",
+                 bn_eps: float = 1e-3):
+        super().__init__()
+        self.deconv = enn.ConvTranspose(in_ch, out_ch, 3, stride=2, padding=1,
+                                        output_padding=1, bias=True)
+        self.post = BNAct(out_ch, act, bn_eps=bn_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.post(self.deconv(x))

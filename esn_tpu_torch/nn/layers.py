@@ -23,6 +23,11 @@ def _pair(v: IntOr2) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
 
+def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
+    """f32 for f32 and narrower floats, f64 for f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _copy_(dst: torch.Tensor, src: torch.Tensor) -> None:
     with torch.no_grad():
         dst.copy_(src)
@@ -99,7 +104,8 @@ class BatchNorm(nn.Module):
     per-channel ``scale``/``offset``. Train normalises with the batch's
     biased variance (moments in f32, centred on the running mean) and moves
     the running stats by ``momentum`` toward the batch mean and the
-    unbiased variance.
+    unbiased variance. A module in f64 (``.double()``) keeps all of it in
+    f64, so an f64 run is free of f32 rounding.
     """
 
     def __init__(self, num_features: int, *, momentum: float = 0.1,
@@ -122,7 +128,7 @@ class BatchNorm(nn.Module):
         _copy_(self.running_var, init.ones(generator, (c,)))
 
     def _affine(self, mean: torch.Tensor, var: torch.Tensor):
-        scale = torch.rsqrt(var.float() + self.eps)
+        scale = torch.rsqrt(var.to(_at_least_f32(var.dtype)) + self.eps)
         if self.affine:
             scale = scale * self.weight
             return scale, self.bias - mean * scale
@@ -135,7 +141,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             rm = self.running_mean
-            xf = x.float() - rm[:, None, None]
+            xf = x.to(_at_least_f32(x.dtype)) - rm[:, None, None]
             d = xf.mean(dim=(0, 2, 3))
             m2 = xf.square().mean(dim=(0, 2, 3))
             mean = rm + d

@@ -2,9 +2,10 @@
 
     python3 -m esn_tpu_torch.tools.profile_predict [MODEL]
 
-MODEL is a registered model name (default ``fastscnn``; ``cgnet``,
-``enet``). Run from the repo root. Uses ``chip_smoke.py``'s seeded model
-and images (bf16, batch 8, 3x1024x2048) and profiles 5 predicts with the
+MODEL is a registered model name (default ``fastscnn``). Run from the
+repo root. Uses ``chip_smoke.py``'s seeded model and images (bf16, batch
+8, 3x1024x2048, or the model's size in ``chip_smoke.MODEL_INPUT``) and
+profiles 5 predicts with the
 kernels, then 5 with their plain versions (skipped where predict
 launches no kernel: the two would be the same), each after one untraced
 warm-up predict. For each it prints the host-clock ms per batch (synchronised,
@@ -73,10 +74,12 @@ def main(argv: list[str]) -> int:
                          text=True, check=True, timeout=60).stdout.strip())
     print("torch", torch.__version__, "cuda", torch.version.cuda)
     print("model", arch)
+    classes, hw = S.MODEL_INPUT.get(arch, (S.CLASSES, S.IMAGE_HW))
+    print("input", S.BATCH, "x 3 x", hw, "classes", classes)
     model = S.seeded_model(torch, F, build_model, BatchNorm, seed=0,
-                           arch=arch)
+                           arch=arch, classes=classes)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    images = S.smooth_images(torch, F, gen, S.BATCH, S.IMAGE_HW)
+    images = S.smooth_images(torch, F, gen, S.BATCH, hw)
     predict = make_predict_step(model, compute_dtype=torch.bfloat16)
     K.reset_launches()
     for label in ("kernels", "plain"):

@@ -2,12 +2,14 @@
 
     python3 -m esn_tpu_torch.tools.profile_train [MODEL] [--loss LOSS]
 
-MODEL is a registered model name (default ``fastscnn``; ``enet``). LOSS is
-``ce`` (weighted CE through ``logits_lowres`` and the fused resize-CE
-kernel; resize-tail models only, their default) or ``ce_ohem`` (the
+MODEL is a registered model name (default ``fastscnn``). LOSS is
+``ce`` (weighted CE: through ``logits_lowres`` and the fused resize-CE
+kernel on a resize-tail model, its default; on the full logits on a
+conv-tail model) or ``ce_ohem`` (the
 config-5 loss, weighted CE + OHEM on the model's own full-resolution
 logits; the default of a conv-tail model). Run from the repo root. Uses
-``chip_smoke.py``'s training setup (bf16, batch 8, 3x1024x2048, seeded
+``chip_smoke.py``'s training setup (bf16, batch 8, 3x1024x2048 or the
+model's size in ``chip_smoke.MODEL_INPUT``, seeded
 smooth images and learnable labels, class weights from their histogram,
 adam + poly) and profiles 5 train steps with the kernel, then 5 with
 the plain versions (skipped where the step launches no kernel: the two
@@ -52,7 +54,9 @@ def main(argv: list[str]) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     print("torch", torch.__version__, "cuda", torch.version.cuda)
-    model, opt, batch, cw = S.train_setup(torch, F, args.model)
+    classes, hw = S.MODEL_INPUT.get(args.model, (S.CLASSES, S.IMAGE_HW))
+    print("input", S.BATCH, "x 3 x", hw, "classes", classes)
+    model, opt, batch, cw = S.train_setup(torch, F, args.model, hw, classes)
     loss = args.loss or ("ce" if model.LOGITS_TAIL == "resize" else "ce_ohem")
     print("model", args.model, "loss", loss)
     make_step = S.train_step if loss == "ce" else S.config5_step

@@ -153,6 +153,49 @@ def test_cli_train_test_predict(tmp_path, monkeypatch, capsys):
             np.testing.assert_array_equal(np.asarray(im), maps[i])
 
 
+@pytest.mark.parametrize("model, dataset, source, crop", [
+    ("ContextNet", "cityscapes", "128,256", "128,256"),
+    ("SegNet", "camvid", "96,128", "64,96"),
+])
+def test_cli_train_predict_new_models(tmp_path, monkeypatch, model, dataset,
+                                      source, crop):
+    """A tiny CPU run of ``cli.train`` (one epoch of one step, with
+    validation) and ``cli.predict`` for ContextNet (a resize-tail model:
+    its CE trains through ``logits_lowres``) and SegNet (CamVid's 11
+    classes, sides multiples of 32); the grey PNGs are the predict step's
+    maps of the checkpoint's model."""
+    monkeypatch.chdir(tmp_path)
+    common = ["--model", model, "--dataset", dataset, "--synthetic_hw",
+              source, "--data_root", str(tmp_path / "none"), "--cuda",
+              "False"]
+    assert train_cli.main(common + [
+        "--input_size", crop, "--max_epochs", "1", "--batch_size", "2",
+        "--val_epochs", "1", "--synthetic_len", "2", "--num_workers", "0",
+        "--savedir", str(tmp_path / "ck")]) == 0
+    ck = tmp_path / "ck" / dataset / f"{model}bs2gpu1_train" / "model_1.ckpt"
+    assert ck.is_file()
+    assert predict_cli.main(common + [
+        "--checkpoint", str(ck), "--synthetic_len", "2", "--batch_size", "2",
+        "--num_workers", "0", "--save_seg_dir", str(tmp_path / "preds")]) == 0
+    from esn_tpu_torch.data import build_dataset_test
+    from esn_tpu_torch.data.palettes import trainid_to_labelid
+    _, loader, transform = build_dataset_test(
+        dataset, none_gt=True, root=str(tmp_path / "none"), batch_size=2,
+        synthetic_len=2, synthetic_hw=tuple(int(v) for v in source.split(",")))
+    net = build_model(model, 19 if dataset == "cityscapes" else 11,
+                      device="cpu")
+    ckpt.load_variables(str(ck), net)
+    batch = next(iter(loader))
+    maps = make_predict_step(net)(transform(torch.from_numpy(
+        batch["image"]))).numpy()
+    for i, name in enumerate(batch["name"]):
+        with Image.open(tmp_path / "preds" / name) as im:
+            grey = np.asarray(im)
+        want = trainid_to_labelid(maps[i]) if dataset == "cityscapes" \
+            else maps[i]
+        np.testing.assert_array_equal(grey, want)
+
+
 @pytest.mark.parametrize("name", ["train", "test", "predict"])
 def test_cli_module_entry_points(name, monkeypatch, capsys):
     """``python -m esn_tpu_torch.cli.<name> --help`` runs the module's

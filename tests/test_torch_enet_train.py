@@ -48,8 +48,8 @@ LR, TOTAL = 4.5e-4, 100
 # math, where the port's own math in f64 lies within 6e-6 of it. So:
 # - loss: |d| <= 1e-5 relative, against the reference's f32 step and the
 #   f64 oracle;
-# - gradients, the strict check: the port's model in f64 (BN moments and
-#   the loss stay f32) against the oracle, per-leaf rel-L2 <= 1e-4, plus
+# - gradients, the strict check: the port's model in f64 (the loss stays
+#   f32) against the oracle, per-leaf rel-L2 <= 1e-4, plus
 #   an absolute 1e-6 for leaves whose true gradient is ~0;
 # - gradients of the f32 step against the oracle: per-leaf rel-L2 <=
 #   GRAD_F32 (Fast-SCNN 1e-2, as tests/test_torch_train.py; ENet 8e-2,

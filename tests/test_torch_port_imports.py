@@ -1,5 +1,5 @@
 """The port stands alone: importing all of ``esn_tpu_torch`` (its CLIs
-too) and running a Fast-SCNN, a CGNet and an ENet predict on the CPU loads
+too) and running a predict of each of its models on the CPU loads
 none of ``jax``, ``esn_tpu``, ``flax``, ``msgpack``, ``cv2``, ``PIL`` or
 ``matplotlib`` (the card's machine has none of the last five).
 
@@ -26,7 +26,8 @@ from esn_tpu_torch.ops import kernels
 from esn_tpu_torch.train.step import make_predict_step
 images = torch.randn((1, 3, 64, 128), generator=torch.Generator().manual_seed(1))
 preds = {}
-for arch in ("fastscnn", "cgnet", "enet"):
+for arch in ("fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
+             "segnet", "linknet"):
     model = build_model(arch, 19, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     pred = make_predict_step(model)(images)
@@ -61,6 +62,9 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.utils.profiling", "esn_tpu_torch.utils.seed",
                  "esn_tpu_torch.convert", "esn_tpu_torch.models.fastscnn",
                  "esn_tpu_torch.models.cgnet", "esn_tpu_torch.models.enet",
+                 "esn_tpu_torch.models.contextnet",
+                 "esn_tpu_torch.models.edanet", "esn_tpu_torch.models.erfnet",
+                 "esn_tpu_torch.models.segnet", "esn_tpu_torch.models.linknet",
                  "esn_tpu_torch.train.metrics",
                  "esn_tpu_torch.train.evaluation",
                  "esn_tpu_torch.ops.kernels.cgblock",
@@ -71,9 +75,9 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.train.schedules",
                  "esn_tpu_torch.train.step", "esn_tpu_torch.utils.params"):
         assert name in out["modules"]
-    assert out["pred"] == {"fastscnn": [[1, 64, 128], "torch.int32"],
-                           "cgnet": [[1, 64, 128], "torch.int32"],
-                           "enet": [[1, 64, 128], "torch.int32"]}
+    assert out["pred"] == {arch: [[1, 64, 128], "torch.int32"] for arch in (
+        "fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
+        "segnet", "linknet")}
     # a CPU tensor runs the plain versions: no kernel launched
     assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
                                "resize_ce_fwd": 0, "resize_ce_bwd": 0,
