@@ -7,10 +7,11 @@
 
 On the CUDA device (bf16 by default) unless ``--cuda False`` (the CPU,
 f32 by default). ``--gpus`` is accepted and ignored: the port trains on
-one device. Options the port does not run yet (``--spatial`` > 1,
-``--remat``, ``--encoder_checkpoint``, ``--optim radam|ranger``,
-``--use_focal``, ``--use_lovaszsoftmax``) raise, naming their
-``ROADMAP.md`` item.
+one device. ``--encoder_checkpoint`` grafts a trained ESPNet-C's
+checkpoint (the port's or the JAX package's) into ESPNet's encoder
+before training. Options the port does not run yet (``--spatial`` > 1,
+``--remat``, ``--optim radam|ranger``, ``--use_focal``,
+``--use_lovaszsoftmax``) raise, naming their ``ROADMAP.md`` item.
 """
 import argparse
 import sys
@@ -72,7 +73,9 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true", help="not ported yet")
     p.add_argument("--spatial", type=int, default=1,
                    help="only 1: sharding image height is not ported yet")
-    p.add_argument("--encoder_checkpoint", default="", help="not ported yet")
+    p.add_argument("--encoder_checkpoint", default="",
+                   help="a trained ESPNet-C checkpoint (the port's or the "
+                        "JAX package's) to graft into ESPNet's encoder")
     p.add_argument("--cuda", type=str2bool, default=True,
                    help="boolean: True runs on the CUDA device (and raises "
                         "without one), False/0 on the CPU")

@@ -1,5 +1,5 @@
 """Model zoo of the port: Fast-SCNN, ContextNet, CGNet, ENet, ERFNet,
-EDANet, SegNet and LinkNet so far."""
-from . import (cgnet, contextnet, edanet, enet, erfnet, fastscnn,  # noqa: F401
-               linknet, segnet)  # (register the models)
+EDANet, SegNet, LinkNet, ESPNetv2, DABNet, ESPNet-C and ESPNet so far."""
+from . import (cgnet, contextnet, dabnet, edanet, enet, erfnet,  # noqa: F401
+               espnet, espnetv2, fastscnn, linknet, segnet)  # (register them)
 from .registry import available_models, build_model, register  # noqa: F401

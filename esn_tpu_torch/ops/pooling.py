@@ -1,7 +1,7 @@
 """Pools (counterpart of ``esn_tpu/ops/pooling.py``), NCHW.
 
-Average pools take their sums in f32 and cast the result back to the
-input dtype, as in the reference.
+Average pools take their sums in f32 (f64 for an f64 input) and cast the
+result back to the input dtype, as in the reference.
 
 The index-preserving 2x2 max pool and its unpool are
 ``F.max_pool2d(return_indices=True)`` and ``F.max_unpool2d``. The
@@ -25,23 +25,28 @@ import torch.nn.functional as F
 IntOr2 = Union[int, Tuple[int, int]]
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in f64 if it is f64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def avg_pool2d(x: torch.Tensor, window: IntOr2,
                stride: Optional[IntOr2] = None, padding: IntOr2 = 0,
                count_include_pad: bool = True) -> torch.Tensor:
     """Average pool with torch floor semantics."""
-    y = F.avg_pool2d(x.float(), window, stride if stride is not None else window,
+    y = F.avg_pool2d(_wide(x), window, stride if stride is not None else window,
                      padding, count_include_pad=count_include_pad)
     return y.to(x.dtype)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
-    return x.float().mean(dim=(2, 3), keepdim=keepdims).to(x.dtype)
+    return _wide(x).mean(dim=(2, 3), keepdim=keepdims).to(x.dtype)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntOr2) -> torch.Tensor:
     """torch-style adaptive average pool: bin i of n over a length L spans
     ``[floor(i*L/n), ceil((i+1)*L/n))``, the reference's bin edges."""
-    return F.adaptive_avg_pool2d(x.float(), output_size).to(x.dtype)
+    return F.adaptive_avg_pool2d(_wide(x), output_size).to(x.dtype)
 
 
 def max_pool2d(x: torch.Tensor, window: IntOr2,

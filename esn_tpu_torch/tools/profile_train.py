@@ -1,6 +1,6 @@
 """Device-time profile of a model's train step on one CUDA card.
 
-    python3 -m esn_tpu_torch.tools.profile_train [MODEL] [--loss LOSS]
+    python3 -m esn_tpu_torch.tools.profile_train [MODEL] [--loss LOSS] [--hw H,W]
 
 MODEL is a registered model name (default ``fastscnn``). LOSS is
 ``ce`` (weighted CE: through ``logits_lowres`` and the fused resize-CE
@@ -11,7 +11,8 @@ logits; the default of a conv-tail model). Run from the repo root. Uses
 ``chip_smoke.py``'s training setup (bf16, batch 8, 3x1024x2048 or the
 model's size in ``chip_smoke.MODEL_INPUT``, seeded
 smooth images and learnable labels, class weights from their histogram,
-adam + poly) and profiles 5 train steps with the kernel, then 5 with
+adam + poly; ``--hw`` sets another input size, e.g. CGNet's config-4
+768,1536) and profiles 5 train steps with the kernel, then 5 with
 the plain versions (skipped where the step launches no kernel: the two
 would be the same), each after one untraced warm-up step. For each it
 prints the host-clock ms per step with the profiler on and, from 5 more
@@ -39,6 +40,7 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("model", nargs="?", default="fastscnn")
     parser.add_argument("--loss", choices=["ce", "ce_ohem"], default=None)
+    parser.add_argument("--hw", default=None, help="H,W input size")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -55,6 +57,8 @@ def main(argv: list[str]) -> int:
                          text=True, check=True, timeout=60).stdout.strip())
     print("torch", torch.__version__, "cuda", torch.version.cuda)
     classes, hw = S.MODEL_INPUT.get(args.model, (S.CLASSES, S.IMAGE_HW))
+    if args.hw:
+        hw = tuple(int(v) for v in args.hw.split(","))
     print("input", S.BATCH, "x 3 x", hw, "classes", classes)
     model, opt, batch, cw = S.train_setup(torch, F, args.model, hw, classes)
     loss = args.loss or ("ce" if model.LOGITS_TAIL == "resize" else "ce_ohem")

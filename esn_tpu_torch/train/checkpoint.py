@@ -17,7 +17,9 @@ no ``flax``). Params and BN stats go through ``convert.to_state_dict``
 with the port's model; the optimizer's state (adam's moments and count,
 or SGD's momentum) goes into the ``torch.optim`` optimizer
 (``convert.load_optimizer_state``).
-``load_encoder`` (ESPNet's two-stage recipe) waits for ESPNet.
+
+:func:`load_encoder` is ESPNet's two-stage recipe: a trained ESPNet-C's
+checkpoint, of either package, grafted into ESPNet's ``enc``.
 """
 from __future__ import annotations
 
@@ -101,6 +103,39 @@ def load_variables(path: str, model: torch.nn.Module
     else:
         model.load_state_dict(payload["state"]["model"], strict=True)
     return model, dict(payload.get("meta", {}))
+
+
+def load_encoder(path: str, model: torch.nn.Module, subtree: str = "enc"
+                 ) -> Dict[str, Any]:
+    """Graft a trained sub-model's checkpoint (either package's) into
+    ``model``'s submodule ``subtree``: its parameters and BN statistics.
+
+    The donor's state must hold every leaf of the submodule, at its
+    shape; extra donor leaves (ESPNet-C's classifier ``head``) are
+    ignored. A missing leaf raises ``KeyError``, a shape mismatch
+    ``ValueError``, both naming the leaf. Returns the donor's meta.
+    """
+    target = model.get_submodule(subtree)
+    is_jax, payload = _read(path)
+    sd = payload["state"]
+    if is_jax:
+        donor = convert.to_state_dict({"params": _numpy_leaves(sd["params"]),
+                                       "stats": _numpy_leaves(sd["stats"])},
+                                      target)
+    else:
+        donor = sd["model"]
+    graft = {}
+    for key, leaf in target.state_dict().items():
+        if key not in donor:
+            raise KeyError(f"encoder checkpoint {path} has no {key} (for "
+                           f"{subtree}.{key})")
+        if tuple(donor[key].shape) != tuple(leaf.shape):
+            raise ValueError(f"{subtree}.{key}: donor shape "
+                             f"{tuple(donor[key].shape)} != target shape "
+                             f"{tuple(leaf.shape)}")
+        graft[key] = donor[key].to(leaf.dtype)
+    target.load_state_dict(graft, strict=True)
+    return dict(payload.get("meta", {}))
 
 
 def latest_checkpoint(savedir: str) -> Optional[str]:

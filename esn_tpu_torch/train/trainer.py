@@ -12,12 +12,16 @@ its augmentation from ``fold_in(seed, epoch, i)``; dropout masks come
 from the train step's generator, folded with the global step count. A
 resumed run therefore draws what the unbroken run drew.
 
+``encoder_checkpoint`` grafts a trained ESPNet-C's checkpoint (either
+package's) into the model's ``enc`` before training (ESPNet's two-stage
+recipe, ``checkpoint.load_encoder``).
+
 Not ported yet, and raising with the ``ROADMAP.md`` item that holds
-them: ``spatial > 1``, ``remat``, ``encoder_checkpoint``, the
-``radam``/``ranger`` optimizers, the ``focal``/``lovasz`` losses, and a
-data-parallel mesh (the port trains on one device; ``run_dir`` says
-``gpu1``). The reference's retry of a step that failed to compile on the
-TPU has no counterpart: the step is called directly.
+them: ``spatial > 1``, ``remat``, the ``radam``/``ranger`` optimizers,
+the ``focal``/``lovasz`` losses, and a data-parallel mesh (the port
+trains on one device; ``run_dir`` says ``gpu1``). The reference's retry
+of a step that failed to compile on the TPU has no counterpart: the step
+is called directly.
 """
 from __future__ import annotations
 
@@ -113,9 +117,6 @@ def check_ported(cfg: TrainConfig) -> None:
                           f"over devices)", "item 10: parallelism")
     if cfg.remat:
         raise _not_ported("remat", rest)
-    if cfg.encoder_checkpoint:
-        raise _not_ported("encoder_checkpoint (load_encoder, ESPNet's "
-                          "two-stage recipe)", "item 11: the rest of the zoo")
     if cfg.optim in ("radam", "ranger"):
         raise _not_ported(f"optim={cfg.optim!r}", rest)
     if cfg.loss in ("focal", "lovasz"):
@@ -162,6 +163,8 @@ class Trainer:
         self.model = build_model(
             cfg.model, self.spec.num_classes, device=self.device,
             generator=torch.Generator().manual_seed(cfg.seed))
+        if cfg.encoder_checkpoint:
+            ckpt.load_encoder(cfg.encoder_checkpoint, self.model)
         self.n_params = count_params(self.model)
 
         weights = torch.from_numpy(np.asarray(

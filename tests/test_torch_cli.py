@@ -80,8 +80,7 @@ def test_config_from_args():
 @pytest.mark.parametrize("flags,item", [
     (["--spatial", "2"], "item 10"), (["--remat"], "item 8"),
     (["--use_focal"], "item 8"), (["--use_lovaszsoftmax"], "item 8"),
-    (["--optim", "ranger"], "item 8"),
-    (["--encoder_checkpoint", "enc.ckpt"], "item 11")])
+    (["--optim", "ranger"], "item 8")])
 def test_unported_flags_raise_with_their_roadmap_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1, {item}"):
         train_cli.main(flags + ["--cuda", "False", "--savedir",
@@ -156,14 +155,16 @@ def test_cli_train_test_predict(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("model, dataset, source, crop", [
     ("ContextNet", "cityscapes", "128,256", "128,256"),
     ("SegNet", "camvid", "96,128", "64,96"),
+    ("ESPNetv2", "cityscapes", "64,128", "64,128"),
+    ("DABNet", "cityscapes", "64,128", "64,128"),
 ])
 def test_cli_train_predict_new_models(tmp_path, monkeypatch, model, dataset,
                                       source, crop):
     """A tiny CPU run of ``cli.train`` (one epoch of one step, with
-    validation) and ``cli.predict`` for ContextNet (a resize-tail model:
-    its CE trains through ``logits_lowres``) and SegNet (CamVid's 11
-    classes, sides multiples of 32); the grey PNGs are the predict step's
-    maps of the checkpoint's model."""
+    validation) and ``cli.predict`` for ContextNet, ESPNetv2 and DABNet
+    (resize-tail models: their CE trains through ``logits_lowres``) and
+    SegNet (CamVid's 11 classes, sides multiples of 32); the grey PNGs are
+    the predict step's maps of the checkpoint's model."""
     monkeypatch.chdir(tmp_path)
     common = ["--model", model, "--dataset", dataset, "--synthetic_hw",
               source, "--data_root", str(tmp_path / "none"), "--cuda",
@@ -194,6 +195,47 @@ def test_cli_train_predict_new_models(tmp_path, monkeypatch, model, dataset,
         want = trainid_to_labelid(maps[i]) if dataset == "cityscapes" \
             else maps[i]
         np.testing.assert_array_equal(grey, want)
+
+
+def test_cli_train_grafts_an_encoder(tmp_path, monkeypatch):
+    """``cli.train --model ESPNet --encoder_checkpoint`` with a trained
+    ESPNet-C's checkpoint written by the JAX package's ``save_checkpoint``:
+    one epoch at lr 0 (adam then leaves every parameter where it
+    started) saves a model whose encoder parameters are the donor's bit
+    for bit, and whose decoder is the port's seeded init."""
+    import jax
+
+    from esn_tpu.train import checkpoint as jax_ckpt
+    from esn_tpu.train import optimizers as jax_optimizers
+    from esn_tpu.train.state import TrainState as JaxTrainState
+    from esn_tpu_torch import convert
+
+    monkeypatch.chdir(tmp_path)
+    donor = build_model("espnet_c", 11, device="cpu",
+                        generator=torch.Generator().manual_seed(5))
+    variables = convert.to_variables(donor.state_dict(), donor)
+    path = jax_ckpt.save_checkpoint(
+        str(tmp_path / "donor"), 9, JaxTrainState.create(
+            jax.tree_util.tree_map(np.asarray, variables),
+            jax_optimizers.build_optimizer("adam", 1e-3)))
+    assert train_cli.main([
+        "--model", "ESPNet", "--dataset", "camvid", "--synthetic_hw",
+        "96,128", "--data_root", str(tmp_path / "none"), "--cuda", "False",
+        "--input_size", "64,96", "--max_epochs", "1", "--batch_size", "2",
+        "--val_epochs", "1", "--synthetic_len", "2", "--num_workers", "0",
+        "--lr", "0", "--encoder_checkpoint", path,
+        "--savedir", str(tmp_path / "ck")]) == 0
+    ck = tmp_path / "ck" / "camvid" / "ESPNetbs2gpu1_train" / "model_1.ckpt"
+    trained = build_model("espnet", 11, device="cpu")
+    ckpt.load_variables(str(ck), trained)
+    fresh = build_model("espnet", 11, device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+    donor_params = dict(donor.named_parameters())
+    fresh_params = dict(fresh.named_parameters())
+    for name, value in trained.named_parameters():
+        want = (donor_params[name[len("enc."):]] if name.startswith("enc.")
+                else fresh_params[name])
+        assert torch.equal(value, want), name
 
 
 @pytest.mark.parametrize("name", ["train", "test", "predict"])

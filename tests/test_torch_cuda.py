@@ -704,7 +704,8 @@ def test_ce_ohem_train_step_on_cuda_matches_cpu(cuda, arch, hw, grad_rel):
 # card's and the CPU's class maps differ, how close the CPU's f32 logits
 # of the two classes lie, relative to max(1, |logit|): twice the f32
 # logit tolerance of the model's CPU parity test against the reference
-# (tests/test_torch_contextnet.py, _erfnet_edanet.py, _segnet_linknet.py).
+# (tests/test_torch_contextnet.py, _erfnet_edanet.py, _segnet_linknet.py,
+# _espnetv2_dabnet.py, _espnet.py).
 # SegNet is held by its mismatch rate alone: its pool indices may flip
 # between the devices where two values of a window lie within f32
 # rounding (chip_smoke.py's zoo phases hold it outside those windows'
@@ -715,15 +716,19 @@ ZOO_PREDICT = {
     "erfnet": ({"dsconv": 0, "resize_argmax": 0}, 4e-3),
     "segnet": ({"dsconv": 0, "resize_argmax": 0}, None),
     "linknet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
+    "espnetv2": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
+    "dabnet": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
+    "espnet_c": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
+    "espnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
 }
 
 
 @pytest.mark.parametrize("arch", sorted(ZOO_PREDICT))
 def test_zoo_predict_on_cuda_matches_cpu(cuda, arch):
-    """f32 predict of the port's config-2/3/5 models at 2x3x64x128 on the
-    card == the CPU's, except at near-ties (rate <= 1e-3); the kernels a
-    predict launches (ContextNet: K2 x5 and K1; EDANet: K1; the others
-    none)."""
+    """f32 predict of the port's config-2/3/4/5 models and the ESPNet pair
+    at 2x3x64x128 on the card == the CPU's, except at near-ties (rate <=
+    1e-3); the kernels a predict launches (ContextNet: K2 x5 and K1;
+    EDANet, ESPNetv2, DABNet and ESPNet-C: K1; the others none)."""
     import copy
     launches, gap = ZOO_PREDICT[arch]
     cpu = _calibrated(arch)
@@ -772,3 +777,31 @@ def test_conv_transpose_on_cuda_matches_cpu(cuda):
     assert tuple(out[0][0].shape) == (2, 19, 18, 26)
     for a, b in zip(*out):
         torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-5)
+
+
+def test_load_encoder_into_a_model_on_the_card(cuda, tmp_path):
+    """``load_encoder`` of an ESPNet-C checkpoint (saved from the CPU) into
+    an ESPNet on the card: the encoder's leaves equal the donor's bit for
+    bit, on the card; an f32 forward then matches the CPU's grafted
+    model's within 1e-4 (relative to max(1, |logit|))."""
+    import copy
+    from esn_tpu_torch.train import checkpoint as ckpt
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    from esn_tpu_torch.train.state import TrainState
+    donor = _calibrated("espnet_c", seed=3)
+    path = ckpt.save_checkpoint(str(tmp_path), 1, TrainState(
+        donor, build_optimizer("adam", donor.parameters())))
+    cpu = build_model("espnet", 19, device="cpu")
+    gpu = copy.deepcopy(cpu).to(cuda)
+    for model in (cpu, gpu):
+        ckpt.load_encoder(path, model)
+    want = donor.state_dict()
+    for key, value in gpu.enc.state_dict().items():
+        assert value.device.type == "cuda"
+        assert torch.equal(value.cpu(), want[key]), key
+    images = torch.from_numpy(np.random.RandomState(2)
+                              .randn(2, 3, 64, 128).astype(np.float32))
+    with torch.no_grad():
+        a = cpu.eval()(images)
+        b = gpu.eval()(images.to(cuda)).cpu()
+    assert bool(((a - b).abs() <= 1e-4 * torch.clamp(a.abs(), min=1)).all())

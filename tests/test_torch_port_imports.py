@@ -27,7 +27,7 @@ from esn_tpu_torch.train.step import make_predict_step
 images = torch.randn((1, 3, 64, 128), generator=torch.Generator().manual_seed(1))
 preds = {}
 for arch in ("fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
-             "segnet", "linknet"):
+             "segnet", "linknet", "espnetv2", "dabnet", "espnet_c", "espnet"):
     model = build_model(arch, 19, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     pred = make_predict_step(model)(images)
@@ -65,6 +65,8 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.models.contextnet",
                  "esn_tpu_torch.models.edanet", "esn_tpu_torch.models.erfnet",
                  "esn_tpu_torch.models.segnet", "esn_tpu_torch.models.linknet",
+                 "esn_tpu_torch.models.espnetv2",
+                 "esn_tpu_torch.models.dabnet", "esn_tpu_torch.models.espnet",
                  "esn_tpu_torch.train.metrics",
                  "esn_tpu_torch.train.evaluation",
                  "esn_tpu_torch.ops.kernels.cgblock",
@@ -77,7 +79,7 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
         assert name in out["modules"]
     assert out["pred"] == {arch: [[1, 64, 128], "torch.int32"] for arch in (
         "fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
-        "segnet", "linknet")}
+        "segnet", "linknet", "espnetv2", "dabnet", "espnet_c", "espnet")}
     # a CPU tensor runs the plain versions: no kernel launched
     assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
                                "resize_ce_fwd": 0, "resize_ce_bwd": 0,

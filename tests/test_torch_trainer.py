@@ -31,9 +31,9 @@ def one_torch_thread():
 
 
 def make_cfg(tmp_path, sub, **over):
-    kw = dict(TINY)
+    kw = dict(TINY, model="ENet")
     kw.update(over)
-    return TrainConfig(model="ENet", savedir=str(tmp_path / sub),
+    return TrainConfig(savedir=str(tmp_path / sub),
                        data_root=str(tmp_path / "nodata"), **kw)
 
 
@@ -140,12 +140,36 @@ def test_resume_is_exact(straight, tmp_path):
 
 @pytest.mark.parametrize("over,item", [
     (dict(spatial=2), "item 10"), (dict(remat=True), "item 8"),
-    (dict(encoder_checkpoint="enc.ckpt"), "item 11"),
     (dict(optim="radam"), "item 8"), (dict(optim="ranger"), "item 8"),
     (dict(loss="focal"), "item 8"), (dict(loss="lovasz"), "item 8")])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, over, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, {item}"):
         Trainer(make_cfg(tmp_path, "x", **over))
+
+
+def test_trainer_grafts_an_encoder(tmp_path):
+    """``encoder_checkpoint``: an ESPNet-C trained one epoch by the Trainer
+    is grafted into ESPNet's ``enc`` (parameters and BN statistics bit for
+    bit, its classifier left out, the decoder the seeded init), and ESPNet
+    then trains and validates an epoch."""
+    donor = Trainer(make_cfg(tmp_path, "donor", model="ESPNet_C",
+                             max_epochs=1))
+    donor.fit()
+    path = os.path.join(donor.cfg.run_dir, "model_1.ckpt")
+    trainer = Trainer(make_cfg(tmp_path, "espnet", model="ESPNet",
+                               max_epochs=1, encoder_checkpoint=path))
+    want = donor.model.state_dict()
+    fresh = Trainer(make_cfg(tmp_path, "fresh", model="ESPNet",
+                             max_epochs=1)).model.state_dict()
+    for key, value in trainer.model.state_dict().items():
+        if key.startswith("enc."):
+            assert torch.equal(value, want[key[len("enc."):]]), key
+        else:
+            assert torch.equal(value, fresh[key]), key
+    assert "head.weight" in want
+    miou = trainer.fit()
+    assert 0.0 <= miou <= 1.0
+    assert all(np.isfinite(e["loss"]) for e in _events(trainer.cfg))
 
 
 def test_trainer_raises_without_a_card(tmp_path):
