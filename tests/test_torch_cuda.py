@@ -754,6 +754,44 @@ def test_zoo_predict_on_cuda_matches_cpu(cuda, arch):
                     .all())
 
 
+@pytest.mark.parametrize("shape, kernel, dilation", [
+    ((2, 32, 24, 48), (3, 3), (2, 2)), ((2, 32, 24, 48), (3, 3), (4, 4)),
+    ((2, 32, 24, 48), (3, 1), (2, 1)), ((2, 16, 48, 96), (3, 3), (8, 8)),
+    ((2, 64, 96, 192), (3, 1), (4, 1))])
+def test_depthwise_bf16_gradients_on_cuda_match_f64(cuda, shape, kernel,
+                                                    dilation):
+    """A bf16 depthwise conv with a row dilation above 1, in channels_last
+    (a ``Conv`` moved to channels_last, as ``build_model`` leaves a
+    model's): dW, dx and the output within 1e-2 (rel-max) of an f64 run on
+    the card, the output channels_last. On the CPU torch's dW is wrong
+    there (tests/test_torch_conv_bf16_dw.py); this holds the card's route,
+    which the port leaves as it is."""
+    import copy
+    from esn_tpu_torch.nn import Conv
+    gen = torch.Generator().manual_seed(0)
+    pad = tuple(d * (k // 2) for k, d in zip(kernel, dilation))
+    conv = Conv(shape[1], shape[1], kernel, padding=pad, dilation=dilation,
+                groups=shape[1], bias=False)
+    conv.reset_parameters(gen)
+    x = torch.randn(shape, generator=gen)
+    go = torch.randn(shape, generator=gen)
+    out = {}
+    for dtype in (torch.float64, torch.bfloat16):
+        m = copy.deepcopy(conv).to(
+            device=cuda, memory_format=torch.channels_last,
+            dtype=torch.float64 if dtype == torch.float64 else torch.float32)
+        xx = x.to(device=cuda, dtype=dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        y = m(xx)
+        y.backward(go.to(device=cuda, dtype=dtype).contiguous(
+            memory_format=torch.channels_last))
+        out[dtype] = (y.detach().double(), xx.grad.double(),
+                      m.weight.grad.double())
+        assert y.is_contiguous(memory_format=torch.channels_last)
+    for got, want in zip(out[torch.bfloat16], out[torch.float64]):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-2
+
+
 def test_conv_transpose_on_cuda_matches_cpu(cuda):
     """ENet's three transposed convs' geometry (3x3, stride 2, padding 1,
     output_padding 1) with an asymmetric kernel, f32: output and both
