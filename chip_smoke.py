@@ -244,7 +244,8 @@ CONFIG3_HW = (512, 1024)
 ZOO_CONV = {"erfnet": (19, CONFIG3_HW, (256, 512)),
             "segnet": (11, (352, 480), (256, 352)),
             "linknet": (11, (352, 480), (256, 352)),
-            "espnet": (19, CONFIG3_HW, (256, 512))}
+            "espnet": (19, CONFIG3_HW, (256, 512)),
+            "esnet": (19, CONFIG3_HW, (256, 512))}
 # Config 4 ("Cityscapes 768px"): the short side 768 at Cityscapes' 1:2
 # aspect; every side a multiple of 32, as ESPNetv2's 1/16 level and K1
 # and K3 at r = 8 need.
@@ -253,6 +254,7 @@ CONFIG4_HW = (768, 1536)
 # config 5's (19 classes at 1024x2048): EDANet and ESPNet-C run at config
 # 3's size, ESPNetv2 and DABNet at config 4's
 MODEL_INPUT = {"edanet": (CLASSES, CONFIG3_HW),
+               "lednet": (CLASSES, CONFIG3_HW),
                "espnet_c": (CLASSES, CONFIG3_HW),
                "espnetv2": (CLASSES, CONFIG4_HW),
                "dabnet": (CLASSES, CONFIG4_HW),
@@ -290,10 +292,20 @@ MODEL_INPUT = {"edanet": (CLASSES, CONFIG3_HW),
 # most) against the card's (read on an H100; its f32 predict of 2 images
 # found 16 windows whose index differs between the devices).
 ZOO_MISMATCH_MAX = 1e-3
+#
+# LEDNet (a resize tail: K1 a predict, K3 a train step, held as EDANet is
+# and its f32 predict against the CPU as ESPNetv2's) and ESNet (a conv
+# tail, no kernel, held as ERFNet is): on the CPU at 2x3x64x128 the
+# reference's own f32 logits lie 2.4e-4 (LEDNet) and 2.7e-4 (ESNet) from
+# its f64 ones (relative to max(1, |logit|); the port's 5.4e-4 and 3.2e-4),
+# and the port's f32 step lies 4.8e-2 and 2.5e-2 (worst leaf) from the
+# reference's f64 oracle (tests/test_torch_lednet_esnet.py): their residual
+# stacks amplify rounding as ERFNet's do, so they take ERFNet's bounds.
 ZOO_LOGIT_DIFF_MAX = {"erfnet": 5e-3, "segnet": 2e-3, "linknet": 1e-3,
-                      "espnet": 1e-3, "espnetv2": 1e-3, "dabnet": 1e-3}
+                      "espnet": 1e-3, "espnetv2": 1e-3, "dabnet": 1e-3,
+                      "lednet": 5e-3, "esnet": 5e-3}
 ZOO_GRAD_REL = {"erfnet": 8e-2, "segnet": 3e-2, "linknet": 3e-2,
-                "espnet": 3e-2}
+                "espnet": 3e-2, "esnet": 8e-2}
 EVAL_VALID = 6
 # The CLI phase: items in the train, val and test splits (two train steps
 # an epoch, one val and one test batch). Resume: runs resumed from
@@ -797,8 +809,8 @@ def resize_ce_case(K, torch, gen, shape, r, eps, weighted, timed=False,
 
 def resize_ce_phase(torch, K):
     """K3 at the train step's shape, at config 4's (ESPNetv2's, DABNet's
-    and CGNet's 768x1536), at the CLI phase's (a 512x1024 crop, EDANet's
-    and ESPNet-C's config-3 shape) and at odd shapes, f32 (the only dtype
+    and CGNet's 768x1536), at the CLI phase's (a 512x1024 crop, EDANet's,
+    ESPNet-C's and LEDNet's config-3 shape) and at odd shapes, f32 (the only dtype
     K3 takes: a bf16 step casts its logits to f32 for the loss), TF32
     off; the timed shapes also bit for bit over two launches."""
     torch.backends.cudnn.allow_tf32 = False
@@ -814,7 +826,7 @@ def resize_ce_phase(torch, K):
             resize_ce_case(K, torch, gen, (1, 8, 8, CLASSES), 8, 0.0, True,
                            all_ignored=True),
             resize_ce_case(K, torch, gen, (BATCH, 64, 128, CLASSES), 8, 0.0,
-                           True),
+                           True, timed=True),
             resize_ce_case(K, torch, gen, (BATCH, CONFIG4_HW[0] // 8,
                                            CONFIG4_HW[1] // 8, CLASSES), 8,
                            0.0, True, timed=True)]
@@ -2305,6 +2317,14 @@ def main() -> int:
         hw=CONFIG3_HW)}
     edanet["train"] = phase("edanet_train", train_phase, torch, F, K,
                             BatchNorm, "edanet", hw=CONFIG3_HW)
+    # LEDNet-19, config 3 (512x1024): K1 a predict, K3 a train step; its
+    # f32 predict also against the CPU
+    lednet = {"predict": phase(
+        "lednet_predict", predict_phase, torch, F, K, build_model, BatchNorm,
+        make_predict_step, "lednet", {**none, "resize_argmax": 1},
+        hw=CONFIG3_HW, vs_cpu=True)}
+    lednet["train"] = phase("lednet_train", train_phase, torch, F, K,
+                            BatchNorm, "lednet", hw=CONFIG3_HW)
     # ESPNetv2-19 and DABNet-19, config 4 (768x1536): K1 a predict, K3 a
     # train step; their f32 predict also against the CPU
     config4 = {}
@@ -2341,8 +2361,8 @@ def main() -> int:
                            prepare=functools.partial(graft_encoder, torch,
                                                      donor))}
     donor_dir.cleanup()
-    # ERFNet (config 3), SegNet and LinkNet (config 2): no kernel
-    for arch in ("erfnet", "segnet", "linknet"):
+    # ERFNet and ESNet (config 3), SegNet and LinkNet (config 2): no kernel
+    for arch in ("erfnet", "segnet", "linknet", "esnet"):
         zoo[arch] = phase(arch, zoo_conv_phase, torch, F, K, BatchNorm,
                           build_model, make_predict_step, arch)
     cli = phase("cli", cli_phase, torch, K)
@@ -2368,8 +2388,8 @@ def main() -> int:
                            interleaved["contextnet"]["launches"]},
         **{arch: {"predict": r["predict"]["launches"],
                   "train_5_steps": r["train"]["launches"]}
-           for arch, r in (("edanet", edanet), ("espnetv2",
-                                                config4["espnetv2"]),
+           for arch, r in (("edanet", edanet), ("lednet", lednet),
+                           ("espnetv2", config4["espnetv2"]),
                            ("dabnet", config4["dabnet"]),
                            ("espnet_c", espnet_c), *zoo.items())},
         "cli_fastscnn": {"train": cli["launches"],
@@ -2445,7 +2465,8 @@ def main() -> int:
          "predict_after_train": interleaved, "pool_unpool": pool_rows,
          "enet_predict": enet_predict, "enet_eval": enet_eval,
          "enet_train": enet_train, "fastscnn_config5_train": fastscnn_config5,
-         "contextnet": contextnet, "edanet": edanet, **config4,
+         "contextnet": contextnet, "edanet": edanet, "lednet": lednet,
+         **config4,
          "espnet_c": espnet_c, **zoo, "cli": cli, "launches_total": total,
          "launches": launches, "phase_seconds": seconds,
          "kernels": kernels, "device": device}, indent=1))

@@ -1,5 +1,7 @@
 """Model zoo of the port: Fast-SCNN, ContextNet, CGNet, ENet, ERFNet,
-EDANet, SegNet, LinkNet, ESPNetv2, DABNet, ESPNet-C and ESPNet so far."""
+EDANet, SegNet, LinkNet, ESPNetv2, DABNet, ESPNet-C, ESPNet, LEDNet and
+ESNet so far."""
 from . import (cgnet, contextnet, dabnet, edanet, enet, erfnet,  # noqa: F401
-               espnet, espnetv2, fastscnn, linknet, segnet)  # (register them)
+               esnet, espnet, espnetv2, fastscnn, lednet, linknet,
+               segnet)  # (register them)
 from .registry import available_models, build_model, register  # noqa: F401

@@ -188,6 +188,23 @@ class InputInjection(nn.Module):
         return x
 
 
+def channel_split(x: torch.Tensor):
+    """The two channel halves of x (views)."""
+    c = x.shape[1] // 2
+    return x[:, :c], x[:, c:]
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """ShuffleNet's channel shuffle: output channel ``j * groups + i`` is
+    input channel ``i * (C // groups) + j``; taken in NHWC, so the output
+    is channels_last."""
+    n, c, h, w = x.shape
+    if c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    y = x.permute(0, 2, 3, 1).reshape(n, h, w, groups, c // groups)
+    return y.transpose(3, 4).reshape(n, h, w, c).permute(0, 3, 1, 2)
+
+
 class DownsamplerConcat(nn.Module):
     """conv 3x3 s2 (bias) || 2x2 max pool -> concat -> BN + act (ERFNet's
     DownsamplerBlock). When ``out_ch <= in_ch`` the conv makes all

@@ -230,8 +230,9 @@ class Dense(nn.Module):
     """Fully connected layer with bias, ``(out, in)`` weight, torch's
     default init.
 
-    The weight is cast to x's dtype, the product accumulates in f32 and is
-    rounded to x's dtype, then the bias is added in x's dtype.
+    The weight is cast to x's dtype, the product accumulates in f32 (in
+    f64 for an f64 x) and is rounded to x's dtype, then the bias is added
+    in x's dtype.
     """
 
     def __init__(self, in_features: int, out_features: int):
@@ -247,8 +248,9 @@ class Dense(nn.Module):
             generator, self.bias.shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype).float()
-        y = torch.matmul(x.float(), w.t()).to(x.dtype)
+        wide = _at_least_f32(x.dtype)
+        w = self.weight.to(x.dtype).to(wide)
+        y = torch.matmul(x.to(wide), w.t()).to(x.dtype)
         return y + self.bias.to(x.dtype)
 
 

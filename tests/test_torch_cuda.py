@@ -720,6 +720,8 @@ ZOO_PREDICT = {
     "dabnet": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
     "espnet_c": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
     "espnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
+    "lednet": ({"dsconv": 0, "resize_argmax": 1}, 4e-3),
+    "esnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-3),
 }
 
 

@@ -13,6 +13,9 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+ARCHS = ("fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
+         "segnet", "linknet", "espnetv2", "dabnet", "espnet_c", "espnet",
+         "lednet", "esnet")
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 import torch
@@ -26,8 +29,7 @@ from esn_tpu_torch.ops import kernels
 from esn_tpu_torch.train.step import make_predict_step
 images = torch.randn((1, 3, 64, 128), generator=torch.Generator().manual_seed(1))
 preds = {}
-for arch in ("fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
-             "segnet", "linknet", "espnetv2", "dabnet", "espnet_c", "espnet"):
+for arch in ARCHS:
     model = build_model(arch, 19, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     pred = make_predict_step(model)(images)
@@ -46,7 +48,8 @@ print(json.dumps({
 def test_port_imports_no_jax_and_predicts_on_cpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+    probe = _PROBE.replace("ARCHS", repr(ARCHS))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -67,6 +70,7 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.models.segnet", "esn_tpu_torch.models.linknet",
                  "esn_tpu_torch.models.espnetv2",
                  "esn_tpu_torch.models.dabnet", "esn_tpu_torch.models.espnet",
+                 "esn_tpu_torch.models.lednet", "esn_tpu_torch.models.esnet",
                  "esn_tpu_torch.train.metrics",
                  "esn_tpu_torch.train.evaluation",
                  "esn_tpu_torch.ops.kernels.cgblock",
@@ -77,9 +81,8 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.train.schedules",
                  "esn_tpu_torch.train.step", "esn_tpu_torch.utils.params"):
         assert name in out["modules"]
-    assert out["pred"] == {arch: [[1, 64, 128], "torch.int32"] for arch in (
-        "fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
-        "segnet", "linknet", "espnetv2", "dabnet", "espnet_c", "espnet")}
+    assert out["pred"] == {arch: [[1, 64, 128], "torch.int32"]
+                           for arch in ARCHS}
     # a CPU tensor runs the plain versions: no kernel launched
     assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
                                "resize_ce_fwd": 0, "resize_ce_bwd": 0,
