@@ -245,7 +245,8 @@ ZOO_CONV = {"erfnet": (19, CONFIG3_HW, (256, 512)),
             "segnet": (11, (352, 480), (256, 352)),
             "linknet": (11, (352, 480), (256, 352)),
             "espnet": (19, CONFIG3_HW, (256, 512)),
-            "esnet": (19, CONFIG3_HW, (256, 512))}
+            "esnet": (19, CONFIG3_HW, (256, 512)),
+            "fpenet": (19, CONFIG3_HW, (256, 512))}
 # Config 4 ("Cityscapes 768px"): the short side 768 at Cityscapes' 1:2
 # aspect; every side a multiple of 32, as ESPNetv2's 1/16 level and K1
 # and K3 at r = 8 need.
@@ -301,11 +302,16 @@ ZOO_MISMATCH_MAX = 1e-3
 # and the port's f32 step lies 4.8e-2 and 2.5e-2 (worst leaf) from the
 # reference's f64 oracle (tests/test_torch_lednet_esnet.py): their residual
 # stacks amplify rounding as ERFNet's do, so they take ERFNet's bounds.
+# FPENet (a resize tail without logits_lowres: no kernel, held as ERFNet
+# is): its f32 logits are well-conditioned (the reference's own lie 3.2e-5
+# from its f64 ones), so LinkNet's logit bound; its f32 step is not: on
+# the CPU it lies 9.8e-2 (worst leaf, an SE gate with one hidden unit)
+# from the f64 oracle (tests/test_torch_fpenet.py).
 ZOO_LOGIT_DIFF_MAX = {"erfnet": 5e-3, "segnet": 2e-3, "linknet": 1e-3,
                       "espnet": 1e-3, "espnetv2": 1e-3, "dabnet": 1e-3,
-                      "lednet": 5e-3, "esnet": 5e-3}
+                      "lednet": 5e-3, "esnet": 5e-3, "fpenet": 1e-3}
 ZOO_GRAD_REL = {"erfnet": 8e-2, "segnet": 3e-2, "linknet": 3e-2,
-                "espnet": 3e-2, "esnet": 8e-2}
+                "espnet": 3e-2, "esnet": 8e-2, "fpenet": 0.2}
 EVAL_VALID = 6
 # The CLI phase: items in the train, val and test splits (two train steps
 # an epoch, one val and one test batch). Resume: runs resumed from
@@ -1489,7 +1495,7 @@ def steps_check(torch, K, BatchNorm, name, model, step, batch,
     launches = dict(K.LAUNCHES)
     print(f"{name} {loss_name} train launches", json.dumps(launches),
           "(resize_ce 0: OHEM takes the step off the fused resize-CE "
-          "route)" if model.LOGITS_TAIL == "resize"
+          "route)" if hasattr(model, "logits_lowres")
           else "(no kernel lies on its path)")
     print(f"{name} {loss_name} train losses", json.dumps(losses))
     check(not any(launches.values()),
@@ -2361,8 +2367,9 @@ def main() -> int:
                            prepare=functools.partial(graft_encoder, torch,
                                                      donor))}
     donor_dir.cleanup()
-    # ERFNet and ESNet (config 3), SegNet and LinkNet (config 2): no kernel
-    for arch in ("erfnet", "segnet", "linknet", "esnet"):
+    # ERFNet, ESNet and FPENet (config 3), SegNet and LinkNet (config 2): no
+    # kernel
+    for arch in ("erfnet", "segnet", "linknet", "esnet", "fpenet"):
         zoo[arch] = phase(arch, zoo_conv_phase, torch, F, K, BatchNorm,
                           build_model, make_predict_step, arch)
     cli = phase("cli", cli_phase, torch, K)

@@ -1,7 +1,7 @@
 """Model zoo of the port: Fast-SCNN, ContextNet, CGNet, ENet, ERFNet,
-EDANet, SegNet, LinkNet, ESPNetv2, DABNet, ESPNet-C, ESPNet, LEDNet and
-ESNet so far."""
+EDANet, SegNet, LinkNet, ESPNetv2, DABNet, ESPNet-C, ESPNet, LEDNet, ESNet
+and FPENet so far."""
 from . import (cgnet, contextnet, dabnet, edanet, enet, erfnet,  # noqa: F401
-               esnet, espnet, espnetv2, fastscnn, lednet, linknet,
+               esnet, espnet, espnetv2, fastscnn, fpenet, lednet, linknet,
                segnet)  # (register them)
 from .registry import available_models, build_model, register  # noqa: F401

@@ -158,13 +158,14 @@ def test_cli_train_test_predict(tmp_path, monkeypatch, capsys):
     ("ESPNetv2", "cityscapes", "64,128", "64,128"),
     ("DABNet", "cityscapes", "64,128", "64,128"),
     ("LEDNet", "cityscapes", "64,128", "64,128"),
+    ("FPENet", "cityscapes", "64,128", "64,128"),
 ])
 def test_cli_train_predict_new_models(tmp_path, monkeypatch, model, dataset,
                                       source, crop):
     """A tiny CPU run of ``cli.train`` (one epoch of one step, with
     validation) and ``cli.predict`` for ContextNet, ESPNetv2, DABNet and
-    LEDNet (resize-tail models: their CE trains through ``logits_lowres``)
-    and
+    LEDNet (resize-tail models: their CE trains through ``logits_lowres``),
+    FPENet (a resize tail without ``logits_lowres``: plain CE) and
     SegNet (CamVid's 11 classes, sides multiples of 32); the grey PNGs are
     the predict step's maps of the checkpoint's model."""
     monkeypatch.chdir(tmp_path)

@@ -123,20 +123,26 @@ def test_workaround_keeps_memory_format_and_values(channels_last):
 
 STEP_HW = (64, 128)
 # One train step at 2x3x64x128 (smooth seeded images, random labels) on 8
-# threads, bf16 against f32: the same model, batch and loss, dropout off.
-# Random-weight ESPNetv2's bf16 gradient is ill-conditioned: against an
-# f64 run its global rel-L2 reads 0.36 (cosine 0.94) where the f32 one
-# reads 6.7e-3, so the bound is on finiteness and direction, not on each
-# leaf (the per-conv test above holds the accuracy): the loss within
-# STEP_LOSS_REL of f32's (read 1.5e-4), the gradient over all leaves
-# within STEP_GRAD_REL rel-L2 and at least STEP_GRAD_COS cosine of f32's
-# (read 0.37 and 0.933), for each of three repeats of the step (the wrong
-# dW gave NaN, inf or ~1e33 at random repeats).
-STEP_LOSS_REL, STEP_GRAD_REL, STEP_GRAD_COS = 2e-3, 0.6, 0.8
+# threads, bf16 against f32: the same model, batch and loss, dropout off;
+# three repeats of the step (the wrong dW gave NaN, inf or ~1e33 at random
+# repeats). Per model: the loss within STEP_LOSS_REL of f32's, the
+# gradient over all leaves within STEP_GRAD_REL rel-L2 and at least
+# STEP_GRAD_COS cosine of f32's, where those hold anything. Random-weight
+# bf16 gradients are ill-conditioned, so these bound finiteness and
+# direction, not accuracy (the per-conv test above holds that):
+# - ESPNetv2: against an f64 run its bf16 gradient reads 0.36 rel-L2
+#   (cosine 0.94) where its f32 one reads 6.7e-3; against f32: loss
+#   1.5e-4, gradient 0.37, cosine 0.933.
+# - FPENet: a single train-mode FPE block's bf16 gradient already lies
+#   0.11 (median leaf) from f64, where its f32 one lies 5e-7, and the
+#   whole model's 1.1 (median leaf; cosine to f32's 0.14): no direction to
+#   hold, only finiteness and the loss (read 2.3e-3).
+STEP_BOUNDS = {"espnetv2": (2e-3, 0.6, 0.8), "fpenet": (1e-2, None, None)}
 
 
-@pytest.mark.parametrize("arch", ["espnetv2"])
+@pytest.mark.parametrize("arch", sorted(STEP_BOUNDS))
 def test_bf16_train_step_is_finite_and_near_f32(arch):
+    loss_rel, grad_rel, grad_cos = STEP_BOUNDS[arch]
     n = torch.get_num_threads()
     torch.set_num_threads(8)
     try:
@@ -168,9 +174,10 @@ def test_bf16_train_step_is_finite_and_near_f32(arch):
         for _ in range(3):
             loss16, g16 = step(torch.bfloat16)
             assert bool(torch.isfinite(g16).all())
-            assert abs(loss16 - loss32) <= STEP_LOSS_REL * abs(loss32)
-            assert float((g16 - g32).norm() / g32.norm()) <= STEP_GRAD_REL
-            assert float(g16 @ g32 / (g16.norm() * g32.norm())) \
-                >= STEP_GRAD_COS
+            assert abs(loss16 - loss32) <= loss_rel * abs(loss32)
+            if grad_rel is not None:
+                assert float((g16 - g32).norm() / g32.norm()) <= grad_rel
+                assert float(g16 @ g32 / (g16.norm() * g32.norm())) \
+                    >= grad_cos
     finally:
         torch.set_num_threads(n)

@@ -722,6 +722,7 @@ ZOO_PREDICT = {
     "espnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
     "lednet": ({"dsconv": 0, "resize_argmax": 1}, 4e-3),
     "esnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-3),
+    "fpenet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
 }
 
 
