@@ -52,8 +52,12 @@ from zero:
   versions), the config-5 step (``resize_ce`` 0) timed in turns with the
   weighted-CE one, a predict after a train step; K2 is also held against
   its plain version at the two ContextNet shapes no other path gives;
-- EDANet-19 (config 3), b8 bf16 3x512x1024: predict (``resize_argmax``
-  1, held at its shape too) and five weighted-CE train steps
+- the weight gradient of a bf16 depthwise conv in channels_last with a
+  row dilation above 1 (wrong in torch's CPU convolution, which the port
+  works around there) against an f64 run on the card, at five shapes;
+- EDANet-19 and LEDNet-19 (config 3), b8 bf16 3x512x1024: predict
+  (``resize_argmax`` 1, held at its shape too; LEDNet's f32 predict of a
+  2-image slice also against the CPU) and five weighted-CE train steps
   (``resize_ce`` 1 + 1 a step), as ContextNet's;
 - config 4, b8 bf16 3x768x1536: ESPNetv2-19 and DABNet-19 the same way
   (predict ``resize_argmax`` 1, also the f32 predict of a 2-image slice
@@ -67,8 +71,9 @@ from zero:
   then saved as a checkpoint: ESPNet-19's encoder, which
   ``load_encoder`` grafts (every leaf the donor's bit for bit) into the
   ESPNet that the next phase drives as ERFNet's below;
-- ESPNet-19 and ERFNet-19 (3x512x1024), SegNet-11 and LinkNet-11 (config
-  2, 3x352x480: both need sides that are multiples of 32), b8 bf16: no
+- ESPNet-19, ERFNet-19, ESNet-19, FPENet-19, FSSNet-19, SQNet-19 and
+  UNet-19 (3x512x1024), SegNet-11 and LinkNet-11 (config 2, 3x352x480:
+  both need sides that are multiples of 32), b8 bf16: no
   kernel lies on their paths (every count 0), so each is held against
   the CPU as ENet is (the f32 predict of a 2-image slice, SegNet's
   outside the fields of its flipped pool windows; one f32 train step of
@@ -246,7 +251,10 @@ ZOO_CONV = {"erfnet": (19, CONFIG3_HW, (256, 512)),
             "linknet": (11, (352, 480), (256, 352)),
             "espnet": (19, CONFIG3_HW, (256, 512)),
             "esnet": (19, CONFIG3_HW, (256, 512)),
-            "fpenet": (19, CONFIG3_HW, (256, 512))}
+            "fpenet": (19, CONFIG3_HW, (256, 512)),
+            "fssnet": (19, CONFIG3_HW, (256, 512)),
+            "sqnet": (19, CONFIG3_HW, (256, 512)),
+            "unet": (19, CONFIG3_HW, (256, 512))}
 # Config 4 ("Cityscapes 768px"): the short side 768 at Cityscapes' 1:2
 # aspect; every side a multiple of 32, as ESPNetv2's 1/16 level and K1
 # and K3 at r = 8 need.
@@ -306,12 +314,22 @@ ZOO_MISMATCH_MAX = 1e-3
 # is): its f32 logits are well-conditioned (the reference's own lie 3.2e-5
 # from its f64 ones), so LinkNet's logit bound; its f32 step is not: on
 # the CPU it lies 9.8e-2 (worst leaf, an SE gate with one hidden unit)
-# from the f64 oracle (tests/test_torch_fpenet.py).
+# from the f64 oracle (tests/test_torch_fpenet.py). FSSNet, SQNet and
+# UNet (no kernel, held as ERFNet is) are well-conditioned in f32 on the
+# CPU: the reference's own f32 logits lie 1.0e-5, 1.5e-6 and 2.0e-5 from
+# its f64 ones, the port's f32 step 7.5e-6, 3.5e-4 and 7.8e-6 (worst leaf)
+# from the f64 oracle (tests/test_torch_fssnet_sqnet_unet.py, UNet at
+# base 8), as LinkNet's (2.2e-4 on the CPU, 1.0e-2 on the card against
+# the CPU): LinkNet's bounds. SQNet's and UNet's plain max pools may
+# route a window's gradient to another position where two of its values
+# lie within f32 rounding of each other on the two devices.
 ZOO_LOGIT_DIFF_MAX = {"erfnet": 5e-3, "segnet": 2e-3, "linknet": 1e-3,
                       "espnet": 1e-3, "espnetv2": 1e-3, "dabnet": 1e-3,
-                      "lednet": 5e-3, "esnet": 5e-3, "fpenet": 1e-3}
+                      "lednet": 5e-3, "esnet": 5e-3, "fpenet": 1e-3,
+                      "fssnet": 1e-3, "sqnet": 1e-3, "unet": 1e-3}
 ZOO_GRAD_REL = {"erfnet": 8e-2, "segnet": 3e-2, "linknet": 3e-2,
-                "espnet": 3e-2, "esnet": 8e-2, "fpenet": 0.2}
+                "espnet": 3e-2, "esnet": 8e-2, "fpenet": 0.2,
+                "fssnet": 3e-2, "sqnet": 3e-2, "unet": 3e-2}
 EVAL_VALID = 6
 # The CLI phase: items in the train, val and test splits (two train steps
 # an epoch, one val and one test batch). Resume: runs resumed from
@@ -1748,8 +1766,8 @@ def zoo_predict_vs_cpu(torch, F, model, x, arch):
 
 def zoo_conv_phase(torch, F, K, BatchNorm, build_model, make_predict_step,
                    arch, prepare=None):
-    """``arch`` (ERFNet, SegNet, LinkNet or ESPNet; ZOO_CONV gives its
-    classes and sizes; ``prepare(model)``, where given, runs on each model
+    """``arch`` (a model of ZOO_CONV, which gives its classes and sizes;
+    ``prepare(model)``, where given, runs on each model
     once it is built: ESPNet's encoder graft) at full width and depth, b8
     bf16, through ``build_model``,
     ``make_predict_step`` and ``make_train_step``. No kernel lies on its
@@ -2367,9 +2385,10 @@ def main() -> int:
                            prepare=functools.partial(graft_encoder, torch,
                                                      donor))}
     donor_dir.cleanup()
-    # ERFNet, ESNet and FPENet (config 3), SegNet and LinkNet (config 2): no
-    # kernel
-    for arch in ("erfnet", "segnet", "linknet", "esnet", "fpenet"):
+    # ERFNet, ESNet, FPENet, FSSNet, SQNet and UNet (config 3), SegNet and
+    # LinkNet (config 2): no kernel
+    for arch in ("erfnet", "segnet", "linknet", "esnet", "fpenet", "fssnet",
+                 "sqnet", "unet"):
         zoo[arch] = phase(arch, zoo_conv_phase, torch, F, K, BatchNorm,
                           build_model, make_predict_step, arch)
     cli = phase("cli", cli_phase, torch, K)

@@ -5,7 +5,8 @@
 MODEL is a registered model name (default ``fastscnn``). LOSS is
 ``ce`` (weighted CE: through ``logits_lowres`` and the fused resize-CE
 kernel on a resize-tail model, its default; on the full logits on a
-conv-tail model) or ``ce_ohem`` (the
+conv-tail model and on FPENet, a resize tail without ``logits_lowres``)
+or ``ce_ohem`` (the
 config-5 loss, weighted CE + OHEM on the model's own full-resolution
 logits; the default of a conv-tail model). Run from the repo root. Uses
 ``chip_smoke.py``'s training setup (bf16, batch 8, 3x1024x2048 or the

@@ -295,7 +295,7 @@ def check_predict(jmodel, variables, model, images, tol):
         assert np.all(np.abs(a - b) <= tol * np.maximum(1, np.abs(b)))
 
 
-# --- one train step ------------------------------------------------------------
+# --- one train step ----------------------------------------------------------
 
 def batch(seed, hw):
     """Seeded smooth images and labels a network can fit, with a band of

@@ -705,7 +705,8 @@ def test_ce_ohem_train_step_on_cuda_matches_cpu(cuda, arch, hw, grad_rel):
 # of the two classes lie, relative to max(1, |logit|): twice the f32
 # logit tolerance of the model's CPU parity test against the reference
 # (tests/test_torch_contextnet.py, _erfnet_edanet.py, _segnet_linknet.py,
-# _espnetv2_dabnet.py, _espnet.py).
+# _espnetv2_dabnet.py, _espnet.py, _lednet_esnet.py, _fpenet.py,
+# _fssnet_sqnet_unet.py).
 # SegNet is held by its mismatch rate alone: its pool indices may flip
 # between the devices where two values of a window lie within f32
 # rounding (chip_smoke.py's zoo phases hold it outside those windows'
@@ -723,15 +724,18 @@ ZOO_PREDICT = {
     "lednet": ({"dsconv": 0, "resize_argmax": 1}, 4e-3),
     "esnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-3),
     "fpenet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
+    "fssnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
+    "sqnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
+    "unet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
 }
 
 
 @pytest.mark.parametrize("arch", sorted(ZOO_PREDICT))
 def test_zoo_predict_on_cuda_matches_cpu(cuda, arch):
-    """f32 predict of the port's config-2/3/4/5 models and the ESPNet pair
-    at 2x3x64x128 on the card == the CPU's, except at near-ties (rate <=
-    1e-3); the kernels a predict launches (ContextNet: K2 x5 and K1;
-    EDANet, ESPNetv2, DABNet and ESPNet-C: K1; the others none)."""
+    """f32 predict of the port's zoo at 2x3x64x128 on the card == the
+    CPU's, except at near-ties (rate <= 1e-3); the kernels a predict
+    launches (ContextNet: K2 x5 and K1; EDANet, ESPNetv2, DABNet, ESPNet-C
+    and LEDNet: K1; the others none)."""
     import copy
     launches, gap = ZOO_PREDICT[arch]
     cpu = _calibrated(arch)

@@ -12,6 +12,7 @@ torch's CPU bf16 defect that ``ops.convolution.conv2d`` works around
 """
 from functools import partial
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,8 +144,8 @@ def test_registry_and_param_count(reference):
     """Registered as in the reference; its parameter count and tail."""
     assert "fpenet" in available_models()
     model = build_model("FPENet", CLASSES, device="cpu")
-    n = sum(int(np.prod(v.shape)) for v in
-            __import__("jax").tree_util.tree_leaves(reference[1]["params"]))
+    n = sum(int(np.prod(v.shape))
+            for v in jax.tree_util.tree_leaves(reference[1]["params"]))
     assert count_params(model) == N_PARAMS == n
     assert model.LOGITS_TAIL == "resize"
     assert not hasattr(model, "logits_lowres")

@@ -10,6 +10,7 @@ ESNet ends in a transposed conv and launches no kernel.
 import copy
 from functools import partial
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -18,7 +19,6 @@ from esn_tpu.models import blocks as JB
 from esn_tpu.models import esnet as JS
 from esn_tpu.models import lednet as JL
 
-from esn_tpu_torch import convert
 from esn_tpu_torch.models import available_models, build_model
 from esn_tpu_torch.models import blocks as B
 from esn_tpu_torch.models import esnet as S
@@ -32,8 +32,9 @@ from esn_tpu_torch.utils import count_params
 
 from _torch_parity import (CLASSES, calibrated_pair, check_block,
                            check_predict, check_step, nhwc, one_torch_thread,
-                           plain_reference, port_logits, reference_logits,
-                           reference_shapes, round_trip, step_readings)
+                           plain_reference, port_logits, random_variables,
+                           reference_logits, reference_shapes, round_trip,
+                           step_readings)
 
 assert one_torch_thread and plain_reference     # autouse fixtures
 HW = (64, 128)
@@ -76,16 +77,11 @@ BLOCKS = {
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("kind", sorted(BLOCKS))
 def test_block_matches_reference(kind, train):
-    """Each block on converted weights, eval and train mode (dropout 0 or
-    off in eval): the output and the updated BN statistics (atol = rtol =
-    1e-5). APN at 32x64 (its cascade reaches 1/8 of its input)."""
+    """Each block on converted weights, eval and train mode (dropout 0):
+    the output and the updated BN statistics (atol = rtol = 1e-5). APN at
+    32x64 (its cascade reaches 1/8 of its input)."""
     make_j, make_t, ch = BLOCKS[kind]
-    jblock, block = make_j(), make_t()
-    if train:
-        for m in block.modules():
-            if isinstance(m, Dropout):
-                m.rate = 0.0
-    check_block(jblock, block, ch, train,
+    check_block(make_j(), make_t(), ch, train,
                 hw=(32, 64) if kind == "apn" else (12, 16))
 
 
@@ -142,8 +138,7 @@ def test_registry_and_param_count(arch, reference):
     assert arch in available_models()
     model = build_model(arch.upper(), CLASSES, device="cpu")
     params = reference[1]["params"]
-    n = sum(int(np.prod(v.shape)) for v in
-            __import__("jax").tree_util.tree_leaves(params))
+    n = sum(int(np.prod(v.shape)) for v in jax.tree_util.tree_leaves(params))
     assert count_params(model) == N_PARAMS[arch] == n
     rates = sorted({m.rate for m in model.modules() if isinstance(m, Dropout)})
     if arch == "lednet":
@@ -157,7 +152,6 @@ def test_convert_round_trip_is_bit_exact(arch, reference):
     the keys are the reference's variable paths (scan chains as
     Sequentials; PFCU's branches ``b{i}_*``); ESNet's transposed convs'
     kernels flipped on the way in and back."""
-    from _torch_parity import random_variables
     variables = random_variables(reference[1], np.random.RandomState(7))
     model = build_model(arch, CLASSES, device="cpu")
     sd = round_trip(variables, model)

@@ -15,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ARCHS = ("fastscnn", "contextnet", "cgnet", "enet", "erfnet", "edanet",
          "segnet", "linknet", "espnetv2", "dabnet", "espnet_c", "espnet",
-         "lednet", "esnet", "fpenet")
+         "lednet", "esnet", "fpenet", "fssnet", "sqnet", "unet")
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 import torch
@@ -71,7 +71,8 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.models.espnetv2",
                  "esn_tpu_torch.models.dabnet", "esn_tpu_torch.models.espnet",
                  "esn_tpu_torch.models.lednet", "esn_tpu_torch.models.esnet",
-                 "esn_tpu_torch.models.fpenet",
+                 "esn_tpu_torch.models.fpenet", "esn_tpu_torch.models.fssnet",
+                 "esn_tpu_torch.models.sqnet", "esn_tpu_torch.models.unet",
                  "esn_tpu_torch.train.metrics",
                  "esn_tpu_torch.train.evaluation",
                  "esn_tpu_torch.ops.kernels.cgblock",
