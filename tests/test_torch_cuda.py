@@ -770,7 +770,7 @@ def test_depthwise_bf16_gradients_on_cuda_match_f64(cuda, shape, kernel,
     """A bf16 depthwise conv with a row dilation above 1, in channels_last
     (a ``Conv`` moved to channels_last, as ``build_model`` leaves a
     model's): dW, dx and the output within 1e-2 (rel-max) of an f64 run on
-    the card, the output channels_last. On the CPU torch's dW is wrong
+    the card, the bf16 output channels_last. On the CPU torch's dW is wrong
     there (tests/test_torch_conv_bf16_dw.py); this holds the card's route,
     which the port leaves as it is."""
     import copy
@@ -794,7 +794,9 @@ def test_depthwise_bf16_gradients_on_cuda_match_f64(cuda, shape, kernel,
             memory_format=torch.channels_last))
         out[dtype] = (y.detach().double(), xx.grad.double(),
                       m.weight.grad.double())
-        assert y.is_contiguous(memory_format=torch.channels_last)
+        # (the f64 reference conv answers in NCHW on the card)
+        assert y.is_contiguous(memory_format=torch.channels_last) or (
+            dtype == torch.float64)
     for got, want in zip(out[torch.bfloat16], out[torch.float64]):
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-2
 
