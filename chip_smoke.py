@@ -78,6 +78,20 @@ from zero:
   the CPU as ENet is (the f32 predict of a 2-image slice, SegNet's
   outside the fields of its flipped pool windows; one f32 train step of
   a slice), five weighted-CE steps, ms/step, peak memory, img/s;
+- the rest of the training surface on Fast-SCNN-19 at config 5 (b8 bf16
+  3x1024x2048): ``radam`` and ``ranger``, 12 weighted-CE steps each
+  (``resize_ce`` 1 + 1 a step; RAdam's rho >= 5 at step 6, Lookahead's
+  syncs at 6 and 12 held against slow + 0.5 (fast - slow); 12 f32 steps
+  of a slice on the card with the CPU replaying their gradients; ms/step
+  and peak memory beside adam's); ``focal``, ``lovasz`` and
+  ``lovasz_hist`` on one forward's full-size f32 logits (focal at gamma 0
+  against ``cross_entropy``, lovasz_hist within its quantisation bound of
+  lovasz, each against the CPU on a slice), then five steps with each (no
+  kernel: these losses take the full logits); ``remat`` with the
+  weighted-CE step (``resize_ce`` 1 + 1 a step: the loss stays outside the
+  recomputed forward) and with CE + OHEM, against the same steps without
+  it (loss and BN statistics bit for bit, gradients within the atomics'
+  noise), ms/step and peak memory with and without;
 - the user's entry points: ``esn_tpu_torch.cli.train`` on Fast-SCNN-19,
   Cityscapes-shaped synthetic data (1024x2048 sources, 512x1024 crops),
   batch 8, bf16, two epochs of two steps with validation every epoch
@@ -85,7 +99,11 @@ from zero:
   forward and once backward a step, K2 4 times and K1 once a val batch);
   the prefetched batches against the loader's; resumes from epoch 1
   against the straight run, in bf16 and in f32; ``cli.test`` against the
-  Trainer's mIoU; ``cli.predict``'s PNGs against the predict step's maps.
+  Trainer's mIoU; ``cli.predict``'s PNGs against the predict step's maps;
+  then ``cli.train --optim ranger --use_lovaszsoftmax --remat``, two
+  epochs of six steps (K1 and K2 at validation, no K3: Lovász takes the
+  full logits), and its f32 resume from epoch 1 against the straight run,
+  Lookahead syncing at step 12 from the checkpoint's slow weights.
 
 Each phase prints its seconds. Exits non-zero on any failure, and when
 no CUDA device is present. The last line of standard output is one JSON
@@ -378,6 +396,72 @@ CLI_TRAIN, CLI_VAL, CLI_TEST = 16, 8, 8
 RESUME_F32 = {"params": 1e-2, "stats": 1e-5, "exp_avg": 3e-2}
 ZERO_GRAD_REL = 1e-8
 RESUME_LOSS_REL, RESUME_NOISE, RESUME_FLOOR = 5e-3, 4.0, {"stats": 1e-3}
+# The CLI phase's last run: --optim ranger --use_lovaszsoftmax --remat, six
+# steps an epoch, so that Lookahead syncs at the end of epoch 1 (step 6)
+# and within the resumed epoch 2 (step 12), from the slow weights of the
+# checkpoint; held by the f32 resume check with the RESUME_F32 limits.
+CLI_RANGER_TRAIN = 48
+
+# radam and ranger (Fast-SCNN-19, config 5): OPTIM_STEPS steps cross
+# RAdam's rho >= 5 (its sixth step at beta2 = 0.999) and two Lookahead
+# syncs (steps 6 and 12). At a sync the parameters must equal slow + 0.5
+# (fast - slow) from the slow weights before the step and the fast
+# weights of a twin RAdam step on the same state and gradients: the same
+# f32 operations in the same order, so bit for bit; checked within
+# LOOKAHEAD_REL of the largest |want| all the same, and the bit-equality
+# reported. The OPTIM_STEPS f32 steps of a 2x3x256x512 slice on the card
+# (TF32 off, dropout off), and the same optimizer on the CPU taking the
+# card's gradients and learning rate at each step: what differs is the
+# optimizer's f32 arithmetic on each device (an FMA here or there), which
+# compounds over the steps without feedback: each parameter within
+# OPTIM_CPU_ULP of its largest |value| (16 f32 ulps), the update of all
+# parameters together within OPTIM_CPU_REL (rel-L2). Not the CPU's own
+# steps: f32 training of Fast-SCNN at this size is chaotic (train-mode BN
+# at random init makes the gradient ill-conditioned, and the steps feed
+# it back): on the CPU alone, 8 threads against 1 move the 12-step update
+# by 0.90 (radam) and 0.61 (adam) rel-L2, and the card against the CPU
+# read 0.89 for radam.
+OPTIM_STEPS = 12
+LOOKAHEAD_REL = 1e-7
+OPTIM_CPU_REL, OPTIM_CPU_ULP = 1e-5, 2.0 ** -20
+
+# focal and the two Lovász losses on one forward's f32 logits at config 5:
+# focal at gamma 0 is cross_entropy ((1 - p)^0 = 1 exactly: the values
+# equal, the gradients within FOCAL_CE_REL rel-L2, the gamma term's
+# backward adding zeros); lovasz_hist within its quantisation bound of
+# lovasz (lovasz_hist_vs_sort) plus LOVASZ_SUM_REL of the value (f32
+# sums of C x N terms in other orders: a tree sum's error, log2(3.2e8) x
+# 2^-24 x 2 = 3.4e-6, rounded up); each loss, value and gradient, on a
+# 2 x 256 x 512 slice of the logits on the card against the CPU within
+# LOSS_CPU_REL (value) and LOSS_CPU_GRAD_REL (gradient rel-L2, by loss):
+# softmax, exp and log in other orders (~1e-7); for lovasz also the
+# order of the pixels whose errors the two devices round apart, which
+# moves their share of the Jaccard increments; for lovasz_hist the key of
+# a pixel whose error the two devices round across a bucket's edge, which
+# gives it the next bucket's mean increment. Read on an H100 against the
+# CPU: focal 1.5e-7, lovasz 9.2e-5, lovasz_hist 2.4e-3 (values equal but
+# focal's, 2.1e-7).
+LOSS_NAMES = ("focal", "lovasz", "lovasz_hist")
+FOCAL_CE_REL = 1e-6
+LOVASZ_BUCKETS = 4096
+LOVASZ_SUM_REL = 1e-5
+# ... and each bucket's tie-block sum of the two versions' gradients with
+# respect to the errors within LOVASZ_BLOCK_ABS (both make it from the same
+# f32 Jaccard values, each within 2^-24 of the exact one, <= 1: the
+# sort's increments telescope to their difference, the hist's count x
+# (step / count) rounds once more; 4 x 2^-24, doubled)
+LOVASZ_BLOCK_ABS = 2.0 ** -21
+LOSS_CPU_REL = 1e-5
+LOSS_CPU_GRAD_REL = {"focal": 1e-5, "lovasz": 1e-3, "lovasz_hist": 1e-2}
+
+# remat (the config-5 step, bf16, from the same weights, batch and dropout
+# seed, with and without): the loss and the BN running statistics equal
+# bit for bit (the first forward is the same; the recompute moves no
+# statistic); the gradients of all parameters together no further from the
+# step without remat (rel-L2) than REMAT_NOISE times a second step
+# without it is, plus REMAT_FLOOR: the backward of bilinear upsampling and
+# of adaptive pooling adds with atomics on the card, in no fixed order.
+REMAT_NOISE, REMAT_FLOOR = 4.0, 1e-6
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes (each input read once, each output written once)
@@ -1077,10 +1161,10 @@ def config5_loss(cw):
     return loss
 
 
-def config5_step(torch, model, opt, cw, dtype):
-    """adam + poly on ``opt`` with the config-5 loss on the model's own
+def config5_step(torch, model, opt, cw, dtype, remat=False):
+    """poly lr on ``opt`` with the config-5 loss on the model's own
     full-resolution logits (``fwd_method=None``); dropout masks from a
-    seeded generator on the model's device."""
+    seeded generator on the model's device; ``remat`` as the step's."""
     from esn_tpu_torch.train.losses import fused_resize_ce_spec
     from esn_tpu_torch.train.schedules import build_schedule
     from esn_tpu_torch.train.step import make_train_step
@@ -1090,27 +1174,29 @@ def config5_step(torch, model, opt, cw, dtype):
     return make_train_step(
         model, config5_loss(cw.to(device)), opt,
         schedule=build_schedule("poly", TRAIN_LR, TRAIN_TOTAL_STEPS),
-        compute_dtype=dtype, fwd_method=None,
+        compute_dtype=dtype, fwd_method=None, remat=remat,
         generator=torch.Generator(device=device).manual_seed(3))
 
 
-def train_step(torch, model, opt, cw, dtype):
-    """The default of train.py, through the port's entry points: class-
-    weighted CE, through logits_lowres on a resize-tail model (the loss
-    owns the x8 upsample: the fused resize-CE kernel), on the full logits
-    on a conv-tail model; poly lr on ``opt``; dropout masks from a seeded
-    generator on the model's device."""
-    from esn_tpu_torch.train.losses import cross_entropy, fused_resize_ce_spec
+def train_step(torch, model, opt, cw, dtype, loss="ce", remat=False):
+    """train.py's step through the port's entry points, with the loss
+    ``loss`` (class-weighted CE, train.py's default, unless told
+    otherwise): a CE-family loss through logits_lowres on a resize-tail
+    model (the loss owns the x8 upsample: the fused resize-CE kernel), any
+    other loss, and any loss of a conv-tail model, on the full logits;
+    poly lr on ``opt``; dropout masks from a seeded generator on the
+    model's device; ``remat`` as the step's."""
+    from esn_tpu_torch.train.losses import build_loss, fused_resize_ce_spec
     from esn_tpu_torch.train.schedules import build_schedule
     from esn_tpu_torch.train.step import make_train_step
-    fused, method = fused_resize_ce_spec(model, "ce")
+    fused, method = fused_resize_ce_spec(model, loss)
     device = next(model.parameters()).device
-    loss = functools.partial(fused or cross_entropy, num_classes=cw.numel(),
-                             class_weights=cw.to(device), ignore_index=IGNORE)
+    fn = functools.partial(fused or build_loss(loss), num_classes=cw.numel(),
+                           class_weights=cw.to(device), ignore_index=IGNORE)
     return make_train_step(
-        model, loss, opt,
+        model, fn, opt,
         schedule=build_schedule("poly", TRAIN_LR, TRAIN_TOTAL_STEPS),
-        compute_dtype=dtype, fwd_method=method,
+        compute_dtype=dtype, fwd_method=method, remat=remat,
         generator=torch.Generator(device=device).manual_seed(3))
 
 
@@ -1524,8 +1610,8 @@ def steps_check(torch, K, BatchNorm, name, model, step, batch,
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     print(f"{name} {loss_name} train launches", json.dumps(launches),
-          "(resize_ce 0: OHEM takes the step off the fused resize-CE "
-          "route)" if hasattr(model, "logits_lowres")
+          "(resize_ce 0: only CE and label smoothing take the fused "
+          "resize-CE route)" if hasattr(model, "logits_lowres")
           else "(no kernel lies on its path)")
     print(f"{name} {loss_name} train losses", json.dumps(losses))
     check(not any(launches.values()),
@@ -1979,12 +2065,13 @@ def _losing(load, what):
     return faulty
 
 
-def check_f32_resume(torch, F, cli_train, args, tmp):
+def check_f32_resume(torch, F, cli_train, args, tmp, prefix="f32"):
     """The strict resume check (see RESUME_F32): two epochs straight, then
     epoch 2 again from its ``model_1.ckpt``, f32, TF32 off, cuDNN
     deterministic. Two faulty resumes, one that drops the optimizer's
     state and one that resets the BN statistics, must fail the same
-    limits. Returns the readings."""
+    limits. The runs' directories in ``tmp`` start with ``prefix``.
+    Returns the readings."""
     from esn_tpu_torch.train import checkpoint as ckpt
     order, skip = zero_gradient_leaves(torch, F)
     det = torch.backends.cudnn.deterministic
@@ -2001,13 +2088,13 @@ def check_f32_resume(torch, F, cli_train, args, tmp):
                              .splitlines()[-1])
 
     try:
-        d, ev_s = train("f32_straight")
+        d, ev_s = train(f"{prefix}_straight")
         resume = ("--resume", str(d / "model_1.ckpt"))
-        runs = {"resumed": train("f32_resumed", *resume)}
+        runs = {"resumed": train(f"{prefix}_resumed", *resume)}
         for what in ("optimizer", "statistics"):
             ckpt.load_checkpoint = _losing(load, what)
             try:
-                runs[f"without_{what}"] = train(f"f32_without_{what}",
+                runs[f"without_{what}"] = train(f"{prefix}_without_{what}",
                                                 *resume)
             finally:
                 ckpt.load_checkpoint = load
@@ -2021,7 +2108,7 @@ def check_f32_resume(torch, F, cli_train, args, tmp):
                      "loss_rel": abs(ev["loss"] - ev_s["loss"])
                      / abs(ev_s["loss"]),
                      "gaps": _epoch2_gaps(one, straight, st, skip, order)}
-    print("cli resume f32", json.dumps(out))
+    print(f"cli resume {prefix}", json.dumps(out))
     check(len(skip) < 0.1 * len(order), f"zero-gradient leaves {skip}")
     got = out["resumed"]
     check(got["step"] == straight["step"] and got["lr"] == ev_s["lr"],
@@ -2035,6 +2122,474 @@ def check_f32_resume(torch, F, cli_train, args, tmp):
         check(all(gaps[k] > RESUME_F32[k] for k in keys),
               f"f32 resume {name} passes the limits {RESUME_F32}: {gaps}")
     return out
+
+
+def lookahead_watch(torch, opt):
+    """Step hooks on ``opt`` (a ``Ranger``) that hold each Lookahead sync:
+    before the step, the slow weights and the fast weights of a twin
+    ``RAdam`` step on a copy of the same state and gradients; after it, the
+    parameters and the slow weights against slow + SLOW_STEP_SIZE (fast -
+    slow). Returns (the rows of each sync, the hooks' handles)."""
+    from esn_tpu_torch.train.optimizers import RAdam
+    rows, pending = [], []
+
+    def live():
+        return [p for g in opt.param_groups for p in g["params"]
+                if p.grad is not None]
+
+    def pre(o, args, kwargs):
+        params = live()
+        state = o.state[params[0]]
+        t = int(state["step"]) + 1 if "step" in state else 1
+        if t % o.SYNC_PERIOD:
+            return
+        twin_params = [p.detach().clone() for p in params]
+        twin = RAdam(twin_params)
+        twin.load_state_dict(copy.deepcopy(o.state_dict()))
+        for tp, p in zip(twin_params, params):
+            tp.grad = p.grad.detach().clone()
+        twin.step()
+        pending.append((t, [o.state[p]["slow"].clone() for p in params],
+                        twin_params, params))
+
+    def post(o, args, kwargs):
+        if not pending:
+            return
+        t, slow, fast, params = pending.pop()
+        want = [s + o.SLOW_STEP_SIZE * (f - s) for s, f in zip(slow, fast)]
+        diff = max(float((p - w).abs().max()) for p, w in zip(params, want))
+        scale = max(float(w.abs().max()) for w in want)
+        kept = all(torch.equal(o.state[p]["slow"], p) for p in params)
+        row = {"step": t, "max_abs_diff": diff, "max_abs_want": scale,
+               "bit_equal": all(torch.equal(p, w)
+                                for p, w in zip(params, want)),
+               "slow_equals_params": kept}
+        print("lookahead sync", json.dumps(row))
+        check(diff <= LOOKAHEAD_REL * scale and kept,
+              f"Lookahead sync at step {t}: {row}")
+        rows.append(row)
+
+    return rows, (opt.register_step_pre_hook(pre),
+                  opt.register_step_post_hook(post))
+
+
+def _concat(torch, tensors):
+    return torch.cat([t.double().flatten() for t in tensors])
+
+
+def optim_vs_cpu(torch, model0, batch, cw, name):
+    """OPTIM_STEPS f32 steps (TF32 off) of ``name`` on a 2 x 3 x 256 x 512
+    slice of ``batch`` on the card, from a copy of ``model0`` with dropout
+    off, and the same optimizer on the CPU taking, step by step, the card's
+    gradients and learning rate: every parameter of the CPU's run against
+    the card's (OPTIM_CPU_ULP), and the update of all together
+    (OPTIM_CPU_REL)."""
+    from esn_tpu_torch.nn import Dropout
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    h, w = ENET_SLICE_HW
+    card = copy.deepcopy(model0)
+    for sub in card.modules():
+        if isinstance(sub, Dropout):
+            sub.rate = 0.0
+    step = train_step(torch, card, build_optimizer(name, card.parameters()),
+                      cw, torch.float32)
+    host = copy.deepcopy(card).cpu()
+    host_opt = build_optimizer(name, host.parameters())
+    piece = {"image": batch["image"][:2, :, :h, :w],
+             "label": batch["label"][:2, :h, :w].contiguous()}
+    losses = []
+    for _ in range(OPTIM_STEPS):
+        metrics = step(piece)
+        losses.append(float(metrics["loss"]))
+        for ph, pc in zip(host.parameters(), card.parameters()):
+            ph.grad = pc.grad.detach().cpu()
+        for group in host_opt.param_groups:
+            group["lr"] = metrics["lr"]
+        host_opt.step()
+    p0 = {n: p.detach().cpu().double() for n, p in model0.named_parameters()}
+    got = {n: p.detach().cpu().double() for n, p in card.named_parameters()}
+    want = {n: p.detach().double() for n, p in host.named_parameters()}
+    ulps = {n: float((got[n] - want[n]).abs().max())
+            / max(float(want[n].abs().max()), 1e-30) for n in want}
+    worst = max(ulps, key=ulps.get)
+    row = {"dtype": "float32", "slice": [2, 3, h, w], "steps": OPTIM_STEPS,
+           "losses": losses,
+           "update_rel_l2": _rel(_concat(torch, [got[n] - p0[n] for n in p0]),
+                                 _concat(torch, [want[n] - p0[n]
+                                                 for n in p0])),
+           "update_rel_l2_max": OPTIM_CPU_REL,
+           "leaf_max_abs_diff_over_max_abs_worst": ulps[worst],
+           "worst_leaf": worst, "leaf_max": OPTIM_CPU_ULP,
+           "bit_equal_leaves": sum(torch.equal(got[n], want[n])
+                                   for n in want), "leaves": len(want)}
+    print(f"{name}: {OPTIM_STEPS} f32 steps of a slice on the card, the CPU "
+          f"replaying its gradients", json.dumps(row))
+    check(row["update_rel_l2"] <= OPTIM_CPU_REL
+          and ulps[worst] <= OPTIM_CPU_ULP,
+          f"{name} on the card disagrees with the CPU: {row}")
+    return row
+
+
+def optim_phase(torch, F, K):
+    """``--optim radam`` and ``ranger`` on Fast-SCNN-19 at config 5 (bf16,
+    b8, 3x1024x2048), class-weighted CE through K3, poly lr: OPTIM_STEPS
+    steps of each from the same weights and batch with the launch counts
+    from zero (K3 1 + 1 a step), finite losses, every parameter with a
+    gradient moved; at each Lookahead sync the parameters against slow +
+    0.5 (fast - slow) (``lookahead_watch``); f32 steps of a slice on the
+    card, the CPU replaying them (``optim_vs_cpu``); ms/step and peak memory of
+    each beside adam's, in turns (adam, radam, ranger, ranger, radam,
+    adam)."""
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    model0, _, batch, cw = train_setup(torch, F)
+    _, zero = zero_gradient_leaves(torch, F)
+    result, steps = {}, {}
+    for name in ("radam", "ranger"):
+        model = copy.deepcopy(model0)
+        opt = build_optimizer(name, model.parameters())
+        step = train_step(torch, model, opt, cw, torch.bfloat16)
+        syncs, hooks = (lookahead_watch(torch, opt) if name == "ranger"
+                        else ([], ()))
+        # the main path, OPTIM_STEPS steps, with the launch counts from zero
+        K.reset_launches()
+        losses = [float(step(batch)["loss"]) for _ in range(OPTIM_STEPS)]
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        for hook in hooks:
+            hook.remove()
+        print(f"fastscnn {name} train launches", json.dumps(launches))
+        print(f"fastscnn {name} train losses", json.dumps(losses))
+        check(launches == {"dsconv": 0, "resize_argmax": 0,
+                           "resize_ce_fwd": OPTIM_STEPS,
+                           "resize_ce_bwd": OPTIM_STEPS, "cgblock": 0},
+              f"{name}: launch counts over {OPTIM_STEPS} steps {launches}")
+        check(all(math.isfinite(v) for v in losses), f"{name} losses {losses}")
+        p0 = dict(model0.named_parameters())
+        still = [n for n, p in model.named_parameters()
+                 if n not in zero and torch.equal(p, p0[n])]
+        check(not still, f"{name}: parameters that did not move {still[:5]}")
+        if name == "ranger":
+            check([r["step"] for r in syncs] == [6, 12],
+                  f"Lookahead synced at {[r['step'] for r in syncs]}")
+        torch.backends.cudnn.allow_tf32 = False
+        vs_cpu = optim_vs_cpu(torch, model0, batch, cw, name)
+        torch.backends.cudnn.allow_tf32 = True   # the library default again
+        result[name] = {"launches": launches, "losses": losses,
+                        "lookahead_syncs": syncs, "vs_cpu": vs_cpu}
+        steps[name] = step
+    adam_model = copy.deepcopy(model0)
+    steps["adam"] = train_step(
+        torch, adam_model, build_optimizer("adam", adam_model.parameters()),
+        cw, torch.bfloat16)
+    times, peak = {k: [] for k in steps}, {}
+    for which in ("adam", "radam", "ranger", "ranger", "radam", "adam"):
+        torch.cuda.reset_peak_memory_stats()
+        times[which].append(timed_steps(torch, steps[which], batch, iters=5))
+        peak[which] = max(peak.get(which, 0.0),
+                          torch.cuda.max_memory_allocated() / 1e9)
+    ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
+    print(f"fastscnn train bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}, weighted"
+          f" CE through K3: " + ", ".join(
+              f"{k} {ms[k]:.3f} ms/step (peak {peak[k]:.2f} GB)"
+              for k in ("adam", "radam", "ranger")))
+    result.update(ms_per_step=ms, peak_gb=peak, batch=BATCH)
+    return result
+
+
+def lovasz_hist_vs_sort(torch, z, labels, classes=CLASSES,
+                        buckets=LOVASZ_BUCKETS):
+    """How far ``lovasz_softmax_hist`` may lie from ``lovasz_softmax`` on
+    the logits ``z`` (NHWC f32), and how far their tie blocks lie apart:
+    ``{"value_bound", "grad_l2_bound", "block_sum_gap"}``.
+
+    Take one present class. Its errors are sorted (or bucketed) in
+    descending order; each pixel's sorted gradient is its Jaccard
+    increment, ``1/U`` for a foreground pixel and ``I/(U(U+1))`` for a
+    background one (``I``, ``U``: the intersection and union before it),
+    never negative, and a bucket's increments add up to its Jaccard step
+    ΔJ_b in any order within it, which the hist version spreads evenly
+    over the bucket.
+
+    - value_bound: both values are convex combinations of a bucket's
+      errors times ΔJ_b, and a bucket's errors lie within (1 + 2^-10)/(B -
+      1) of each other (B buckets; the f32 product e (B - 1) may round
+      across a key's edge), so the class's two sums differ by at most that
+      times ΣΔJ_b = 1 (every pixel seen: I = 0); so does their mean over
+      the present classes.
+    - grad_l2_bound: in bucket b the sorted gradients lie in ``[lo_b,
+      hi_b]`` from the bucket's first and last ``I``, ``U`` (the counts
+      before it and its own), and so does their mean, so the gradients
+      with respect to the errors differ by at most ``hi_b - lo_b`` each,
+      over the present classes' count. The errors' Jacobian with respect
+      to a pixel's logits is ±(diag(p) - p p^T) by rows, whose spectral
+      norm is at most max_c 2 p_c (1 - p_c) <= 1/2 (Gershgorin), so the
+      gradients with respect to the logits differ in L2 by at most half
+      the errors' bound. Where a tie block mixes foreground and
+      background pixels (bf16 logits make large ones) the bound is loose:
+      the sort's gradient inside a tie block depends on the pixels' order,
+      the hist's is their mean.
+    - block_sum_gap: the largest difference of the two versions' sums of
+      the gradients with respect to the errors over one bucket's valid
+      pixels (f64 sums), which both make ΔJ_b from the same f32 Jaccard
+      values: the sort's increments telescope, the hist's n_b ΔJ_b / n_b
+      rounds once (LOVASZ_BLOCK_ABS).
+    """
+    from esn_tpu_torch.train.losses import (_lovasz_errors,
+                                            _lovasz_hist_coefficients,
+                                            _lovasz_sort_coefficients)
+    nb, spare = buckets, classes * buckets
+    with torch.no_grad():
+        errors, fg, valid = _lovasz_errors(z, labels, classes, IGNORE)
+        key = (errors * (nb - 1)).to(torch.int32).clamp_(0, nb - 1)
+        key += torch.arange(classes, device=key.device,
+                            dtype=torch.int32) * nb
+        counted = torch.where(valid[:, None], key, spare).flatten()
+
+        def by_key(keys, weights=None):
+            return torch.bincount(keys, weights=weights,
+                                  minlength=spare + 1)[:-1].view(
+                                      classes, nb).double()
+
+        n_b = by_key(counted)
+        fg_b = by_key(torch.where(fg.bool(), key, spare).flatten())
+        sort_sum = by_key(counted, _lovasz_sort_coefficients(
+            errors, fg).double().flatten())
+        coef, present = _lovasz_hist_coefficients(errors, fg, valid, nb)
+        hist_sum = by_key(counted, coef.double().flatten())
+        del errors, fg, key, counted, coef
+    block_gap = float((sort_sum - hist_sum)[present].abs().max())
+    n_b, fg_b = n_b.flip(-1), fg_b.flip(-1)      # descending keys
+    bg_b = n_b - fg_b
+    gts = fg_b.sum(-1, keepdim=True)
+    inter0 = gts - (fg_b.cumsum(-1) - fg_b)       # before the bucket
+    union0 = torch.clamp(gts + (bg_b.cumsum(-1) - bg_b), min=1.0)
+    union1 = union0 + bg_b                        # after it
+    inf = torch.full_like(n_b, math.inf)
+    lo = torch.minimum(
+        torch.where(fg_b > 0, 1.0 / union1, inf),
+        torch.where(bg_b > 0, (inter0 - fg_b) / (union1 * (union1 + 1)), inf))
+    hi = torch.maximum(
+        torch.where(fg_b > 0, 1.0 / union0, -inf),
+        torch.where(bg_b > 0, inter0 / (union0 * (union0 + 1)), -inf))
+    spread = torch.where(n_b > 0, hi - lo, torch.zeros_like(n_b))
+    de = math.sqrt(float((n_b * spread.square())[present].sum()))
+    return {"value_bound": (1 + 2.0 ** -10) / (nb - 1),
+            "grad_l2_bound": 0.5 * de / float(present.sum()),
+            "block_sum_gap": block_gap}
+
+
+def _loss_value_and_grad(torch, fn, z, labels):
+    """(value, gradient with respect to ``z``) of ``fn(z, labels)``."""
+    z = z.detach().requires_grad_()
+    loss = fn(z, labels)
+    loss.backward()
+    return float(loss), z.grad
+
+
+def loss_phase(torch, F, K, BatchNorm):
+    """``--use_focal``, ``--use_lovaszsoftmax`` and ``lovasz_hist`` on
+    Fast-SCNN-19 at config 5 (bf16, b8, 3x1024x2048; these are no CE-family
+    losses, so they take the full logits and no kernel):
+
+    1. on one train-mode bf16 forward's f32 logits: each loss's value and
+       gradient with respect to the logits, its time (CUDA events) and its
+       peak memory beyond the logits; focal at gamma 0 against
+       ``cross_entropy`` (FOCAL_CE_REL); lovasz_hist against lovasz within
+       the bounds of ``lovasz_hist_vs_sort`` (value, gradient rel-L2, the
+       sums over each tie block);
+    2. each loss on a 2 x 256 x 512 slice of those logits, the card against
+       the CPU in f32 (LOSS_CPU_REL, LOSS_CPU_GRAD_REL);
+    3. TRAIN_STEPS train steps with each loss (adam + poly, class weights),
+       launch counts all 0, a falling loss, moving BN statistics
+       (``steps_check``), then its ms/step and peak memory.
+    """
+    from esn_tpu_torch.nn import set_dropout_generator
+    from esn_tpu_torch.train.losses import build_loss, cross_entropy
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    model0, _, batch, cw = train_setup(torch, F)
+    labels = batch["label"]
+    kw = dict(num_classes=CLASSES, class_weights=cw, ignore_index=IGNORE)
+    fns = {name: functools.partial(build_loss(name), **kw)
+           for name in LOSS_NAMES}
+    fns["focal_gamma0"] = functools.partial(build_loss("focal"), gamma=0.0,
+                                            **kw)
+    fns["ce"] = functools.partial(cross_entropy, **kw)
+    model = copy.deepcopy(model0).train()
+    set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(3))
+    with torch.no_grad():
+        z = model(batch["image"].to(dtype=torch.bfloat16,
+                                    memory_format=torch.channels_last))
+        z = z.float().permute(0, 2, 3, 1).contiguous()
+    del model
+    result = {"logits": list(z.shape)}
+    values, grads = {}, {}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        values[name], grads[name] = _loss_value_and_grad(torch, fn, z, labels)
+        extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ms = cuda_ms(lambda: _loss_value_and_grad(torch, fn, z, labels),
+                     iters=3, warmup=1)
+        result[name] = {"value": values[name], "ms": ms,
+                        "peak_beyond_logits_gb": extra_gb}
+        check(math.isfinite(values[name])
+              and bool(torch.isfinite(grads[name]).all()),
+              f"{name}: value {values[name]} or its gradient not finite")
+    gamma0 = {"value_equal": values["focal_gamma0"] == values["ce"],
+              "value_rel": abs(values["focal_gamma0"] - values["ce"])
+              / abs(values["ce"]),
+              "grad_rel_l2": _rel(grads["focal_gamma0"], grads["ce"]),
+              "grad_equal": bool(torch.equal(grads["focal_gamma0"],
+                                             grads["ce"])),
+              "max": FOCAL_CE_REL}
+    print("focal at gamma 0 vs cross_entropy", json.dumps(gamma0))
+    check(gamma0["value_rel"] <= FOCAL_CE_REL
+          and gamma0["grad_rel_l2"] <= FOCAL_CE_REL,
+          f"focal at gamma 0 is not cross_entropy: {gamma0}")
+    gaps = lovasz_hist_vs_sort(torch, z, labels)
+    hist = {"value_gap": abs(values["lovasz_hist"] - values["lovasz"]),
+            "value_bound": gaps["value_bound"]
+            + LOVASZ_SUM_REL * abs(values["lovasz"]),
+            "grad_rel_l2": _rel(grads["lovasz_hist"], grads["lovasz"]),
+            "grad_rel_l2_bound": gaps["grad_l2_bound"]
+            / float(grads["lovasz"].double().norm()) + LOVASZ_SUM_REL,
+            "block_sum_gap": gaps["block_sum_gap"],
+            "block_sum_gap_max": LOVASZ_BLOCK_ABS}
+    print("lovasz_hist vs lovasz", json.dumps(hist))
+    check(hist["value_gap"] <= hist["value_bound"]
+          and hist["grad_rel_l2"] <= hist["grad_rel_l2_bound"]
+          and hist["block_sum_gap"] <= LOVASZ_BLOCK_ABS,
+          f"lovasz_hist beyond its quantisation bound of lovasz: {hist}")
+    result.update(focal_gamma0_vs_ce=gamma0, hist_vs_sort=hist)
+    del grads
+
+    # 2. a slice, the card against the CPU, f32
+    h, w = ENET_SLICE_HW
+    piece, lab = z[:2, :h, :w].contiguous(), labels[:2, :h, :w].contiguous()
+    cpu_kw = dict(kw, class_weights=cw.cpu())
+    vs_cpu = {}
+    for name in LOSS_NAMES:
+        v, g = _loss_value_and_grad(torch, fns[name], piece, lab)
+        v0, g0 = _loss_value_and_grad(
+            torch, functools.partial(build_loss(name), **cpu_kw),
+            piece.cpu(), lab.cpu())
+        vs_cpu[name] = {"value": v, "cpu_value": v0,
+                        "value_rel": abs(v - v0) / abs(v0),
+                        "grad_rel_l2": _rel(g.cpu(), g0)}
+    print("losses on a slice, the card vs the CPU", json.dumps(vs_cpu))
+    bad = {k: r for k, r in vs_cpu.items()
+           if not (r["value_rel"] <= LOSS_CPU_REL
+                   and r["grad_rel_l2"] <= LOSS_CPU_GRAD_REL[k])}
+    check(not bad, f"losses on the card disagree with the CPU: {bad}")
+    result["vs_cpu"] = vs_cpu
+    del z, piece
+
+    # 3. train steps with each loss
+    for name in LOSS_NAMES:
+        model = copy.deepcopy(model0)
+        step = train_step(torch, model,
+                          build_optimizer("adam", model.parameters()), cw,
+                          torch.bfloat16, loss=name)
+        row = steps_check(torch, K, BatchNorm, "fastscnn", model, step, batch,
+                          loss_name=name)
+        torch.cuda.reset_peak_memory_stats()
+        sec = timed_steps(torch, step, batch, iters=5)
+        row.update(ms_per_step=1e3 * sec,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"fastscnn train ({name}) bf16 b{BATCH} "
+              f"{IMAGE_HW[1]}x{IMAGE_HW[0]}: {row['ms_per_step']:.3f} "
+              f"ms/step; peak {row['peak_gb']:.2f} GB; the loss's value and "
+              f"gradient alone {result[name]['ms']:.3f} ms, "
+              f"{result[name]['peak_beyond_logits_gb']:.2f} GB beyond the "
+              f"logits")
+        result[name]["train"] = row
+        del model, step
+    return result
+
+
+def remat_phase(torch, F, K):
+    """``--remat`` on the config-5 step of Fast-SCNN-19 (bf16, b8,
+    3x1024x2048), with class-weighted CE through K3 (K3 1 + 1 a step with
+    and without: the loss stays outside the recomputed forward) and with CE
+    + OHEM (no kernel): from the same weights, batch and dropout seed, one
+    step without remat, one with, one more without; the loss and the BN
+    running statistics bit for bit, the gradients within REMAT_NOISE times
+    the two plain steps' gap plus REMAT_FLOOR; then ms/step and peak
+    memory with and without, in turns (plain, remat, remat, plain)."""
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    model0, _, batch, cw = train_setup(torch, F)
+    result = {}
+    for loss in ("ce", "ce_ohem"):
+        runs, steps = {}, {}
+        for which in ("plain", "remat", "plain_again"):
+            model = copy.deepcopy(model0)
+            opt = build_optimizer("adam", model.parameters())
+            make = config5_step if loss == "ce_ohem" else train_step
+            step = make(torch, model, opt, cw, torch.bfloat16,
+                        remat=which == "remat")
+            K.reset_launches()
+            value = float(step(batch)["loss"])
+            torch.cuda.synchronize()
+            runs[which] = {
+                "loss": value, "launches": dict(K.LAUNCHES),
+                "grads": {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()},
+                "stats": {n: b.clone() for n, b in model.named_buffers()}}
+            steps[which] = step
+        want = ({"resize_ce_fwd": 1, "resize_ce_bwd": 1} if loss == "ce"
+                else {})
+        for which, run in runs.items():
+            check(run["launches"] == {"dsconv": 0, "resize_argmax": 0,
+                                      "resize_ce_fwd": 0, "resize_ce_bwd": 0,
+                                      "cgblock": 0, **want},
+                  f"remat {loss} {which}: launches {run['launches']}")
+        plain, remat, again = runs["plain"], runs["remat"], runs["plain_again"]
+        names = list(plain["grads"])
+
+        def gap(a, b):
+            return _rel(_concat(torch, [a["grads"][n] for n in names]),
+                        _concat(torch, [b["grads"][n] for n in names]))
+
+        leaf = {n: _rel(remat["grads"][n], plain["grads"][n]) for n in names
+                if float(plain["grads"][n].norm()) > 0}
+        worst = max(leaf, key=leaf.get)
+        row = {"loss": plain["loss"], "remat_loss": remat["loss"],
+               "loss_equal": remat["loss"] == plain["loss"],
+               "stats_equal": all(torch.equal(remat["stats"][n], b)
+                                  for n, b in plain["stats"].items()),
+               "grad_gap": gap(remat, plain), "plain_grad_gap": gap(again,
+                                                                   plain),
+               "grads_equal": all(torch.equal(remat["grads"][n],
+                                              plain["grads"][n])
+                                  for n in names),
+               "worst_leaf": worst, "worst_leaf_gap": leaf[worst],
+               "launches": remat["launches"]}
+        row["grad_gap_max"] = REMAT_NOISE * row["plain_grad_gap"] + REMAT_FLOOR
+        print(f"remat {loss}: with vs without", json.dumps(row))
+        check(row["loss_equal"] and row["stats_equal"]
+              and row["grad_gap"] <= row["grad_gap_max"],
+              f"remat {loss}: the step differs from the step without: {row}")
+        del runs
+        times, peak = {"plain": [], "remat": []}, {}
+        for which in ("plain", "remat", "remat", "plain"):
+            torch.cuda.reset_peak_memory_stats()
+            times[which].append(timed_steps(torch, steps[which], batch,
+                                            iters=5))
+            peak[which] = max(peak.get(which, 0.0),
+                              torch.cuda.max_memory_allocated() / 1e9)
+        row["ms_per_step"] = {k: 1e3 * sum(v) / len(v)
+                              for k, v in times.items()}
+        row["peak_gb"] = peak
+        print(f"fastscnn train ({loss}) bf16 b{BATCH} "
+              f"{IMAGE_HW[1]}x{IMAGE_HW[0]}: "
+              f"{row['ms_per_step']['plain']:.3f} ms/step, peak "
+              f"{peak['plain']:.2f} GB without remat; "
+              f"{row['ms_per_step']['remat']:.3f} ms/step, peak "
+              f"{peak['remat']:.2f} GB with")
+        result[loss] = row
+        del steps
+    return result
 
 
 def cli_phase(torch, K):
@@ -2061,6 +2616,10 @@ def cli_phase(torch, K):
        batch gives the Trainer's epoch-2 mIoU and per-class IoU.
     5. ``cli.predict``'s grey PNGs, read back with the port's own reader,
        equal ``make_predict_step``'s maps (as labelIDs).
+    6. ``--optim ranger --use_lovaszsoftmax --remat``: two epochs of
+       CLI_RANGER_TRAIN items (six steps each), launches (K2 and K1 at
+       validation only), the slow weights in the checkpoint; its f32
+       resume held as adam's (``check_f32_resume``).
 
     The val split is written as packed ``.npy`` records (the
     ``SyntheticDataset`` items the train run's val split holds), so that
@@ -2245,6 +2804,45 @@ def cli_phase(torch, K):
                 n_png += 1
         check(n_png == CLI_TEST, f"{n_png} PNGs compared")
         result["predict"] = {"pngs_equal": n_png, "launches": predict_launches}
+
+        # 6. ranger + Lovász + remat: two epochs of six steps, then its f32
+        # resume from epoch 1 against the straight run
+        ranger_args = common + [
+            "--batch_size", str(BATCH), "--max_epochs", "2", "--val_epochs",
+            "1", "--synthetic_len", str(CLI_RANGER_TRAIN), "--num_workers",
+            "4", "--optim", "ranger", "--use_lovaszsoftmax", "--remat"]
+        torch.cuda.reset_peak_memory_stats()
+        _, ranger_launches = _launch_delta(K, lambda: _cli(
+            cli_train.main, ranger_args + ["--savedir",
+                                           str(Path(tmp) / "ranger")]))
+        d = Path(tmp) / "ranger" / "cityscapes" / f"FastSCNNbs{BATCH}gpu1_train"
+        ev = [json.loads(line) for line in
+              (d / "events.jsonl").read_text().splitlines()]
+        ranger_steps = CLI_RANGER_TRAIN // BATCH
+        st = _state(torch, d / "model_2.ckpt")
+        check(len(ev) == 2 and all(math.isfinite(e["loss"]) for e in ev)
+              and st["step"] == 2 * ranger_steps,
+              f"ranger run: events {ev}, step {st['step']}")
+        check(all("slow" in v for v in st["optimizer"]["state"].values()),
+              "ranger run: no slow weights in the optimizer's state")
+        want = {"resize_ce_fwd": 0, "resize_ce_bwd": 0,
+                "dsconv": 2 * 4 * (CLI_VAL // BATCH),
+                "resize_argmax": 2 * (CLI_VAL // BATCH), "cgblock": 0}
+        check(ranger_launches == want, f"ranger run launches "
+              f"{ranger_launches}, want {want}")
+        ms_ranger = 1e3 * ev[-1]["train_s"] / ranger_steps
+        ranger = {"launches": ranger_launches, "losses": [e["loss"] for e in ev],
+                  "ms_per_step": ms_ranger,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"cli train fastscnn --optim ranger --use_lovaszsoftmax "
+              f"--remat bf16 b{BATCH}: {ms_ranger:.3f} ms/step, peak "
+              f"{ranger['peak_gb']:.2f} GB, launches "
+              + json.dumps(ranger_launches))
+        ranger["resume_f32"] = check_f32_resume(
+            torch, torch.nn.functional, cli_train,
+            [a if a != "bfloat16" else "float32" for a in ranger_args]
+            + ["--val_epochs", "2"], tmp, prefix="ranger_f32")
+        result["ranger_lovasz_remat"] = ranger
     print(f"cli train fastscnn cityscapes bf16 b{BATCH} "
           f"{IMAGE_HW[1]}x{IMAGE_HW[0]} sources: "
           f"{result['ms_per_step']:.3f} ms/step "
@@ -2403,6 +3001,12 @@ def main() -> int:
                  "sqnet", "unet"):
         zoo[arch] = phase(arch, zoo_conv_phase, torch, F, K, BatchNorm,
                           build_model, make_predict_step, arch)
+    # the rest of the training surface, Fast-SCNN-19 at config 5: radam and
+    # ranger (K3 1 + 1 a step), focal and the Lovász losses (no kernel),
+    # remat (K3 1 + 1 a weighted-CE step)
+    optims = phase("radam_ranger", optim_phase, torch, F, K)
+    losses = phase("focal_lovasz", loss_phase, torch, F, K, BatchNorm)
+    remat = phase("remat", remat_phase, torch, F, K)
     cli = phase("cli", cli_phase, torch, K)
 
     launches = {
@@ -2410,7 +3014,14 @@ def main() -> int:
                      "train_5_steps": trained["launches"],
                      "config5_5_steps": fastscnn_config5["launches"],
                      "predict_after_train":
-                         interleaved["fastscnn"]["launches"]},
+                         interleaved["fastscnn"]["launches"],
+                     **{f"{name}_{OPTIM_STEPS}_steps": optims[name]["launches"]
+                        for name in ("radam", "ranger")},
+                     **{f"{name}_{TRAIN_STEPS}_steps":
+                        losses[name]["train"]["launches"]
+                        for name in LOSS_NAMES},
+                     **{f"remat_{loss}_step": remat[loss]["launches"]
+                        for loss in ("ce", "ce_ohem")}},
         "cgnet": {"predict": cgnet["launches"],
                   "predict_after_train": interleaved["cgnet"]["launches"],
                   "config4_train_5_steps": config4["cgnet"]["train"]
@@ -2432,7 +3043,9 @@ def main() -> int:
                            ("espnet_c", espnet_c), *zoo.items())},
         "cli_fastscnn": {"train": cli["launches"],
                          "test": cli["test"]["launches"],
-                         "predict": cli["predict"]["launches"]}}
+                         "predict": cli["predict"]["launches"],
+                         "train_ranger_lovasz_remat":
+                             cli["ranger_lovasz_remat"]["launches"]}}
     print("launches by model", json.dumps(launches))
     # each kernel's launches summed over every path above
     total = {}
@@ -2505,7 +3118,9 @@ def main() -> int:
          "enet_train": enet_train, "fastscnn_config5_train": fastscnn_config5,
          "contextnet": contextnet, "edanet": edanet, "lednet": lednet,
          **config4,
-         "espnet_c": espnet_c, **zoo, "cli": cli, "launches_total": total,
+         "espnet_c": espnet_c, **zoo, "radam_ranger": optims,
+         "focal_lovasz": losses, "remat": remat, "cli": cli,
+         "launches_total": total,
          "launches": launches, "phase_seconds": seconds,
          "kernels": kernels, "device": device}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,10 @@ On the CUDA device (bf16 by default) unless ``--cuda False`` (the CPU,
 f32 by default). ``--gpus`` is accepted and ignored: the port trains on
 one device. ``--encoder_checkpoint`` grafts a trained ESPNet-C's
 checkpoint (the port's or the JAX package's) into ESPNet's encoder
-before training. Options the port does not run yet (``--spatial`` > 1,
-``--remat``, ``--optim radam|ranger``, ``--use_focal``,
-``--use_lovaszsoftmax``) raise, naming their ``ROADMAP.md`` item.
+before training. Every optimizer (``--optim sgd|adam|adamw|radam|ranger``),
+loss (``--use_ohem``, ``--use_label_smoothing``, ``--use_focal``,
+``--use_lovaszsoftmax``) and ``--remat`` of the reference runs;
+``--spatial`` > 1 raises, naming its ``ROADMAP.md`` item.
 """
 import argparse
 import sys
@@ -70,7 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler Chrome trace of the first "
                         "epoch here")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the forward during the backward")
     p.add_argument("--spatial", type=int, default=1,
                    help="only 1: sharding image height is not ported yet")
     p.add_argument("--encoder_checkpoint", default="",

@@ -37,8 +37,11 @@ moments) maps by the same rules (:func:`params_state_dict`,
 ``add_decayed_weights``/``scale_by_adam``/``scale_by_learning_rate``
 chain, live or as a restored checkpoint's dicts) loads into a
 ``torch.optim.Adam`` (:func:`load_adam_state`) and comes back out
-(:func:`adam_state`); an optax ``trace`` (SGD momentum) loads into a
-``torch.optim.SGD`` (:func:`load_sgd_state`).
+(:func:`adam_state`); a ``radam`` state is the same ``ScaleByAdamState``
+and loads the same way into the port's ``RAdam``; a ``ranger`` state,
+``LookaheadState(inner, slow_params, count)``, loads into the port's
+``Ranger`` (:func:`load_ranger_state`); an optax ``trace`` (SGD momentum)
+loads into a ``torch.optim.SGD`` (:func:`load_sgd_state`).
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from .nn.layers import ConvTranspose
+from .train.optimizers import Ranger
 
 _PARAMS = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "alpha": "weight"}
@@ -171,6 +175,7 @@ def params_tree(named: Mapping[str, torch.Tensor],
 
 
 _ADAM_FIELDS = ("count", "mu", "nu")
+_LOOKAHEAD_FIELDS = ("inner", "slow_params", "count")
 
 
 def _find_fields(opt_state: Any, fields: Tuple[str, ...]
@@ -226,7 +231,8 @@ def _load_per_parameter(optimizer: torch.optim.Optimizer,
 def load_adam_state(optimizer: torch.optim.Optimizer,
                     model: torch.nn.Module, opt_state: Any) -> None:
     """Load the optax adam state in ``opt_state`` (its ``count``, ``mu``,
-    ``nu``) into ``optimizer``, a ``torch.optim.Adam`` (or ``AdamW``) over
+    ``nu``) into ``optimizer``, a ``torch.optim.Adam`` (``AdamW``, or the
+    port's ``RAdam``: optax's radam state is the same) over
     ``model.parameters()`` in their order: per parameter ``step`` =
     count, ``exp_avg`` = mu, ``exp_avg_sq`` = nu."""
     adam = _find_adam(opt_state)
@@ -255,13 +261,45 @@ def load_sgd_state(optimizer: torch.optim.Optimizer,
                         lambda name: {"momentum_buffer": trace[name]})
 
 
+def load_ranger_state(optimizer: Ranger, model: torch.nn.Module,
+                      opt_state: Any) -> None:
+    """Load the reference's ``ranger`` state, a ``LookaheadState(inner,
+    slow_params, count)`` whose ``inner`` chain holds the RAdam's
+    ``ScaleByAdamState``, into the port's ``Ranger`` over
+    ``model.parameters()``: per parameter ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` as :func:`load_adam_state` loads them, and ``slow`` =
+    slow_params. The Lookahead count must equal the inner count (the
+    port keeps one)."""
+    found = _find_fields(opt_state, _LOOKAHEAD_FIELDS)
+    if found is None:
+        raise ValueError("no lookahead state (inner/slow_params/count) in "
+                         "the optimizer state")
+    inner, slow, count = found
+    adam = _find_adam(inner)
+    if adam is None:
+        raise ValueError("no radam state (count/mu/nu) in the lookahead's "
+                         "inner state")
+    step = int(np.asarray(adam.count))
+    if int(np.asarray(count)) != step:
+        raise ValueError(f"lookahead count {int(np.asarray(count))} != "
+                         f"inner count {step}")
+    mu, nu, slow = (params_state_dict(tree, model)
+                    for tree in (adam.mu, adam.nu, slow))
+    _load_per_parameter(optimizer, model, lambda name: {
+        "step": torch.tensor(float(step)), "exp_avg": mu[name],
+        "exp_avg_sq": nu[name], "slow": slow[name]})
+
+
 def load_optimizer_state(optimizer: torch.optim.Optimizer,
                          model: torch.nn.Module, opt_state: Any) -> None:
     """The reference's optimizer state into the port's optimizer of the
-    same kind (``train/optimizers.py``): SGD's momentum, or adam's and
-    adamw's moments and count."""
+    same kind (``train/optimizers.py``): SGD's momentum, ranger's
+    Lookahead and RAdam state, or adam's, adamw's and radam's moments and
+    count."""
     if isinstance(optimizer, torch.optim.SGD):
         load_sgd_state(optimizer, model, opt_state)
+    elif isinstance(optimizer, Ranger):
+        load_ranger_state(optimizer, model, opt_state)
     else:
         load_adam_state(optimizer, model, opt_state)
 

@@ -8,7 +8,8 @@ where they meet it, as in the reference. Attribute names follow torch
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import contextlib
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -97,7 +98,71 @@ class ConvTranspose(nn.Module):
                                   bias=self.bias)
 
 
-class BatchNorm(nn.Module):
+class _Tape:
+    """What one module keeps in the first run of a recomputed forward and
+    reads back, in the same order, in its recompute (:class:`Recompute`)."""
+
+    def __init__(self):
+        self.values: List = []
+        self.replaying = False
+        self._next = 0
+
+    def keep(self, make: Callable):
+        """``make()`` in the first run, kept; the kept value in the
+        recompute."""
+        if not self.replaying:
+            self.values.append(make())
+            return self.values[-1]
+        self._next += 1
+        return self.values[self._next - 1]
+
+
+class _Recomputable(nn.Module):
+    """A module whose training forward has a side effect or draws, and so
+    must know whether it runs for the first time or is recomputed."""
+
+    _tape: Optional[_Tape] = None
+
+
+class Recompute:
+    """The contexts of a forward that ``torch.utils.checkpoint`` runs once
+    and recomputes during the backward (the train step's ``remat``), so
+    that the recompute gives the first run's tensors bit for bit and the
+    step moves the running statistics once, as the reference's pure
+    ``jax.checkpoint`` does.
+
+    In the first run each training :class:`BatchNorm` keeps the running
+    mean it centres on (a copy: its update overwrites the buffer) and each
+    :class:`Dropout` its generator's state before its draw. In the
+    recompute each BatchNorm centres on its kept mean and leaves the
+    running statistics alone, and each Dropout draws from its kept state.
+    ``contexts`` is the checkpoint's ``context_fn``: call it once a
+    checkpointed call.
+    """
+
+    def __init__(self, model: nn.Module):
+        self.modules = [m for m in model.modules()
+                        if isinstance(m, _Recomputable)]
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _run(tapes: Dict[nn.Module, _Tape], replaying: bool) -> Iterator[None]:
+        for m, tape in tapes.items():
+            tape.replaying, tape._next = replaying, 0
+            m._tape = tape
+        try:
+            yield
+        finally:
+            for m in tapes:
+                m._tape = None
+
+    def contexts(self):
+        """(the first run's context, the recompute's), over fresh tapes."""
+        tapes = {m: _Tape() for m in self.modules}
+        return self._run(tapes, False), self._run(tapes, True)
+
+
+class BatchNorm(_Recomputable):
     """BatchNorm2d with the reference's numerics.
 
     Eval applies ``x*scale + offset`` in the input dtype with f32-computed
@@ -105,7 +170,9 @@ class BatchNorm(nn.Module):
     biased variance (moments in f32, centred on the running mean) and moves
     the running stats by ``momentum`` toward the batch mean and the
     unbiased variance. A module in f64 (``.double()``) keeps all of it in
-    f64, so an f64 run is free of f32 rounding.
+    f64, so an f64 run is free of f32 rounding. A recompute
+    (:class:`Recompute`) centres on the running mean of the first run and
+    moves nothing.
     """
 
     def __init__(self, num_features: int, *, momentum: float = 0.1,
@@ -140,19 +207,22 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            rm = self.running_mean
+            tape = self._tape
+            rm = self.running_mean if tape is None \
+                else tape.keep(self.running_mean.clone)
             xf = x.to(_at_least_f32(x.dtype)) - rm[:, None, None]
             d = xf.mean(dim=(0, 2, 3))
             m2 = xf.square().mean(dim=(0, 2, 3))
             mean = rm + d
             var = torch.clamp(m2 - d.square(), min=0.0)
-            n = x.shape[0] * x.shape[2] * x.shape[3]
-            unbiased = var * (n / max(n - 1, 1))
-            m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_((1 - m) * rm + m * mean.detach())
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * unbiased.detach())
+            if tape is None or not tape.replaying:
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                unbiased = var * (n / max(n - 1, 1))
+                m = self.momentum
+                with torch.no_grad():
+                    self.running_mean.copy_((1 - m) * rm + m * mean.detach())
+                    self.running_var.copy_((1 - m) * self.running_var
+                                           + m * unbiased.detach())
             scale, offset = self._affine(mean, var)
         else:
             scale, offset = self.eval_affine()
@@ -178,14 +248,15 @@ class PReLU(nn.Module):
         return torch.where(x >= 0, x, a * x)
 
 
-class Dropout(nn.Module):
+class Dropout(_Recomputable):
     """Element dropout; identity in eval mode and at rate 0.
 
     In training the mask comes from ``self.generator``, an explicit
     ``torch.Generator`` on the tensor's device (the reference draws from
     the step's ``"dropout"`` rng); the train step sets it. Training with
     a positive rate and no generator raises, as the reference does
-    without a ``"dropout"`` rng. Kept values are scaled by ``1/keep``.
+    without a ``"dropout"`` rng. Kept values are scaled by ``1/keep``. A
+    recompute (:class:`Recompute`) draws the first run's mask again.
     """
 
     def __init__(self, rate: float):
@@ -200,6 +271,10 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in training needs a generator: set "
                                "it with set_dropout_generator or train "
                                "through make_train_step")
+        if self._tape is not None:
+            state = self._tape.keep(self.generator.get_state)
+            if self._tape.replaying:
+                self.generator.set_state(state)
         keep = 1.0 - self.rate
         u = torch.rand(self._mask_shape(x), generator=self.generator,
                        device=x.device)

@@ -45,8 +45,11 @@ def profile(torch, predict, images):
             predict(images)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / STEPS
+    # user annotations (an optimizer's "Optimizer.step#..." range) span
+    # kernels already counted: leave them out
     kernels = [e for e in prof.key_averages()
-               if _device_us(e) > 0 and str(e.device_type).endswith("CUDA")]
+               if _device_us(e) > 0 and str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: -_device_us(e))
     device_ms = sum(_device_us(e) for e in kernels) / STEPS / 1e3
     return wall_ms, device_ms, kernels

@@ -1,18 +1,20 @@
 """Device-time profile of a model's train step on one CUDA card.
 
-    python3 -m esn_tpu_torch.tools.profile_train [MODEL] [--loss LOSS] [--hw H,W]
+    python3 -m esn_tpu_torch.tools.profile_train [MODEL] [--loss LOSS]
+        [--optim OPTIM] [--hw H,W]
 
 MODEL is a registered model name (default ``fastscnn``). LOSS is
 ``ce`` (weighted CE: through ``logits_lowres`` and the fused resize-CE
 kernel on a resize-tail model, its default; on the full logits on a
-conv-tail model and on FPENet, a resize tail without ``logits_lowres``)
-or ``ce_ohem`` (the
-config-5 loss, weighted CE + OHEM on the model's own full-resolution
-logits; the default of a conv-tail model). Run from the repo root. Uses
+conv-tail model and on FPENet, a resize tail without ``logits_lowres``),
+``ce_ohem`` (the config-5 loss, weighted CE + OHEM on the model's own
+full-resolution logits; the default of a conv-tail model), or ``focal``,
+``lovasz`` or ``lovasz_hist`` (on the full logits). OPTIM is one of
+train.py's optimizers (default ``adam``). Run from the repo root. Uses
 ``chip_smoke.py``'s training setup (bf16, batch 8, 3x1024x2048 or the
 model's size in ``chip_smoke.MODEL_INPUT``, seeded
 smooth images and learnable labels, class weights from their histogram,
-adam + poly; ``--hw`` sets another input size, e.g. CGNet's config-4
+poly lr; ``--hw`` sets another input size, e.g. CGNet's config-4
 768,1536) and profiles 5 train steps with the kernel, then 5 with
 the plain versions (skipped where the step launches no kernel: the two
 would be the same), each after one untraced warm-up step. For each it
@@ -40,7 +42,10 @@ REPO = Path(__file__).resolve().parents[2]
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("model", nargs="?", default="fastscnn")
-    parser.add_argument("--loss", choices=["ce", "ce_ohem"], default=None)
+    parser.add_argument("--loss", default=None, choices=[
+        "ce", "ce_ohem", "focal", "lovasz", "lovasz_hist"])
+    parser.add_argument("--optim", default="adam", choices=[
+        "sgd", "adam", "adamw", "radam", "ranger"])
     parser.add_argument("--hw", default=None, help="H,W input size")
     args = parser.parse_args(argv)
     import torch
@@ -52,6 +57,7 @@ def main(argv: list[str]) -> int:
 
     import chip_smoke as S
     from esn_tpu_torch.ops import kernels as K
+    from esn_tpu_torch.train.optimizers import build_optimizer
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -61,11 +67,14 @@ def main(argv: list[str]) -> int:
     if args.hw:
         hw = tuple(int(v) for v in args.hw.split(","))
     print("input", S.BATCH, "x 3 x", hw, "classes", classes)
-    model, opt, batch, cw = S.train_setup(torch, F, args.model, hw, classes)
+    model, _, batch, cw = S.train_setup(torch, F, args.model, hw, classes)
+    opt = build_optimizer(args.optim, model.parameters())
     loss = args.loss or ("ce" if model.LOGITS_TAIL == "resize" else "ce_ohem")
-    print("model", args.model, "loss", loss)
-    make_step = S.train_step if loss == "ce" else S.config5_step
-    step = make_step(torch, model, opt, cw, torch.bfloat16)
+    print("model", args.model, "loss", loss, "optim", args.optim)
+    if loss == "ce_ohem":
+        step = S.config5_step(torch, model, opt, cw, torch.bfloat16)
+    else:
+        step = S.train_step(torch, model, opt, cw, torch.bfloat16, loss=loss)
     K.reset_launches()
     for label in ("kernel", "plain"):
         ctx = (S.plain_versions(K) if label == "plain"

@@ -14,9 +14,9 @@ the two formats apart by their first bytes (``torch.save`` writes a zip
 archive) and read msgpack with the port's own decoder
 (``utils/msgpack_decode.py``: the card's machine has no ``msgpack`` and
 no ``flax``). Params and BN stats go through ``convert.to_state_dict``
-with the port's model; the optimizer's state (adam's moments and count,
-or SGD's momentum) goes into the ``torch.optim`` optimizer
-(``convert.load_optimizer_state``).
+with the port's model; the optimizer's state (adam's, adamw's and radam's
+moments and count, ranger's with its slow weights, or SGD's momentum)
+goes into the port's optimizer (``convert.load_optimizer_state``).
 
 :func:`load_encoder` is ESPNet's two-stage recipe: a trained ESPNet-C's
 checkpoint, of either package, grafted into ESPNet's ``enc``.

@@ -12,8 +12,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..nn import SegModel, set_dropout_generator
+from ..nn import Recompute, SegModel, set_dropout_generator
 from ..ops.classify import argmax_lastdim
 from ..ops.resize import resize_bilinear
 from .metrics import confusion_matrix
@@ -47,12 +48,13 @@ class TrainStep:
                  schedule: Optional[Callable[[int], float]],
                  compute_dtype: torch.dtype, grad_accum: int,
                  fwd_method: Optional[str],
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], remat: bool):
         if grad_accum < 1:
             raise ValueError(f"grad_accum={grad_accum} must be >= 1")
         self.model, self.loss_fn, self.optimizer = model, loss_fn, optimizer
         self.schedule, self.compute_dtype = schedule, compute_dtype
         self.grad_accum, self.fwd_method = grad_accum, fwd_method
+        self.recompute = Recompute(model) if remat else None
         self.seed = None if generator is None else generator.initial_seed()
         self.device = next(model.parameters()).device
         self.count = 0
@@ -65,7 +67,12 @@ class TrainStep:
             set_dropout_generator(self.model, gen)
         x = images.to(device=self.device, dtype=self.compute_dtype,
                       memory_format=torch.channels_last)
-        logits = self.model.run(x, self.fwd_method)
+        if self.recompute is None:
+            logits = self.model.run(x, self.fwd_method)
+        else:
+            logits = checkpoint(self.model.run, x, self.fwd_method,
+                                use_reentrant=False,
+                                context_fn=self.recompute.contexts)
         return self.loss_fn(logits.float().permute(0, 2, 3, 1), labels)
 
     def __call__(self, batch: Dict[str, torch.Tensor]
@@ -114,7 +121,8 @@ def make_train_step(model: SegModel, loss_fn: Callable,
                     schedule: Optional[Callable[[int], float]] = None,
                     compute_dtype: torch.dtype = torch.float32,
                     grad_accum: int = 1, fwd_method: Optional[str] = None,
-                    generator: Optional[torch.Generator] = None) -> TrainStep:
+                    generator: Optional[torch.Generator] = None,
+                    remat: bool = False) -> TrainStep:
     """Build ``step(batch) -> metrics`` for batches ``{"image": (N, C, H,
     W) float, "label": (N, H, W) int}``.
 
@@ -131,13 +139,20 @@ def make_train_step(model: SegModel, loss_fn: Callable,
     Metrics: ``loss`` (a device scalar; the microbatch mean under
     accumulation) and ``lr``.
 
-    ``remat`` has no counterpart yet: ``torch.utils.checkpoint`` re-runs
-    the forward, and BN here updates its running stats in place, so a
-    plain checkpoint would update them twice a step.
+    ``remat=True`` recomputes the model's forward during the backward
+    (the reference's ``jax.checkpoint``), each microbatch's on its own: a
+    non-reentrant ``torch.utils.checkpoint`` around ``model.run``, whose
+    :class:`~esn_tpu_torch.nn.Recompute` contexts make the recompute
+    centre each BN on the running mean the first run saw, move no
+    running statistic and draw the first run's dropout masks. The loss,
+    gradients and BN statistics are those of the step without it. The
+    loss stays outside the checkpoint (the reference recomputes it too;
+    the value is the same), so a fused resize-CE loss launches its kernel
+    once forward and once backward a step, as without ``remat``.
     """
     return TrainStep(model, loss_fn, optimizer, schedule=schedule,
                      compute_dtype=compute_dtype, grad_accum=grad_accum,
-                     fwd_method=fwd_method, generator=generator)
+                     fwd_method=fwd_method, generator=generator, remat=remat)
 
 
 def make_predict_step(model: SegModel, *,

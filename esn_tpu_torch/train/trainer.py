@@ -16,12 +16,14 @@ resumed run therefore draws what the unbroken run drew.
 package's) into the model's ``enc`` before training (ESPNet's two-stage
 recipe, ``checkpoint.load_encoder``).
 
-Not ported yet, and raising with the ``ROADMAP.md`` item that holds
-them: ``spatial > 1``, ``remat``, the ``radam``/``ranger`` optimizers,
-the ``focal``/``lovasz`` losses, and a data-parallel mesh (the port
-trains on one device; ``run_dir`` says ``gpu1``). The reference's retry
-of a step that failed to compile on the TPU has no counterpart: the step
-is called directly.
+``optim`` takes every optimizer of the reference (``sgd``, ``adam``,
+``adamw``, ``radam``, ``ranger``), ``loss`` every loss (``ce``,
+``label_smoothing``, ``ohem``, ``focal``, ``lovasz``, ``lovasz_hist``),
+and ``remat`` recomputes the forward during the backward. Not ported
+yet, and raising with the ``ROADMAP.md`` item that holds it: ``spatial >
+1`` and a data-parallel mesh (the port trains on one device; ``run_dir``
+says ``gpu1``). The reference's retry of a step that failed to compile on
+the TPU has no counterpart: the step is called directly.
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ class TrainConfig:
     warmup_iters: int = 500
     warmup_factor: float = 1.0 / 3.0
     weight_decay: float = 1e-4
-    loss: str = "ce"            # ce | label_smoothing | ohem | focal | lovasz
+    loss: str = "ce"  # ce | label_smoothing | ohem | focal | lovasz | lovasz_hist
     random_scale: bool = True
     random_mirror: bool = True
     aug_mode: str = "batch"     # batch | reference (per-image scale)
@@ -111,16 +113,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def check_ported(cfg: TrainConfig) -> None:
     """Raise for an option this port does not run yet, naming the
     ``ROADMAP.md`` item that holds it."""
-    rest = "item 8: the rest of the training surface"
     if cfg.spatial > 1:
         raise _not_ported(f"spatial={cfg.spatial} (image height sharded "
                           f"over devices)", "item 10: parallelism")
-    if cfg.remat:
-        raise _not_ported("remat", rest)
-    if cfg.optim in ("radam", "ranger"):
-        raise _not_ported(f"optim={cfg.optim!r}", rest)
-    if cfg.loss in ("focal", "lovasz"):
-        raise _not_ported(f"loss={cfg.loss!r}", rest)
     if cfg.aug_mode not in ("batch", "reference"):
         raise ValueError(f"aug_mode {cfg.aug_mode!r}: batch or reference")
 
@@ -188,7 +183,7 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, self.loss_fn, self.optimizer, schedule=self.schedule,
             compute_dtype=compute_dtype, grad_accum=cfg.grad_accum,
-            fwd_method=fwd_method,
+            fwd_method=fwd_method, remat=cfg.remat,
             generator=torch.Generator().manual_seed(cfg.seed))
         self.eval_step = make_eval_step(
             self.model, self.spec.num_classes,

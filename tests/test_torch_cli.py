@@ -77,14 +77,36 @@ def test_config_from_args():
     assert resolve_compute_dtype("float32", "cuda") == torch.float32
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--spatial", "2"], "item 10"), (["--remat"], "item 8"),
-    (["--use_focal"], "item 8"), (["--use_lovaszsoftmax"], "item 8"),
-    (["--optim", "ranger"], "item 8")])
+@pytest.mark.parametrize("flags,item", [(["--spatial", "2"], "item 10")])
 def test_unported_flags_raise_with_their_roadmap_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1, {item}"):
         train_cli.main(flags + ["--cuda", "False", "--savedir",
                                 str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags,loss", [
+    (["--remat"], "ce"), (["--use_focal"], "focal"),
+    (["--use_lovaszsoftmax"], "lovasz"), (["--optim", "ranger"], "ce")],
+    ids=["remat", "focal", "lovasz", "ranger"])
+def test_training_surface_flags_train_a_step(tmp_path, monkeypatch, capsys,
+                                             flags, loss):
+    """Each flag of the reference's training surface (ROADMAP item 8)
+    trains one CPU step of ENet through ``cli.train`` and writes its
+    checkpoint; ranger's optimizer state holds its slow weights."""
+    monkeypatch.chdir(tmp_path)
+    assert train_cli.main(flags + [
+        "--model", "ENet", "--dataset", "camvid", "--synthetic_hw",
+        "144,192", "--data_root", str(tmp_path / "none"), "--cuda", "False",
+        "--input_size", "72,96", "--max_epochs", "1", "--batch_size", "2",
+        "--synthetic_len", "2", "--num_workers", "2", "--savedir",
+        str(tmp_path / "ck")]) == 0
+    assert f"loss {loss}," in capsys.readouterr().out
+    state = torch.load(str(tmp_path / "ck" / "camvid" /
+                           "ENetbs2gpu1_train" / "model_1.ckpt"),
+                       weights_only=True)["state"]
+    assert state["step"] == 1
+    slow = ["slow" in s for s in state["optimizer"]["state"].values()]
+    assert all(slow) if "ranger" in flags else not any(slow)
 
 
 def test_cli_runs_on_the_card_unless_told_otherwise(tmp_path):

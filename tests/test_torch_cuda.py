@@ -852,3 +852,124 @@ def test_load_encoder_into_a_model_on_the_card(cuda, tmp_path):
         a = cpu.eval()(images)
         b = gpu.eval()(images.to(cuda)).cpu()
     assert bool(((a - b).abs() <= 1e-4 * torch.clamp(a.abs(), min=1)).all())
+
+
+# focal and the Lovász losses on the card against the CPU, f32: the value
+# within 1e-5 relative, the gradient with respect to the logits within
+# these rel-L2 bounds: softmax, exp and log in other orders (~1e-7); for
+# lovasz the order of pixels whose errors the two devices round apart,
+# for lovasz_hist the key of a pixel whose error they round across a
+# bucket's edge (chip_smoke.py's LOSS_CPU_GRAD_REL, read there on a slice
+# of Fast-SCNN's logits: 1.5e-7, 9.2e-5, 2.4e-3)
+NEW_LOSS_GRAD_REL = {"focal": 1e-5, "lovasz": 1e-3, "lovasz_hist": 1e-2}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_LOSS_GRAD_REL))
+@pytest.mark.parametrize("ignore_all", [False, True])
+def test_new_losses_on_cuda_match_cpu(cuda, name, ignore_all):
+    from esn_tpu_torch.train import losses as L
+    rng = np.random.RandomState(7)
+    z = torch.from_numpy((rng.randn(2, 64, 128, 19) * 2).astype(np.float32))
+    lab = torch.from_numpy(rng.randint(0, 20, (2, 64, 128)).astype(np.int32))
+    lab[lab == 19] = 255
+    if ignore_all:
+        lab[:] = 255
+    cw = torch.from_numpy((rng.rand(19) + 0.5).astype(np.float32))
+    runs = []
+    for dev in ("cpu", cuda):
+        zz = z.to(dev).detach().clone().requires_grad_()
+        loss = L.build_loss(name)(zz, lab.to(dev), num_classes=19,
+                                  class_weights=cw.to(dev))
+        loss.backward()
+        runs.append((float(loss.detach()), zz.grad.cpu()))
+    (v0, g0), (v, g) = runs
+    assert abs(v - v0) <= 1e-5 * abs(v0)
+    if ignore_all:
+        assert not g.any() and not g0.any()
+    else:
+        assert float((g - g0).norm() / g0.norm()) <= NEW_LOSS_GRAD_REL[name]
+
+
+@pytest.mark.parametrize("name", ["radam", "ranger"])
+def test_radam_ranger_on_cuda_match_cpu(cuda, name):
+    """14 steps of the same seeded gradients, weight decay and a learning
+    rate that changes every step, on the card and on the CPU: each
+    parameter within 16 f32 ulps of its largest value (the same formulas in
+    f32; an FMA here or there), Lookahead's slow weights too."""
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    rng = np.random.RandomState(8)
+    shapes = [(64, 32, 3, 3), (32,), (19, 32, 1, 1)]
+    p0 = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rng.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(14)]
+    runs = []
+    for dev in ("cpu", cuda):
+        params = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(dev))
+                  for a in p0]
+        opt = build_optimizer(name, params, weight_decay=1e-2)
+        for t, g in enumerate(grads):
+            for p, a in zip(params, g):
+                p.grad = torch.from_numpy(a).to(dev)
+            for group in opt.param_groups:
+                group["lr"] = 1e-2 * (1 + 0.1 * t)
+            opt.step()
+        runs.append((params, opt))
+    (cpu_p, cpu_opt), (gpu_p, gpu_opt) = runs
+    for a, b in zip(cpu_p, gpu_p):
+        assert float((b.detach().cpu() - a.detach()).abs().max()) <= (
+            2.0 ** -20 * float(a.detach().abs().max()))
+        if name == "ranger":
+            sa, sb = cpu_opt.state[a]["slow"], gpu_opt.state[b]["slow"]
+            assert float((sb.cpu() - sa).abs().max()) <= (
+                2.0 ** -20 * float(sa.abs().max()))
+
+
+@pytest.mark.parametrize("loss_name", ["ce", "lovasz"])
+def test_remat_step_on_cuda_matches_the_step_without(cuda, loss_name):
+    """A Fast-SCNN f32 step with remat on the card against the same step
+    without (dropout on, the same seed): the loss and the BN running
+    statistics bit for bit (the first forward is the same, the recompute
+    moves no statistic), the gradients of all parameters together within
+    4x the gap of a second step without remat plus 1e-6 (the backward of
+    bilinear upsampling and adaptive pooling adds with atomics); K3 once
+    forward and once backward with the weighted-CE loss either way."""
+    import copy
+    from functools import partial
+    from esn_tpu_torch.train import losses as L
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    from esn_tpu_torch.train.step import make_train_step
+    rng = np.random.RandomState(9)
+    images = torch.from_numpy(rng.randn(2, 3, 128, 256).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 19, (2, 128, 256))
+                              .astype(np.int32)).to(cuda)
+    model0 = build_model("fastscnn", 19, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for which in ("plain", "remat", "again"):
+        model = copy.deepcopy(model0)
+        fused, method = L.fused_resize_ce_spec(model, loss_name)
+        step = make_train_step(
+            model, partial(fused or L.build_loss(loss_name), num_classes=19),
+            build_optimizer("adam", model.parameters()), fwd_method=method,
+            remat=which == "remat",
+            generator=torch.Generator(device=cuda).manual_seed(3))
+        before = dict(K.LAUNCHES)
+        loss = float(step({"image": images.to(cuda), "label": labels})
+                     ["loss"])
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        runs[which] = (loss, launched,
+                       torch.cat([p.grad.flatten()
+                                  for p in model.parameters()]),
+                       [b.clone() for b in model.buffers()])
+    (loss, launched, g, stats) = runs["plain"]
+    (loss_r, launched_r, g_r, stats_r) = runs["remat"]
+    g_again = runs["again"][2]
+    assert loss_r == loss
+    assert all(torch.equal(a, b) for a, b in zip(stats, stats_r))
+    k3 = 1 if loss_name == "ce" else 0
+    assert launched_r == launched == {"dsconv": 0, "resize_argmax": 0,
+                                      "resize_ce_fwd": k3,
+                                      "resize_ce_bwd": k3, "cgblock": 0}
+    gap = float((g_r - g).norm() / g.norm())
+    noise = float((g_again - g).norm() / g.norm())
+    assert gap <= 4 * noise + 1e-6, (gap, noise)

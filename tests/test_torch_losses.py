@@ -254,7 +254,7 @@ def test_build_loss_and_fused_spec():
     assert float(ce(x, lab)) == pytest.approx(np.log(3))
     assert L.build_loss("label_smoothing").keywords == {"label_smoothing": 0.1}
     with pytest.raises(KeyError):
-        L.build_loss("focal")
+        L.build_loss("dice")
     model = build_model("fastscnn", 4, device="cpu")
     for name, eps in (("ce", 0.0), ("label_smoothing", 0.1)):
         fn, method = L.fused_resize_ce_spec(model, name)

@@ -90,7 +90,7 @@ def test_optimizer_update_matches_optax(name):
         np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
                                    atol=1e-6, rtol=0, err_msg=k)
     with pytest.raises(KeyError):
-        O.build_optimizer("ranger", list(tp.values()))
+        O.build_optimizer("lamb", list(tp.values()))
 
 
 # ------------------------------------------------------------------ dropout

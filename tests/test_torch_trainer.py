@@ -138,13 +138,57 @@ def test_resume_is_exact(straight, tmp_path):
         assert got[0][key] == want[key], key
 
 
-@pytest.mark.parametrize("over,item", [
-    (dict(spatial=2), "item 10"), (dict(remat=True), "item 8"),
-    (dict(optim="radam"), "item 8"), (dict(optim="ranger"), "item 8"),
-    (dict(loss="focal"), "item 8"), (dict(loss="lovasz"), "item 8")])
+@pytest.mark.parametrize("over,item", [(dict(spatial=2), "item 10")])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, over, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, {item}"):
         Trainer(make_cfg(tmp_path, "x", **over))
+
+
+@pytest.mark.parametrize("over", [
+    dict(remat=True), dict(optim="radam"), dict(optim="ranger"),
+    dict(loss="focal"), dict(loss="lovasz"), dict(loss="lovasz_hist")],
+    ids=["remat", "radam", "ranger", "focal", "lovasz", "lovasz_hist"])
+def test_training_surface_options_train_a_step(tmp_path, over):
+    """The rest of the reference's training surface (ROADMAP item 8): one
+    CPU step of ENet with each option, through the optimizer, the loss and
+    the recomputing step that the option names."""
+    from esn_tpu_torch.train.losses import LOSS_REGISTRY
+    from esn_tpu_torch.train.optimizers import RAdam, Ranger
+    trainer = Trainer(make_cfg(tmp_path, "x", synthetic_len=2, max_epochs=1,
+                               **over))
+    kinds = {"radam": RAdam, "ranger": Ranger}
+    assert type(trainer.optimizer) is kinds.get(trainer.cfg.optim,
+                                                torch.optim.Adam)
+    assert trainer.loss_fn.func is LOSS_REGISTRY[trainer.cfg.loss]
+    assert (trainer.train_step.recompute is not None) == trainer.cfg.remat
+    loss, _ = trainer.train_epoch(0)
+    assert trainer.train_step.count == 1 and np.isfinite(loss)
+
+
+def test_ranger_lovasz_remat_resume_is_exact(tmp_path):
+    """ranger + Lovász + remat: two straight epochs of three steps against
+    one epoch, a resume from its checkpoint and the second: bit for bit,
+    the resumed epoch crossing Lookahead's sync at step 6 from the
+    checkpoint's slow weights."""
+    over = dict(optim="ranger", loss="lovasz", remat=True, val_epochs=2)
+    straight = Trainer(make_cfg(tmp_path, "straight", **over))
+    straight.fit()
+    first = Trainer(make_cfg(tmp_path, "first", **over))
+    first.fit(epochs=1)
+    resumed = Trainer(make_cfg(
+        tmp_path, "resumed", resume=os.path.join(first.cfg.run_dir,
+                                                 "model_1.ckpt"), **over))
+    resumed.fit()
+    assert straight.train_step.count == resumed.train_step.count == 6
+    for (k, a), (k2, b) in zip(straight.model.state_dict().items(),
+                               resumed.model.state_dict().items()):
+        assert k == k2 and torch.equal(a, b), k
+    sa = straight.optimizer.state_dict()["state"]
+    sb = resumed.optimizer.state_dict()["state"]
+    for i in sa:
+        for key in ("step", "exp_avg", "exp_avg_sq", "slow"):
+            assert torch.equal(sa[i][key], sb[i][key]), (i, key)
+    assert _events(resumed.cfg)[0]["loss"] == _events(straight.cfg)[1]["loss"]
 
 
 def test_trainer_grafts_an_encoder(tmp_path):
