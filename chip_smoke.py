@@ -103,9 +103,29 @@ from zero:
   then ``cli.train --optim ranger --use_lovaszsoftmax --remat``, two
   epochs of six steps (K1 and K2 at validation, no K3: Lovász takes the
   full logits), and its f32 resume from epoch 1 against the straight run,
-  Lookahead syncing at step 12 from the checkpoint's slow weights.
+  Lookahead syncing at step 12 from the checkpoint's slow weights;
+- data parallelism (``data_parallel``): two ranks on the one card under
+  gloo (``parallel.launch.run_ranks``; both share the card), Fast-SCNN-19
+  at config 5, a global batch of 8 (4 rows a rank), against the same
+  steps in one process on the same batch and weights: three weighted-CE
+  adam steps (K3 1 + 1 a step a rank) and one CE + OHEM step, in f32
+  (TF32 off) and bf16; the first step's loss and BN statistics within
+  stated bounds and its gradient no further from an f64 step on the card
+  than the one-process f32 gradient is, the whole run within stated
+  bounds of a chaotic f32 run (see DP_LOSS_REL); the ranks' state
+  bit for bit equal; the global OHEM select bit for bit the one-process
+  topk; a bf16 Lovász step (the sort gathers every rank's errors) whose
+  first loss lies within DP_LOSS_REL of one process's, timed; one padded
+  val batch (7 images of 8) whose summed confusion matrix equals the
+  one-process one up to near ties; the f32 steps in a
+  one-rank NCCL group; ``torchrun --nproc_per_node 2 -m
+  esn_tpu_torch.cli.train`` and a resume against one process; the step's
+  time at 2 ranks and the collectives' share of it. Each rank reports
+  its kernel launches back; a rank that raises, hangs or exits nonzero
+  fails the phase.
 
-Each phase prints its seconds. Exits non-zero on any failure, and when
+``python3 chip_smoke.py --only data_parallel`` rehearses that phase alone
+(no kernels line, no result line). Each phase prints its seconds. Exits non-zero on any failure, and when
 no CUDA device is present. The last line of standard output is one JSON
 object; the line before it lists the kernels, and ``launches by model``
 above them each model's launch counts; a kernel's ``launches`` in the
@@ -485,6 +505,57 @@ HBM_BPS, F32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
 # capability 9.0), at the card's largest SM clock (nvidia-smi).
 SFU_PER_CLOCK = 16
 
+
+# data parallelism (the data_parallel phase): DP_RANKS ranks on the one card
+# under gloo (two ranks and one card: the backend rule picks gloo),
+# Fast-SCNN-19 at config 5, a global batch of BATCH, against one process on
+# the same batch and weights: DP_CE_STEPS weighted-CE adam steps (K3 1 + 1 a
+# step a rank), then one CE + OHEM step. f32 (TF32 off) training of this
+# model is chaotic on the card: two one-process runs of these steps, which
+# differ only by the atomics of the upsample and pooling backward, end 0.12
+# apart (rel-L2 of the parameters' update) and 4.9e-4 (the BN statistics'),
+# since adam's first steps move each parameter by ~lr sign(g) and f32 gets
+# the sign of the small gradients wrong (read on an NVIDIA H100 80GB HBM3 at
+# 700 W before these bounds were set). So the strict check is the first step,
+# from equal weights: its loss within DP_LOSS_REL and the BN statistics'
+# update within DP_STATS_REL, each bound also no less than DP_NOISE times the
+# same reading between the two one-process runs (as remat's REMAT_NOISE), and
+# the gradient summed over the ranks (all parameters together) no further
+# from the same step's gradient in f64 on the card (``dp_oracle_grads``) than
+# DP_GRAD_RATIO times the one-process f32 gradient is: the first layers'
+# weight gradients sum ~4 M products each with heavy cancellation, and the
+# ranks' convolutions at 4 rows sum them otherwise than at 8 (other cuDNN
+# algorithms), so the two f32 gradients lie 6.6e-3 apart where two
+# one-process runs lie under 2.5e-4 (the same card, before this bound was
+# set). The whole run's losses, statistics and parameters are held to
+# DP_TRAJECTORY, or DP_TRAJECTORY_NOISE times the two one-process runs' gap
+# where that is larger: the ranks' first gradient starts the chaos from its
+# 6.6e-3 where the atomics start it from under 2.5e-4, so the gap does not
+# scale with the atomics' noise (which itself reads 4e-5 to 2.5e-4 in the
+# loss from run to run). DP_TRAJECTORY was set from four runs of this phase
+# on that card, which read the two-rank run's gap at 1.08e-3 to 1.72e-3
+# (loss), 2.0e-3 to 2.1e-3 (BN statistics) and 0.305 to 0.307 (parameters),
+# about 3x under it; a rank that misses a collective fails the first step's
+# bounds or leaves the ranks' states unequal. The leaves whose gradient is
+# zero in exact arithmetic are left out (rounding noise alone moves them). In
+# bf16 each reading is held to DP_BF16_FACTOR times the same reading between
+# the one-process bf16 and f32 runs (what bf16's own rounding does to the
+# same steps), and never to less than the f32 bound.
+DP_RANKS, DP_CE_STEPS, DP_TIMED_STEPS = 2, 3, 5
+DP_LOSS_REL, DP_GRAD_RATIO, DP_STATS_REL = 1e-5, 2.0, 1e-4
+DP_NOISE, DP_BF16_FACTOR, DP_TRAJECTORY_NOISE = 4.0, 1.0, 10.0
+DP_TRAJECTORY = {"loss_rel": 5e-3, "stats_rel": 1e-2, "param_rel": 0.6}
+# the eval batch: DP_EVAL_VALID real images padded to BATCH, 4 rows a rank
+DP_EVAL_VALID = 7
+# seconds a spawn of ranks, or a torchrun, may take before it is killed
+DP_LIMIT = 420.0
+# torchrun: cli.train, Fast-SCNN-19 on Cityscapes-shaped synthetic data at
+# DP_CLI_HW, batch 8, 2 epochs of 2 steps, f32 (TF32 off through
+# NVIDIA_TF32_OVERRIDE=0); each epoch's loss (and the resumed second's)
+# within the trajectory's f32 loss bound of the one-process run's (an
+# epoch spans steps after adam's first): DP_TRAJECTORY's, or
+# DP_TRAJECTORY_NOISE times the gap between two one-process runs
+DP_CLI_HW = (256, 512)
 
 class SmokeFailure(RuntimeError):
     pass
@@ -2854,6 +2925,584 @@ def cli_phase(torch, K):
     return result
 
 
+# -------------------------------------------------------------- data parallel
+@contextlib.contextmanager
+def recorded_thresholds():
+    """Every OHEM threshold the losses compute inside, in order, as Python
+    floats (exact for f32): the losses look ``ohem_threshold`` up at call
+    time."""
+    from esn_tpu_torch.train import losses as L
+    seen, orig = [], L.ohem_threshold
+
+    def record(*args, **kwargs):
+        t = orig(*args, **kwargs)
+        seen.append(float(t))
+        return t
+    L.ohem_threshold = record
+    try:
+        yield seen
+    finally:
+        L.ohem_threshold = orig
+
+
+def dp_steps(torch, model, opt, batch, cw, dtype):
+    """DP_CE_STEPS weighted-CE adam steps (K3 on a resize-tail model), then
+    one CE + OHEM step on the full logits, on ``batch`` (this rank's rows
+    under a group): the losses, the OHEM threshold, and the model's state
+    before, after the CE steps and after all (f32, on the CPU)."""
+    def snapshot():
+        return {k: v.detach().float().cpu().clone()
+                for k, v in model.state_dict().items()}
+    before = snapshot()
+    ce = train_step(torch, model, opt, cw, dtype)
+    losses = [float(ce(batch)["loss"])]
+    # the first step's gradient (summed over the ranks) and state
+    grads = {n: p.grad.detach().float().cpu().clone()
+             for n, p in model.named_parameters()}
+    after_first = snapshot()
+    losses += [float(ce(batch)["loss"]) for _ in range(DP_CE_STEPS - 1)]
+    after_ce = snapshot()
+    ohem = config5_step(torch, model, opt, cw, dtype)
+    with recorded_thresholds() as thresholds:
+        losses.append(float(ohem(batch)["loss"]))
+    return {"losses": losses, "thresholds": thresholds, "before": before,
+            "grads": grads, "after_first": after_first,
+            "after_ce": after_ce, "after": snapshot()}
+
+
+def dp_oracle_grads(torch, F, K):
+    """The first weighted-CE step's gradient in f64 on the card (one
+    process, the model and batch of ``train_setup`` in f64, K3's plain
+    version, which keeps f64), per parameter, as f32 on the CPU: the
+    oracle both f32 runs are held to."""
+    model, opt, batch, cw = train_setup(torch, F)
+    model.double()
+    step = train_step(torch, model, opt, cw, torch.float64)
+    with plain_versions(K):
+        step(batch)
+    grads = {n: p.grad.detach().float().cpu().clone()
+             for n, p in model.named_parameters()}
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return grads
+
+
+def dp_eval_batch():
+    """DP_EVAL_VALID seeded uint8 images (NHWC) and labels at config 5,
+    with a band of ignored rows."""
+    import numpy as np
+    rng = np.random.RandomState(5)
+    h, w = IMAGE_HW
+    images = rng.randint(0, 256, (DP_EVAL_VALID, h // 16, w // 16, 3)
+                         ).astype(np.uint8).repeat(16, 1).repeat(16, 2)
+    labels = rng.randint(0, CLASSES, (DP_EVAL_VALID, h // 64, w // 64)
+                         ).astype(np.int32).repeat(64, 1).repeat(64, 2)
+    labels[:, :32] = IGNORE
+    return images, labels
+
+
+class _OneBatch(list):
+    """A loader of one batch whose fixed eval batch is BATCH."""
+    batch_size = BATCH
+
+
+def dp_eval(torch, K, eval_state):
+    """``run_eval`` (bf16) of the seeded Fast-SCNN over one val batch of
+    DP_EVAL_VALID images padded to BATCH: the confusion matrix, every
+    real row's prediction (rank 0's ``per_image``; gathered under a
+    group), the kernel launches of ``run_eval`` (from zero), and this
+    rank's rows' low-res logits."""
+    import numpy as np
+
+    from esn_tpu_torch.data.augment import make_eval_transform
+    from esn_tpu_torch.models import build_model
+    from esn_tpu_torch.parallel import mesh
+    from esn_tpu_torch.train.evaluation import run_eval
+    from esn_tpu_torch.train.step import make_eval_step
+    model = build_model("fastscnn", CLASSES, device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in eval_state.items()})
+    step = make_eval_step(model, CLASSES, ignore_index=IGNORE,
+                          compute_dtype=torch.bfloat16)
+    images, labels = dp_eval_batch()
+    transform = make_eval_transform(mean=np.float32([73.2, 82.9, 72.4]))
+    preds = []
+    K.reset_launches()
+    cm = run_eval(step, _OneBatch([{"image": images, "label": labels}]),
+                  transform, CLASSES,
+                  per_image=lambda i, pred, batch: preds.append(pred))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    padded, _ = mesh.pad_batch_to({"image": images}, BATCH)
+    mine = mesh.shard_batch(padded)["image"]
+    with torch.inference_mode():
+        x = transform(torch.from_numpy(mine).cuda()).to(torch.bfloat16)
+        logits = model.logits_lowres(x).permute(0, 2, 3, 1).float().cpu()
+    return {"cm": cm, "preds": np.stack(preds) if preds else None,
+            "launches": launches, "logits": logits.numpy()}
+
+
+def dp_select(torch):
+    """The min_kept-th smallest of a config-5 batch of probabilities with
+    ties everywhere (multiples of 2^-12, so the tie at the answer spans
+    the ranks) and an ignored band: ``ohem_threshold`` with thresh 0 (the
+    radix select under a group, topk in one process), its ms."""
+    from esn_tpu_torch.parallel import mesh
+    from esn_tpu_torch.train import losses as L
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = torch.floor(torch.rand((BATCH, *IMAGE_HW), generator=gen,
+                               device="cuda") * 4096) / 4096
+    p[:, :8] = 2.0
+    mine = mesh.shard_batch({"p": p})["p"].reshape(-1)
+    k = p.numel() // 16
+    value = float(L.ohem_threshold(mine, 0.0, k))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L.ohem_threshold(mine, 0.0, k)
+    torch.cuda.synchronize()
+    return {"min_kept": k, "kth": value,
+            "ms": 1e3 * (time.perf_counter() - t0)}
+
+
+def dp_timing(torch, F):
+    """ms a bf16 weighted-CE step at config 5 (this rank's rows), with the
+    collectives untimed, then with each collective synchronised and timed
+    (``mesh.TIMING``): their ms and calls a step."""
+    from esn_tpu_torch.parallel import mesh
+    model, opt, batch, cw = train_setup(torch, F)
+    step = train_step(torch, model, opt, cw, torch.bfloat16)
+    batch = mesh.shard_batch(batch)
+    ms = 1e3 * timed_steps(torch, step, batch, DP_TIMED_STEPS)
+    mesh.TIMING.update(on=True, calls=0, seconds=0.0, bytes=0)
+    try:
+        timed_ms = 1e3 * timed_steps(torch, step, batch, DP_TIMED_STEPS)
+        n = DP_TIMED_STEPS + 1          # timed_steps' warm-up step too
+        coll = {"ms_per_step": 1e3 * mesh.TIMING["seconds"] / n,
+                "calls_per_step": mesh.TIMING["calls"] / n,
+                "mb_per_step": mesh.TIMING["bytes"] / n / 1e6}
+    finally:
+        mesh.TIMING["on"] = False
+    return {"ms_per_step": ms, "ms_per_step_collectives_timed": timed_ms,
+            "collectives": coll, "rows": int(batch["image"].shape[0])}
+
+
+def dp_lovasz(torch, F):
+    """One bf16 Lovász (sort) adam step at config 5 on this rank's rows,
+    then a second one timed (ms, and the collectives' ms with each
+    synchronised): under a group the sort gathers every rank's errors
+    and labels (``mesh.gather_rows``), whose size is returned."""
+    from esn_tpu_torch.parallel import mesh
+    model, opt, batch, cw = train_setup(torch, F)
+    step = train_step(torch, model, opt, cw, torch.bfloat16, loss="lovasz")
+    batch = mesh.shard_batch(batch)
+    loss = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    mesh.TIMING.update(on=True, calls=0, seconds=0.0, bytes=0)
+    try:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        coll_ms = 1e3 * mesh.TIMING["seconds"]
+    finally:
+        mesh.TIMING["on"] = False
+    n = BATCH * IMAGE_HW[0] * IMAGE_HW[1]
+    return {"loss": loss, "ms": ms, "collectives_ms": coll_ms,
+            "gather_mb": (n * CLASSES * 4 + n * 8) / 1e6
+            if mesh.active() else 0.0}
+
+
+def dp_rank_main(eval_state):
+    """One rank of the data_parallel phase (or, with no group, the
+    one-process run it is held against): the f32 (TF32 off) and bf16
+    steps of ``dp_steps`` on this rank's rows of the same seeded batch and
+    weights, the eval of ``dp_eval``, the select of ``dp_select`` and the
+    step times of ``dp_timing``; the kernel launch counts of the steps and
+    of the eval, each from zero."""
+    import torch
+    import torch.nn.functional as F
+
+    from esn_tpu_torch.ops import kernels as K
+    from esn_tpu_torch.parallel import mesh
+    w = mesh.world()
+    out = {"rank": w.rank, "size": w.size, "backend": w.backend,
+           "devices": mesh.rank_devices()}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        model, opt, batch, cw = train_setup(torch, F)
+        out[str(dtype).split(".")[-1]] = dp_steps(
+            torch, model, opt, mesh.shard_batch(batch), cw, dtype)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["train_launches"] = dict(K.LAUNCHES)
+    torch.backends.cudnn.allow_tf32 = True      # the library default
+    out["eval"] = dp_eval(torch, K, eval_state)
+    out["eval_launches"] = out["eval"].pop("launches")
+    out["select"] = dp_select(torch)
+    out["timing"] = dp_timing(torch, F)
+    torch.cuda.empty_cache()
+    out["lovasz"] = dp_lovasz(torch, F)
+    return out
+
+
+def dp_nccl_main():
+    """The f32 steps of ``dp_steps`` in a one-rank NCCL group (every
+    collective through NCCL), and their launch counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from esn_tpu_torch.ops import kernels as K
+    from esn_tpu_torch.parallel import mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K.reset_launches()
+    model, opt, batch, cw = train_setup(torch, F)
+    out = dp_steps(torch, model, opt, mesh.shard_batch(batch), cw,
+                   torch.float32)
+    torch.cuda.synchronize()
+    return {"float32": out, "backend": mesh.world().backend,
+            "launches": dict(K.LAUNCHES)}
+
+
+def dp_readings(got, want, skip, oracle=None):
+    """How far the steps ``got`` lie from ``want``. The first step: its
+    loss (relative), the gradient of all parameters together and the
+    update of all BN running statistics together (rel-L2), and, given
+    the f64 ``oracle``, each run's gradient's distance to it and their
+    ratio. The whole run: the largest relative loss difference over the
+    steps, and the update of all statistics and of all parameters
+    together. The leaves in ``skip`` are left out (``_epoch2_gaps``'
+    readings)."""
+    import torch
+    keys = [k for k in want["before"] if k not in skip]
+    stats = [k for k in keys if "running_" in k]
+    params = [k for k in keys if "running_" not in k]
+
+    def update(run, names, at="after"):
+        return torch.cat([(run[at][k] - run["before"][k]).double()
+                          .flatten() for k in names])
+
+    def grad(run):
+        return torch.cat([run["grads"][k].double().flatten()
+                          for k in params])
+    first = {"loss_rel": abs(got["losses"][0] - want["losses"][0])
+             / abs(want["losses"][0]),
+             "grad_rel": _rel(grad(got), grad(want)),
+             "stats_rel": _rel(update(got, stats, "after_first"),
+                               update(want, stats, "after_first"))}
+    if oracle is not None:
+        g64 = grad({"grads": oracle})
+        first["grad_to_f64"] = _rel(grad(got), g64)
+        first["one_process_grad_to_f64"] = _rel(grad(want), g64)
+        first["grad_to_f64_ratio"] = (first["grad_to_f64"]
+                                      / first["one_process_grad_to_f64"])
+    return {
+        "first": first,
+        "trajectory": {
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in
+                            zip(got["losses"], want["losses"])),
+            "stats_rel": _rel(update(got, stats), update(want, stats)),
+            "param_rel": _rel(update(got, params), update(want, params))}}
+
+
+def dp_f32_bounds(noise):
+    """The f32 bounds (see DP_LOSS_REL) from the two one-process runs'
+    ``noise`` readings."""
+    first = {"loss_rel": DP_LOSS_REL, "stats_rel": DP_STATS_REL}
+    return {"first": {"grad_to_f64_ratio": DP_GRAD_RATIO,
+                      **{k: max(v, DP_NOISE * noise["first"][k])
+                         for k, v in first.items()}},
+            "trajectory": {k: max(v, DP_TRAJECTORY_NOISE
+                                  * noise["trajectory"][k])
+                           for k, v in DP_TRAJECTORY.items()}}
+
+
+def dp_check(name, got, want, skip, bounds, oracle):
+    r = dp_readings(got, want, skip, oracle)
+    row = {**r, "bounds": bounds}
+    print(f"data_parallel {name}", json.dumps(row))
+    check(all(r[part][k] <= bounds[part][k]
+              for part in bounds for k in bounds[part]),
+          f"data_parallel {name} beyond its bounds: {row}")
+    return row
+
+
+def dp_eval_check(torch, F, ranks, one):
+    """The 2-rank eval against one process: each rank's summed confusion
+    matrix is the matrix of rank 0's gathered predictions; where a
+    prediction differs from the one-process one, the two classes' f32
+    upsampled logits lie within twice the largest low-res logit
+    difference plus the bf16 argmax gap (the predict phases' near-tie
+    rule), at no more than PREDICT_MISMATCH_MAX of the pixels."""
+    import numpy as np
+
+    from esn_tpu_torch.train.metrics import confusion_matrix
+    _, labels = dp_eval_batch()
+    lab = torch.from_numpy(labels)
+    pred1 = torch.from_numpy(one["eval"]["preds"])
+    pred2 = torch.from_numpy(ranks[0]["eval"]["preds"])
+    cm_of = lambda p: confusion_matrix(p, lab, CLASSES, IGNORE).numpy()
+    for r in ranks:
+        check(np.array_equal(r["eval"]["cm"], cm_of(pred2)),
+              "a rank's summed confusion matrix is not that of the "
+              "gathered predictions")
+    check(np.array_equal(one["eval"]["cm"], cm_of(pred1)),
+          "the one-process confusion matrix is not that of its predictions")
+    y1 = torch.from_numpy(one["eval"]["logits"][:DP_EVAL_VALID]).cuda()
+    y2 = torch.from_numpy(np.concatenate(
+        [r["eval"]["logits"] for r in ranks])[:DP_EVAL_VALID]).cuda()
+    delta = float((y2 - y1).abs().max())
+    mismatch = (pred1 != pred2).cuda()
+    gap, mag = upsampled_gap(torch, F, y1, 8, pred1.cuda(), pred2.cuda())
+    near = bool((gap <= 2 * delta + ARGMAX_GAP["bfloat16"] * mag)
+                [mismatch].all())
+    std = float(y1.std())
+    row = {"mismatch_rate": float(mismatch.float().mean()),
+           "mismatch_max": PREDICT_MISMATCH_MAX["bfloat16"],
+           "cm_abs_diff": int(np.abs(ranks[0]["eval"]["cm"]
+                                     - one["eval"]["cm"]).sum()),
+           "lowres_logit_max_abs_diff": delta,
+           "lowres_diff_max": LOWRES_DIFF_MAX["bfloat16"] * std,
+           "near_ties_only": near}
+    print("data_parallel eval", json.dumps(row))
+    check(row["mismatch_rate"] <= row["mismatch_max"]
+          and delta <= row["lowres_diff_max"] and near,
+          f"data_parallel eval disagrees with one process: {row}")
+    return row
+
+
+def run_command(cmd, env, timeout):
+    """``cmd`` in its own session from the repo root: (exit code, output);
+    on its time limit the whole session is killed and the phase fails."""
+    import os
+    import signal
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{' '.join(cmd[:8])} did not finish within "
+                           f"{timeout:.0f} s")
+    return proc.returncode, out
+
+
+def dp_cli_phase(torch):
+    """``torchrun --nproc_per_node 2 -m esn_tpu_torch.cli.train`` (two
+    ranks on the one card: gloo) on synthetic data, 2 epochs, beside the
+    same run twice in one process, then a 2-rank resume from epoch 1: the
+    log names 2 ranks and gloo; each epoch's loss, straight and resumed,
+    lies within the trajectory's f32 loss bound of the first one-process
+    run's: DP_TRAJECTORY's, or DP_TRAJECTORY_NOISE times the two
+    one-process runs' gap."""
+    import os
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="esn_dp_cli_")
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    h, w = DP_CLI_HW
+    args = ["--model", "FastSCNN", "--dataset", "cityscapes",
+            "--input_size", f"{h},{w}", "--synthetic_hw", f"{h}x{w}",
+            "--batch_size", "8", "--synthetic_len", "16",
+            "--max_epochs", "2",
+            "--val_epochs", "1", "--num_workers", "2",
+            "--compute_dtype", "float32",
+            "--data_root", os.path.join(tmp, "nodata")]
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(DP_RANKS), "-m",
+                "esn_tpu_torch.cli.train"]
+    one_cmd = [sys.executable, "-m", "esn_tpu_torch.cli.train"]
+
+    def run_dir(savedir, ranks):
+        return os.path.join(tmp, savedir, "cityscapes",
+                            f"FastSCNNbs8gpu{ranks}_train")
+
+    def events(path):
+        with open(os.path.join(path, "events.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    t0 = time.perf_counter()
+    with concurrent_runs() as pool:
+        runs = [pool.submit(run_command, cmd + args + [
+            "--savedir", os.path.join(tmp, savedir)], env, DP_LIMIT)
+            for cmd, savedir in ((torchrun, "two"), (one_cmd, "one"),
+                                 (one_cmd, "again"))]
+        for (rc, out), what in zip((r.result() for r in runs),
+                                   ("torchrun cli.train", "cli.train",
+                                    "cli.train again")):
+            check(rc == 0, f"{what} exited {rc}: {out[-3000:]}")
+    rc3, out3 = run_command(torchrun + args + [
+        "--savedir", os.path.join(tmp, "resumed"),
+        "--resume", os.path.join(run_dir("two", 2), "model_1.ckpt")],
+        env, DP_LIMIT)
+    check(rc3 == 0, f"torchrun cli.train --resume exited {rc3}: "
+          f"{out3[-3000:]}")
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(run_dir("two", 2), "log.txt")) as f:
+        header = f.read().splitlines()[2]
+    e1, e2 = events(run_dir("one", 1)), events(run_dir("two", 2))
+    e3, e0 = events(run_dir("resumed", 2)), events(run_dir("again", 1))
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(e2, e1)]
+    noise = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(e0, e1)]
+    resume_rel = abs(e3[0]["loss"] - e1[1]["loss"]) / abs(e1[1]["loss"])
+    bound = max(DP_TRAJECTORY["loss_rel"], DP_TRAJECTORY_NOISE * max(noise))
+    row = {"header": header, "one_losses": [e["loss"] for e in e1],
+           "again_losses": [e["loss"] for e in e0],
+           "two_losses": [e["loss"] for e in e2],
+           "resumed_losses": [e["loss"] for e in e3],
+           "loss_rel": rel, "resume_loss_rel": resume_rel,
+           "one_process_noise": noise, "loss_rel_max": bound,
+           "miou": [[e["miou"] for e in e1], [e["miou"] for e in e2]],
+           "seconds": seconds}
+    print("data_parallel torchrun", json.dumps(row))
+    check(header.startswith(f"world: {DP_RANKS} rank(s)  backend: gloo"),
+          f"torchrun log header: {header!r}")
+    check([e["epoch"] for e in e2] == [1, 2]
+          and [e["epoch"] for e in e3] == [2],
+          f"torchrun epochs {[e['epoch'] for e in e2]}, resumed "
+          f"{[e['epoch'] for e in e3]}")
+    check(max(rel + [resume_rel]) <= bound,
+          f"torchrun losses beyond the f32 bound of one process: {row}")
+    return row
+
+
+@contextlib.contextmanager
+def concurrent_runs():
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(3) as pool:
+        yield pool
+
+
+def data_parallel_phase(torch, F, K, BatchNorm, build_model):
+    """Data parallelism on the one card (see the module docstring): the
+    one-process run, the DP_RANKS-rank run (each rank's kernel launches
+    reported back), a one-rank NCCL group, torchrun."""
+    from esn_tpu_torch.parallel import launch
+    _, skip = zero_gradient_leaves(torch, F)
+    oracle = dp_oracle_grads(torch, F, K)
+    eval_model = seeded_model(torch, F, build_model, BatchNorm, 5)
+    eval_state = {k: v.detach().cpu().numpy()
+                  for k, v in eval_model.state_dict().items()}
+    del eval_model
+    one = launch.to_numpy(dp_rank_main(eval_state))
+    one = {**one, **{d: dp_rank_main_tensors(torch, one[d])
+                     for d in ("float32", "bfloat16")}}
+    # a second one-process f32 run: the card's own run-to-run noise
+    again = dp_rank_main_tensors(torch, launch.to_numpy(
+        dp_nccl_main()["float32"]))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(dp_rank_main, DP_RANKS, eval_state,
+                             device="cuda", timeout=DP_LIMIT, threads=None)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        for d in ("float32", "bfloat16"):
+            r[d] = dp_rank_main_tensors(torch, r[d])
+    check([r["backend"] for r in ranks] == ["gloo"] * DP_RANKS
+          and ranks[0]["devices"] == ["cuda:0"] * DP_RANKS,
+          f"ranks' backends {[r['backend'] for r in ranks]}, devices "
+          f"{ranks[0]['devices']}")
+    noise = dp_readings(again, one["float32"], skip, oracle)
+    f32_bounds = dp_f32_bounds(noise)
+    # bf16's own rounding of the same steps: the one-process bf16 run
+    # against the one-process f32 run
+    own = dp_readings(one["bfloat16"], one["float32"], skip, oracle)
+    bf16_bounds = {part: {k: max(v, DP_BF16_FACTOR * own[part][k])
+                          for k, v in b.items()}
+                   for part, b in f32_bounds.items()}
+    # bf16 against f32: the oracle ratio's own reading is bf16's own
+    # distance to f64 over f32's, which says nothing of the ranks
+    bf16_bounds["first"]["grad_to_f64_ratio"] = DP_GRAD_RATIO
+    rows = {}
+    for r in ranks:
+        rows[f"rank{r['rank']}_float32"] = dp_check(
+            f"rank {r['rank']} f32", r["float32"], one["float32"], skip,
+            f32_bounds, oracle)
+        rows[f"rank{r['rank']}_bfloat16"] = dp_check(
+            f"rank {r['rank']} bf16", r["bfloat16"], one["bfloat16"], skip,
+            bf16_bounds, oracle)
+    rows["bf16_vs_f32_one_process"] = own
+    rows["f32_one_process_noise"] = noise
+    # the ranks took the same step: the same state bit for bit, the same
+    # OHEM threshold
+    for d in ("float32", "bfloat16"):
+        for k, v in ranks[0][d]["after"].items():
+            check(all(torch.equal(r[d]["after"][k], v) for r in ranks),
+                  f"{d}: the ranks' {k} differ after the steps")
+        check(all(r[d]["thresholds"] == ranks[0][d]["thresholds"]
+                  for r in ranks), f"{d}: the ranks' OHEM thresholds differ")
+    select = {"one": one["select"], "ranks": [r["select"] for r in ranks]}
+    print("data_parallel select", json.dumps(select))
+    check(all(r["select"]["kth"] == one["select"]["kth"] for r in ranks),
+          f"the global select is not the one-process topk bit for bit: "
+          f"{select}")
+    eval_row = dp_eval_check(torch, F, ranks, one)
+    lovasz = {"one": one["lovasz"], "ranks": [r["lovasz"] for r in ranks]}
+    print("data_parallel lovasz (both ranks share the one card)",
+          json.dumps(lovasz))
+    check(all(abs(r["lovasz"]["loss"] - one["lovasz"]["loss"])
+              <= DP_LOSS_REL * abs(one["lovasz"]["loss"]) for r in ranks),
+          f"the Lovász step's loss at {DP_RANKS} ranks is not the "
+          f"one-process loss: {lovasz}")
+    for r in ranks:
+        check(r["train_launches"]["resize_ce_fwd"] == 2 * DP_CE_STEPS
+              and r["train_launches"]["resize_ce_bwd"] == 2 * DP_CE_STEPS,
+              f"rank {r['rank']}: K3 launches over the f32 and bf16 steps "
+              f"{r['train_launches']}")
+        check(r["eval_launches"]["dsconv"] == 4
+              and r["eval_launches"]["resize_argmax"] == 1,
+              f"rank {r['rank']}: eval launches {r['eval_launches']}")
+    # one rank, NCCL: every collective of the f32 steps through NCCL,
+    # beside the torchrun runs (the card has room for all of them)
+    torch.cuda.empty_cache()
+    with concurrent_runs() as pool:
+        nccl = pool.submit(launch.run_ranks, dp_nccl_main, 1, device="cuda",
+                           timeout=DP_LIMIT, threads=None)
+        cli = dp_cli_phase(torch)
+        nccl = nccl.result()[0]
+    check(nccl["backend"] == "nccl", f"one-rank group backend "
+          f"{nccl['backend']}")
+    rows["nccl_float32"] = dp_check(
+        "one-rank nccl f32", dp_rank_main_tensors(torch, nccl["float32"]),
+        one["float32"], skip, f32_bounds, oracle)
+    timing = {"one_process": one["timing"],
+              "ranks": [r["timing"] for r in ranks]}
+    print("data_parallel timing (both ranks share the one card)",
+          json.dumps(timing))
+    launches = {"ranks_train": {}, "ranks_eval": {}, "nccl_rank":
+                nccl["launches"]}
+    for r in ranks:
+        for key, part in (("train_launches", "ranks_train"),
+                          ("eval_launches", "ranks_eval")):
+            for name, n in r[key].items():
+                launches[part][name] = launches[part].get(name, 0) + n
+    return {"spawn_seconds": spawn_s, "readings": rows, "eval": eval_row,
+            "lovasz": lovasz,
+            "select": select, "torchrun": cli, "timing": timing,
+            "launches": launches, "skip": sorted(skip),
+            "one_process_launches": {"train": one["train_launches"],
+                                     "eval": one["eval_launches"]},
+            "thresholds": {d: [r[d]["thresholds"] for r in ranks]
+                           + [one[d]["thresholds"]]
+                           for d in ("float32", "bfloat16")}}
+
+
+def dp_rank_main_tensors(torch, steps):
+    """``dp_steps``' states as tensors again (they cross the process
+    boundary as numpy)."""
+    return {**steps, **{k: {n: torch.as_tensor(v) for n, v in steps[k].items()}
+                        for k in ("before", "grads", "after_first",
+                                  "after_ce", "after")}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2887,6 +3536,8 @@ def main() -> int:
     (out_dir / "ptxas.log").write_text(info.log)
 
     seconds = {}
+    # ``--only NAME ...``: a rehearsal of the named phases
+    only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else []
 
     def phase(name, fn, *args, **kw):
         """``fn(*args, **kw)``, its seconds printed and kept; the cache
@@ -2899,6 +3550,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         return out
 
+    if only:
+        # a rehearsal of named phases (e.g. data_parallel): no kernels line
+        # and no result line, so the run cannot pass for the smoke run
+        runners = {"data_parallel": lambda: phase(
+            "data_parallel", data_parallel_phase, torch, F, K, BatchNorm,
+            build_model)}
+        for name in only:
+            runners[name]()
+        print(f"chip_smoke: only {only} run", file=sys.stderr)
+        return 0
     dsconv_rows, argmax_rows = phase("kernels", kernel_phase, torch, F, K)
     ce_rows = phase("resize_ce", resize_ce_phase, torch, K)
     cg_rows = phase("cgblock", cgblock_phase, torch, K)
@@ -3008,6 +3669,10 @@ def main() -> int:
     losses = phase("focal_lovasz", loss_phase, torch, F, K, BatchNorm)
     remat = phase("remat", remat_phase, torch, F, K)
     cli = phase("cli", cli_phase, torch, K)
+    # data parallelism: two ranks on the one card against one process, a
+    # one-rank NCCL group, torchrun
+    dp = phase("data_parallel", data_parallel_phase, torch, F, K, BatchNorm,
+               build_model)
 
     launches = {
         "fastscnn": {"predict": result["launches"],
@@ -3045,7 +3710,8 @@ def main() -> int:
                          "test": cli["test"]["launches"],
                          "predict": cli["predict"]["launches"],
                          "train_ranger_lovasz_remat":
-                             cli["ranger_lovasz_remat"]["launches"]}}
+                             cli["ranger_lovasz_remat"]["launches"]},
+        "data_parallel_fastscnn": dp["launches"]}
     print("launches by model", json.dumps(launches))
     # each kernel's launches summed over every path above
     total = {}
@@ -3120,6 +3786,7 @@ def main() -> int:
          **config4,
          "espnet_c": espnet_c, **zoo, "radam_ranger": optims,
          "focal_lovasz": losses, "remat": remat, "cli": cli,
+         "data_parallel": dp,
          "launches_total": total,
          "launches": launches, "phase_seconds": seconds,
          "kernels": kernels, "device": device}, indent=1))

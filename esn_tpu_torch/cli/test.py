@@ -5,7 +5,11 @@
 Loads a checkpoint (the port's or the JAX package's), runs the val split,
 prints per-class IoU and mIoU. ``--best`` sweeps every checkpoint of the
 run dir for the best epoch; ``--save`` writes colourised predictions.
-On the CUDA device unless ``--cuda False``.
+On the CUDA device unless ``--cuda False``. Launched at ``W`` ranks
+(``torchrun``, as ``cli.train``) it evaluates over the world, as the
+reference's ``test.py`` evaluates over all devices: each rank scores its
+rows of every batch, the confusion matrices are summed, and rank 0
+prints and saves.
 """
 import argparse
 import os
@@ -48,7 +52,8 @@ def parse_args(argv=None):
                    help="boolean: True runs on the CUDA device (and raises "
                         "without one), False/0 on the CPU")
     p.add_argument("--gpus", default="0",
-                   help="accepted and ignored: the port runs on one device")
+                   help="accepted and ignored: torchrun --nproc_per_node "
+                        "sets the ranks")
     return p.parse_args(argv)
 
 
@@ -82,6 +87,17 @@ def evaluate(model, loader, eval_transform, spec, *, save_dir=None,
 
 def main(argv=None):
     args = parse_args(argv)
+    from ..parallel import mesh
+    joined = not mesh.active()      # leave only a group this run joins
+    try:
+        return _main(args, mesh.init_data_parallel(
+            "cuda" if args.cuda else "cpu"))
+    finally:
+        if joined:
+            mesh.shutdown()
+
+
+def _main(args, world):
     import torch
 
     from ..data import build_dataset_test
@@ -92,7 +108,8 @@ def main(argv=None):
     from ..train.trainer import (TrainConfig, resolve_compute_dtype,
                                  resolve_device)
 
-    device = resolve_device("cuda" if args.cuda else "cpu")
+    device = resolve_device(str(world.device))
+    say = print if world.rank == 0 else (lambda *a: None)
     kw = {"root": args.data_root} if args.data_root else {}
     if args.synthetic_hw:
         kw["synthetic_hw"] = parse_hw(args.synthetic_hw)
@@ -112,7 +129,7 @@ def main(argv=None):
                              savedir=args.savedir).run_dir
         candidates = [p for _, p in ckpt.list_checkpoints(run_dir)]
         if not candidates:
-            print(f"=> --best: no checkpoints found in {run_dir}")
+            say(f"=> --best: no checkpoints found in {run_dir}")
     elif args.checkpoint:
         candidates = [args.checkpoint]
 
@@ -124,11 +141,12 @@ def main(argv=None):
     save_dir = args.save_seg_dir if args.save else None
 
     if not candidates:
-        print("=> no checkpoint given; evaluating random init")
+        say("=> no checkpoint given; evaluating random init")
         iou, miou = evaluate(model, loader, eval_transform, spec,
                              save_dir=save_dir, dataset=args.dataset,
                              eval_step=eval_step)
-        _report(iou, miou, args.dataset)
+        if world.rank == 0:
+            _report(iou, miou, args.dataset)
         return 0
 
     best_path, best_miou, best_iou = None, -1.0, None
@@ -137,12 +155,13 @@ def main(argv=None):
         iou, miou = evaluate(model, loader, eval_transform, spec,
                              save_dir=save_dir, dataset=args.dataset,
                              eval_step=eval_step)
-        print(f"=> {os.path.basename(path)} (epoch {meta.get('epoch')}): "
-              f"mIoU {miou:.4f}")
+        say(f"=> {os.path.basename(path)} (epoch {meta.get('epoch')}): "
+            f"mIoU {miou:.4f}")
         if miou > best_miou:
             best_path, best_miou, best_iou = path, miou, iou
-    print(f"=> best: {os.path.basename(best_path)} mIoU {best_miou:.4f}")
-    _report(best_iou, best_miou, args.dataset)
+    say(f"=> best: {os.path.basename(best_path)} mIoU {best_miou:.4f}")
+    if world.rank == 0:
+        _report(best_iou, best_miou, args.dataset)
     return 0
 
 

@@ -6,8 +6,18 @@
         --max_epochs 300 --batch_size 8 --lr 4.5e-4 --lr_schedule poly
 
 On the CUDA device (bf16 by default) unless ``--cuda False`` (the CPU,
-f32 by default). ``--gpus`` is accepted and ignored: the port trains on
-one device. ``--encoder_checkpoint`` grafts a trained ESPNet-C's
+f32 by default). Data-parallel at ``W`` ranks through ``torchrun``, which
+ships with torch:
+
+    python -m torch.distributed.run --standalone --nproc_per_node W \
+        -m esn_tpu_torch.cli.train --model FastSCNN ...
+
+Each rank then joins the group from the launcher's environment
+(``WORLD_SIZE > 1``; no flag) and takes its rows of the global batch
+(``parallel.mesh``); ``--batch_size`` stays the global batch. ``--gpus``
+is accepted and ignored: the launcher sets the ranks, and rank ``r``
+runs on card ``r % cards`` (NCCL where every rank has a card of its own,
+gloo otherwise). ``--encoder_checkpoint`` grafts a trained ESPNet-C's
 checkpoint (the port's or the JAX package's) into ESPNet's encoder
 before training. Every optimizer (``--optim sgd|adam|adamw|radam|ranger``),
 loss (``--use_ohem``, ``--use_label_smoothing``, ``--use_focal``,
@@ -82,7 +92,8 @@ def parse_args(argv=None):
                    help="boolean: True runs on the CUDA device (and raises "
                         "without one), False/0 on the CPU")
     p.add_argument("--gpus", default="0",
-                   help="accepted and ignored: the port runs on one device")
+                   help="accepted and ignored: torchrun --nproc_per_node "
+                        "sets the ranks")
     return p.parse_args(argv)
 
 
@@ -128,14 +139,22 @@ def config_from_args(args):
 def main(argv=None):
     args = parse_args(argv)
     cfg = config_from_args(args)
+    from ..parallel import mesh
     from ..train.trainer import Trainer
-    trainer = Trainer(cfg)
-    print(f"=> model {cfg.model} ({trainer.n_params} params), "
-          f"dataset {cfg.dataset}, crop {cfg.input_size}, "
-          f"loss {cfg.loss}, optim {cfg.optim}/{cfg.lr_schedule}, "
-          f"{cfg.device} {trainer.compute_dtype}")
-    miou = trainer.fit()
-    print(f"=> final mIoU: {miou:.4f}")
+    joined = not mesh.active()      # leave only a group this run joins
+    try:
+        trainer = Trainer(cfg)
+        say = print if trainer.world.rank == 0 else (lambda *a: None)
+        say(f"=> model {cfg.model} ({trainer.n_params} params), "
+            f"dataset {cfg.dataset}, crop {cfg.input_size}, "
+            f"loss {cfg.loss}, optim {cfg.optim}/{cfg.lr_schedule}, "
+            f"{trainer.device} {trainer.compute_dtype}, "
+            f"{trainer.world.size} rank(s)")
+        miou = trainer.fit()
+        say(f"=> final mIoU: {miou:.4f}")
+    finally:
+        if joined:
+            mesh.shutdown()
     return 0
 
 

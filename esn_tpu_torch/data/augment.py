@@ -76,6 +76,11 @@ class Draws(NamedTuple):
     x0: List[int]
     flip: List[bool]
 
+    def take(self, rows: Sequence[int]) -> "Draws":
+        """The draws of these rows of the batch (a data-parallel rank's
+        rows of the global batch's draws)."""
+        return Draws(*([v[int(i)] for i in rows] for v in self))
+
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)

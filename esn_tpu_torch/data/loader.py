@@ -21,7 +21,13 @@ import torch
 
 
 class BatchLoader:
-    """Shuffling, batching host loader over a dataset (len + __getitem__)."""
+    """Shuffling, batching host loader over a dataset (len + __getitem__).
+
+    ``rows`` (None: all) picks the rows of each batch that this loader
+    loads: a data-parallel rank's rows of the global batch
+    (``parallel.mesh.rank_rows``). The order and the batches are the
+    global ones; only the chosen items are read.
+    """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
@@ -32,6 +38,7 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.num_workers = max(1, num_workers)
+        self.rows: Optional[np.ndarray] = None
         self._epoch = 0
 
     def __len__(self):
@@ -53,6 +60,8 @@ class BatchLoader:
         with ThreadPoolExecutor(self.num_workers) as pool:
             for start in range(0, limit, self.batch_size):
                 idx = order[start:start + self.batch_size]
+                if self.rows is not None:
+                    idx = idx[self.rows]
                 yield _stack(list(pool.map(self.dataset.__getitem__, idx)))
 
 

@@ -16,6 +16,7 @@ from torch import nn
 
 from . import initializers as init
 from ..ops import convolution as C
+from ..parallel import mesh
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -173,6 +174,14 @@ class BatchNorm(_Recomputable):
     f64, so an f64 run is free of f32 rounding. A recompute
     (:class:`Recompute`) centres on the running mean of the first run and
     moves nothing.
+
+    Under a data-parallel group the moments are those of the global batch,
+    as the reference's global view takes them: the per-channel sums are
+    all-reduced (``parallel.mesh.global_sum``, whose backward sums the
+    ranks' gradients), the unbiased factor takes the global count, and
+    every rank centres on the same running mean, so the running statistics
+    stay equal on every rank. A recompute reissues the all-reduce, so
+    every rank recomputes the same layers in the same order.
     """
 
     def __init__(self, num_features: int, *, momentum: float = 0.1,
@@ -211,12 +220,15 @@ class BatchNorm(_Recomputable):
             rm = self.running_mean if tape is None \
                 else tape.keep(self.running_mean.clone)
             xf = x.to(_at_least_f32(x.dtype)) - rm[:, None, None]
-            d = xf.mean(dim=(0, 2, 3))
-            m2 = xf.square().mean(dim=(0, 2, 3))
+            # the moments' sums over the global batch: one all-reduce of
+            # 2C values, whose backward sums the ranks' gradients
+            sums = mesh.global_sum(torch.cat([
+                xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
+            n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.world().size
+            d, m2 = (sums / n).chunk(2)
             mean = rm + d
             var = torch.clamp(m2 - d.square(), min=0.0)
             if tape is None or not tape.replaying:
-                n = x.shape[0] * x.shape[2] * x.shape[3]
                 unbiased = var * (n / max(n - 1, 1))
                 m = self.momentum
                 with torch.no_grad():
@@ -256,7 +268,10 @@ class Dropout(_Recomputable):
     the step's ``"dropout"`` rng); the train step sets it. Training with
     a positive rate and no generator raises, as the reference does
     without a ``"dropout"`` rng. Kept values are scaled by ``1/keep``. A
-    recompute (:class:`Recompute`) draws the first run's mask again.
+    recompute (:class:`Recompute`) draws the first run's mask again. Under
+    a data-parallel group the mask is drawn at the global batch's shape
+    and each rank keeps its rows, so the ranks draw what one process
+    would.
     """
 
     def __init__(self, rate: float):
@@ -276,8 +291,13 @@ class Dropout(_Recomputable):
             if self._tape.replaying:
                 self.generator.set_state(state)
         keep = 1.0 - self.rate
-        u = torch.rand(self._mask_shape(x), generator=self.generator,
-                       device=x.device)
+        # drawn at the global batch's shape; this rank keeps its rows
+        shape = self._mask_shape(x)
+        w = mesh.world()
+        u = torch.rand((shape[0] * w.size,) + shape[1:],
+                       generator=self.generator, device=x.device)
+        if w.size > 1:
+            u = u[w.rank * shape[0]:(w.rank + 1) * shape[0]]
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
     def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:

@@ -32,9 +32,11 @@ def resize_ce_sums_ref(z: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = 255, label_smoothing: float = 0.0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: f32 upsample to label resolution, then the weighted
-    CE sums (``losses._per_pixel_ce`` semantics of the reference)."""
+    CE sums (``losses._per_pixel_ce`` semantics of the reference); an f64
+    z keeps f64."""
     b, h, w, c = z.shape
-    up = F.interpolate(z.permute(0, 3, 1, 2).float(), size=(h * r, w * r),
+    wide = torch.promote_types(z.dtype, torch.float32)
+    up = F.interpolate(z.permute(0, 3, 1, 2).to(wide), size=(h * r, w * r),
                        mode="bilinear", align_corners=False, antialias=False)
     labels = labels.long()
     valid = (labels != ignore_index) & (labels >= 0) & (labels < c)
@@ -44,9 +46,9 @@ def resize_ce_sums_ref(z: torch.Tensor, labels: torch.Tensor,
     if label_smoothing > 0.0:
         eps = label_smoothing
         nll = (1.0 - eps) * nll + eps * (lse - up.mean(dim=1))
-    wpix = valid.float()
+    wpix = valid.to(wide)
     if class_weights is not None:
-        wpix = wpix * class_weights.float()[safe]
+        wpix = wpix * class_weights.to(wide)[safe]
     return (wpix * nll).sum(), wpix.sum()
 
 

@@ -15,6 +15,15 @@ CPU), so the full-res logits never exist on the card. In the port a
 CE-family loss on a resize-tail model always owns the upsample
 (:func:`fused_resize_ce_spec`); the reference keeps that route behind an
 environment switch and TPU-only gates, which have no counterpart here.
+
+Under a data-parallel group (``parallel.mesh``) each rank's loss is its
+part of the reference's loss on the global batch, so the ranks' losses
+sum to it and their gradients sum to its gradient: the normalisers
+(``Σw`` of CE, label smoothing, the K3 route, OHEM's kept pixels and
+focal) are summed over the ranks, OHEM's ``min_kept`` and threshold are
+those of the global batch (:func:`kth_smallest`), and the Lovász losses
+take their coefficients and classes present from the global batch. An
+f64 input keeps f64 throughout (f32 otherwise).
 """
 from __future__ import annotations
 
@@ -25,14 +34,21 @@ import torch
 
 from ..ops import kernels as K
 from ..ops.resize import resize_bilinear
+from ..parallel import mesh
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or in f64 where it is f64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor,
                   num_classes: int, ignore_index: int,
                   label_smoothing: float = 0.0
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(nll per pixel f32, labels safe for lookup, valid mask)."""
-    x = logits.float()
+    """(nll per pixel f32 (f64 for f64 logits), labels safe for lookup,
+    valid mask)."""
+    x = _wide(logits)
     labels = labels.long()
     valid = (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
     safe = torch.where(valid, labels, torch.zeros_like(labels))
@@ -45,11 +61,18 @@ def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _pixel_weights(class_weights: Optional[torch.Tensor], safe: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    w = mask.float()
+                   mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    w = mask.to(dtype)
     if class_weights is not None:
-        w = w * class_weights.float()[safe]
+        w = w * class_weights.to(dtype)[safe]
     return w
+
+
+def _normalised(total: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``total / max(Σ weight, 1e-8)`` with the weight summed over the
+    global batch: each rank's part of the reference's global loss (the
+    weights carry no gradient)."""
+    return total / torch.clamp(mesh.all_sum(weight.detach()), min=1e-8)
 
 
 def cross_entropy(logits, labels, *, num_classes: int,
@@ -59,8 +82,8 @@ def cross_entropy(logits, labels, *, num_classes: int,
     """Class-weighted CE with ignore_index, torch reduction semantics."""
     nll, safe, valid = _per_pixel_ce(logits, labels, num_classes,
                                      ignore_index, label_smoothing)
-    w = _pixel_weights(class_weights, safe, valid)
-    return (w * nll).sum() / torch.clamp(w.sum(), min=1e-8)
+    w = _pixel_weights(class_weights, safe, valid, nll.dtype)
+    return _normalised((w * nll).sum(), w.sum())
 
 
 def resize_cross_entropy(z, labels, *, num_classes: int,
@@ -79,32 +102,76 @@ def resize_cross_entropy(z, labels, *, num_classes: int,
     r = hl // h
     if (hl % h or wl % w or r != wl // w
             or not 2 <= r <= K.resize_ce.MAX_FACTOR):
-        full = resize_bilinear(z.float().permute(0, 3, 1, 2), (hl, wl))
+        full = resize_bilinear(_wide(z).permute(0, 3, 1, 2), (hl, wl))
         return cross_entropy(full.permute(0, 2, 3, 1), labels,
                              num_classes=num_classes,
                              class_weights=class_weights,
                              ignore_index=ignore_index,
                              label_smoothing=label_smoothing)
-    s, n = K.resize_ce_sums(z.float(), labels, class_weights, r=r,
+    s, n = K.resize_ce_sums(_wide(z), labels, class_weights, r=r,
                             ignore_index=ignore_index,
                             label_smoothing=label_smoothing)
-    return s / torch.clamp(n, min=1e-8)
+    return _normalised(s, n)
+
+
+def kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The exact ``k``-th smallest (1-indexed) of the non-negative finite
+    values ``x`` (f32 or f64) of every rank together, as a 0-d tensor: the
+    reference's radix select (``esn_tpu/train/losses.py`` ``kth_smallest``)
+    over the IEEE-754 bit patterns, which order as the values do for
+    ``x >= 0``. Each level resolves one nibble of the answer from 16
+    counts, ``count(bits <= lo | d << shift | low_mask)`` for d = 0..15,
+    taken as the count below the resolved prefix plus a cumulative
+    histogram of the next nibble among the values that share it; the
+    counts are summed over the ranks (int64), so the answer is bit for bit
+    the one-process value, ties across ranks included."""
+    wide, same_width, nbits = (
+        (torch.float64, torch.int64, 64) if x.dtype == torch.float64
+        else (torch.float32, torch.int32, 32))
+    bits = x.detach().to(wide).reshape(-1).view(same_width).long()
+    lo = torch.zeros((), dtype=torch.int64, device=x.device)
+    for shift in range(nbits - 4, -1, -4):
+        if shift + 4 < nbits:
+            high, prefix = bits >> (shift + 4), lo >> (shift + 4)
+            below = (high < prefix).sum()
+            nibble = torch.where(high == prefix, (bits >> shift) & 15, 16)
+        else:
+            below = torch.zeros((), dtype=torch.int64, device=x.device)
+            nibble = bits >> shift
+        hist = torch.bincount(nibble, minlength=17)[:16]
+        counts = mesh.all_sum(torch.cat([below.reshape(1), hist]))
+        counts = counts[0] + counts[1:].cumsum(0)
+        lo = lo | ((counts < k).sum() << shift)
+    return lo.to(same_width).view(wide)
+
+
+def ohem_threshold(p_true: torch.Tensor, thresh: float,
+                   min_kept: int) -> torch.Tensor:
+    """``max(thresh, the min_kept-th smallest of p_true)`` over the global
+    batch: ``torch.topk`` in one process, :func:`kth_smallest` (the same
+    value, bit for bit) under a data-parallel group, where a top-k cannot
+    be reduced across ranks."""
+    if mesh.active():
+        kth = kth_smallest(p_true, min_kept)
+    else:
+        # the min_kept-th smallest as the largest of the min_kept
+        # smallest: torch.kthvalue selects within one slice by a single
+        # block on CUDA (121 ms for the 16.7 M probabilities of a batch of
+        # 8 at 1024x2048 on an H100, where this topk stays under 1 ms; the
+        # same value)
+        kth = torch.topk(p_true, min_kept, largest=False,
+                         sorted=False).values.max()
+    return torch.clamp(kth, min=thresh)
 
 
 def ohem_kept_mask(nll: torch.Tensor, valid: torch.Tensor, thresh: float,
                    min_kept: int) -> torch.Tensor:
     """OHEM's kept pixels, flat: true-class probability at or below
-    ``max(thresh, the min_kept-th smallest probability)``; ignored pixels
-    count as probability 2 and are never kept."""
+    :func:`ohem_threshold`; ignored pixels count as probability 2 and are
+    never kept."""
     p_true = torch.where(valid, torch.exp(-nll), torch.full_like(nll, 2.0))
     p_true = p_true.reshape(-1)
-    # the min_kept-th smallest as the largest of the min_kept smallest:
-    # torch.kthvalue selects within one slice by a single block on CUDA
-    # (121 ms for the 16.7 M probabilities of a batch of 8 at 1024x2048 on
-    # an H100, where this topk stays under 1 ms; the same value)
-    kth = torch.topk(p_true, min_kept, largest=False,
-                     sorted=False).values.max()
-    threshold = torch.clamp(kth, min=thresh)
+    threshold = ohem_threshold(p_true, thresh, min_kept)
     return (p_true <= threshold) & valid.reshape(-1)
 
 
@@ -114,17 +181,17 @@ def ohem_cross_entropy(logits, labels, *, num_classes: int,
                        min_kept: Optional[int] = None) -> torch.Tensor:
     """Online hard example mining CE (reference ProbOhemCrossEntropy2d):
     CE over the kept pixels of :func:`ohem_kept_mask`, at least
-    ``min_kept`` (default ``B*H*W // 16``) of them."""
+    ``min_kept`` (default ``B*H*W // 16`` of the global batch) of them."""
     n, h, w, _ = logits.shape
-    total = n * h * w
+    total = n * h * w * mesh.world().size
     if min_kept is None:
         min_kept = max(total // 16, 1)
     min_kept = int(min(min_kept, total))
     nll, safe, valid = _per_pixel_ce(logits, labels, num_classes,
                                      ignore_index)
     kept = ohem_kept_mask(nll.detach(), valid, thresh, min_kept)
-    wpix = _pixel_weights(class_weights, safe.reshape(-1), kept)
-    return (wpix * nll.reshape(-1)).sum() / torch.clamp(wpix.sum(), min=1e-8)
+    wpix = _pixel_weights(class_weights, safe.reshape(-1), kept, nll.dtype)
+    return _normalised((wpix * nll.reshape(-1)).sum(), wpix.sum())
 
 
 def focal_loss(logits, labels, *, num_classes: int,
@@ -136,22 +203,28 @@ def focal_loss(logits, labels, *, num_classes: int,
     nll, safe, valid = _per_pixel_ce(logits, labels, num_classes,
                                      ignore_index)
     focal = torch.pow(1.0 - torch.exp(-nll), gamma) * nll
-    w = _pixel_weights(class_weights, safe, valid)
-    return (w * focal).sum() / torch.clamp(w.sum(), min=1e-8)
+    w = _pixel_weights(class_weights, safe, valid, nll.dtype)
+    return _normalised((w * focal).sum(), w.sum())
 
 
 def _lovasz_errors(logits, labels, num_classes: int, ignore_index: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(errors, fg, valid)`` of every pixel and class, flat ``(N, C)``:
-    ``fg`` the one-hot of valid labels (f32), ``errors = |fg - softmax|``,
-    0 at ignored pixels (they sort last and add nothing)."""
-    probs = torch.softmax(logits.float(), dim=-1).reshape(-1, num_classes)
+    ``fg`` the one-hot of valid labels (f32; f64 for f64 logits),
+    ``errors = |fg - softmax|``, 0 at ignored pixels (they sort last and
+    add nothing)."""
+    probs = torch.softmax(_wide(logits), dim=-1).reshape(-1, num_classes)
     labels = labels.reshape(-1).long()
     valid = (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
-    classes = torch.arange(num_classes, device=labels.device)
-    fg = ((labels[:, None] == classes) & valid[:, None]).float()
+    fg = _one_hot(labels, valid, num_classes, probs.dtype)
     errors = (fg - probs).abs() * valid[:, None]
     return errors, fg, valid
+
+
+def _one_hot(labels: torch.Tensor, valid: torch.Tensor, num_classes: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    classes = torch.arange(num_classes, device=labels.device)
+    return ((labels[:, None] == classes) & valid[:, None]).to(dtype)
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -194,12 +267,32 @@ def lovasz_softmax(logits, labels, *, num_classes: int,
     ``Σ errors · g`` with ``g`` the sorted gradient put back at each
     pixel, which has the reference's value (summed in another order) and
     its gradient.
+
+    Under a data-parallel group the sort needs every rank's errors: they
+    and the valid labels are gathered (``parallel.mesh.gather_rows``, an
+    all-reduce of a zero buffer), each rank sorts the global batch's
+    errors and keeps its own rows' coefficients, so each rank's loss is
+    its rows' part of the global one and back-propagates into its rows
+    only.
     """
     del class_weights
-    errors, fg, _ = _lovasz_errors(logits, labels, num_classes, ignore_index)
+    errors, fg, valid = _lovasz_errors(logits, labels, num_classes,
+                                       ignore_index)
     with torch.no_grad():
-        coef = _lovasz_sort_coefficients(errors, fg)
-    return _present_mean((errors * coef).sum(0), fg.sum(0) > 0)
+        if mesh.active():
+            all_labels = mesh.gather_rows(torch.where(
+                valid, labels.reshape(-1).long(), -1))
+            all_fg = _one_hot(all_labels, all_labels >= 0, num_classes,
+                              fg.dtype)
+            w, n = mesh.world(), errors.shape[0]
+            coef = _lovasz_sort_coefficients(
+                mesh.gather_rows(errors.detach()), all_fg
+            )[w.rank * n:(w.rank + 1) * n]
+            present = all_fg.sum(0) > 0
+        else:
+            coef = _lovasz_sort_coefficients(errors, fg)
+            present = fg.sum(0) > 0
+    return _present_mean((errors * coef).sum(0), present)
 
 
 def _lovasz_sort_coefficients(errors: torch.Tensor, fg: torch.Tensor
@@ -223,10 +316,12 @@ def _lovasz_hist_coefficients(errors: torch.Tensor, fg: torch.Tensor,
     key = (errors.detach() * (nb - 1)).to(torch.int32).clamp_(0, nb - 1)
     key += torch.arange(c, device=key.device, dtype=torch.int32) * nb
     spare = torch.tensor(c * nb, device=key.device, dtype=torch.int32)
-    n_b = torch.bincount(torch.where(valid[:, None], key, spare).flatten(),
-                         minlength=c * nb + 1)
-    fg_b = torch.bincount(torch.where(fg.bool(), key, spare).flatten(),
-                          minlength=c * nb + 1)
+    # the counts of the global batch (int64, summed over the ranks)
+    n_b = mesh.all_sum(torch.bincount(
+        torch.where(valid[:, None], key, spare).flatten(),
+        minlength=c * nb + 1))
+    fg_b = mesh.all_sum(torch.bincount(
+        torch.where(fg.bool(), key, spare).flatten(), minlength=c * nb + 1))
     # descending keys (largest errors first), per class
     n_b = n_b[:c * nb].view(c, nb).flip(-1)
     fg_b = fg_b[:c * nb].view(c, nb).flip(-1)
@@ -239,6 +334,7 @@ def _lovasz_hist_coefficients(errors: torch.Tensor, fg: torch.Tensor,
     present = gts[:, 0] > 0
     coef = (djac / torch.clamp(n_b.float(), min=1.0)).flip(-1) \
         * present[:, None]
+    coef = coef.to(errors.dtype)
     return (coef.flatten().index_select(0, key.flatten()).view_as(errors),
             present)
 
@@ -260,7 +356,9 @@ def lovasz_softmax_hist(logits, labels, *, num_classes: int,
     coefficient in f32 (the reference rounds the table to bf16 there,
     up to 2^-8 relative) and returns ``Σ errors · coefficient`` over the
     present classes' mean. The coefficients carry no gradient, as the
-    reference's ``stop_gradient``.
+    reference's ``stop_gradient``. Under a data-parallel group the counts
+    are summed over the ranks (int64), so every rank has the global
+    coefficients and the global classes present.
     """
     del class_weights
     errors, fg, valid = _lovasz_errors(logits, labels, num_classes,

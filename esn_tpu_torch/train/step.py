@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from ..nn import Recompute, SegModel, set_dropout_generator
 from ..ops.classify import argmax_lastdim
 from ..ops.resize import resize_bilinear
+from ..parallel import mesh
 from .metrics import confusion_matrix
 
 _MASK63 = (1 << 63) - 1
@@ -73,7 +74,8 @@ class TrainStep:
             logits = checkpoint(self.model.run, x, self.fwd_method,
                                 use_reentrant=False,
                                 context_fn=self.recompute.contexts)
-        return self.loss_fn(logits.float().permute(0, 2, 3, 1), labels)
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+        return self.loss_fn(logits.permute(0, 2, 3, 1), labels)
 
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor | float]:
@@ -105,6 +107,10 @@ class TrainStep:
                 for p in group["params"]:
                     if p.grad is not None:
                         p.grad.div_(ga)
+        # the ranks' parts of the global loss and gradient, summed
+        loss, = mesh.all_reduce_grads(
+            (p for g in self.optimizer.param_groups for p in g["params"]),
+            loss)
         metrics: Dict[str, torch.Tensor | float] = {"loss": loss}
         if self.schedule is not None:
             lr = float(self.schedule(self.count))
@@ -138,6 +144,15 @@ def make_train_step(model: SegModel, loss_fn: Callable,
     the microbatch index (the reference folds them into its rng).
     Metrics: ``loss`` (a device scalar; the microbatch mean under
     accumulation) and ``lr``.
+
+    Under a data-parallel group (``parallel.mesh``) the batch is this
+    rank's rows (``mesh.shard_batch``, with the same ``grad_accum``) and
+    the step is the reference's global-batch step: the BN moments, the
+    losses' normalisers and dropout's draws are the global batch's (see
+    ``nn.BatchNorm``, ``train.losses``), each rank's loss is its part of
+    the global loss, the gradients and that loss are summed over the ranks
+    in one flat all-reduce after the backward, and every rank steps its
+    optimizer alike. ``loss`` is then the global loss on every rank.
 
     ``remat=True`` recomputes the model's forward during the backward
     (the reference's ``jax.checkpoint``), each microbatch's on its own: a
@@ -206,6 +221,10 @@ def make_eval_step(model: SegModel, num_classes: int, *,
     (``train.evaluation.pad_batch_to``) are masked to ``ignore_index``
     before the confusion matrix. The reference's ``trace_count`` has no
     counterpart: nothing is traced or compiled here.
+
+    Under a data-parallel group the batch is this rank's rows, ``valid``
+    counts this rank's real rows, and ``cm`` is summed over the ranks
+    (int64), the reference's global bincount; ``pred`` stays this rank's.
     """
     predict = make_predict_step(model, compute_dtype=compute_dtype)
     device = next(model.parameters()).device
@@ -226,8 +245,8 @@ def make_eval_step(model: SegModel, num_classes: int, *,
         if "valid" in batch:
             labels = labels.clone()
             labels[int(batch["valid"]):] = ignore_index
-        return pred, confusion_matrix(pred, labels, num_classes,
-                                      ignore_index)
+        return pred, mesh.all_sum(confusion_matrix(pred, labels, num_classes,
+                                                   ignore_index))
 
     eval_step.device = device
     return eval_step

@@ -19,11 +19,21 @@ recipe, ``checkpoint.load_encoder``).
 ``optim`` takes every optimizer of the reference (``sgd``, ``adam``,
 ``adamw``, ``radam``, ``ranger``), ``loss`` every loss (``ce``,
 ``label_smoothing``, ``ohem``, ``focal``, ``lovasz``, ``lovasz_hist``),
-and ``remat`` recomputes the forward during the backward. Not ported
-yet, and raising with the ``ROADMAP.md`` item that holds it: ``spatial >
-1`` and a data-parallel mesh (the port trains on one device; ``run_dir``
-says ``gpu1``). The reference's retry of a step that failed to compile on
-the TPU has no counterpart: the step is called directly.
+and ``remat`` recomputes the forward during the backward.
+
+Data parallelism, the reference's ``data`` mesh: launched at ``W`` ranks
+(``WORLD_SIZE > 1`` in the environment, as ``torchrun`` sets it, or a
+group already up), the Trainer joins the group (``parallel.mesh``), and
+each rank loads and augments its rows of every global batch (the
+augmentation drawn at the global batch's shape), takes the global-batch
+step (``train.step``), validates its rows of each eval batch and sums the
+confusion matrices. A batch size that ``W x grad_accum`` does not divide
+raises. Rank 0 writes the log, the events and the checkpoints, and every
+rank reads a resume; ``run_dir`` says ``gpu{W}``. Not ported yet, and
+raising with the ``ROADMAP.md`` item that holds it: ``spatial > 1``
+(image height sharded over devices). The reference's retry of a step
+that failed to compile on the TPU has no counterpart: the step is called
+directly.
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ from ..data.datasets import get_spec
 from ..data.loader import device_prefetch
 from ..data.palettes import CAMVID_CLASSES, CITYSCAPES_CLASSES
 from ..models import build_model
+from ..parallel import mesh
 from ..utils import profiling
 from ..utils.params import count_params
 from ..utils.seed import setup_seed
@@ -98,10 +109,10 @@ class TrainConfig:
     @property
     def run_dir(self) -> str:
         # the reference's layout {ds}/{model}bs{B}gpu{N}_{type}, N = the
-        # devices used: one
+        # devices used: the data-parallel world's ranks
         return os.path.join(self.savedir, self.dataset,
                             f"{self.model}bs{self.batch_size}"
-                            f"gpu1_{self.train_type}")
+                            f"gpu{mesh.world().size}_{self.train_type}")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -143,7 +154,12 @@ class Trainer:
         check_ported(cfg)
         self.cfg = cfg
         self.spec = get_spec(cfg.dataset)
-        self.device = resolve_device(cfg.device)
+        self.world = mesh.init_data_parallel(cfg.device)
+        self.device = resolve_device(str(self.world.device))
+        # this rank's rows of each global batch (all of them in one process)
+        self._rows = mesh.rank_rows(cfg.batch_size, max(cfg.grad_accum, 1),
+                                    self.world) \
+            if self.world.size > 1 else None
         setup_seed(cfg.seed)
 
         (self.datas, self.train_loader, self.val_loader, self.augment,
@@ -154,6 +170,7 @@ class Trainer:
             num_workers=cfg.num_workers, root=cfg.data_root,
             synthetic_len=cfg.synthetic_len, val_size=cfg.val_size,
             synthetic_hw=cfg.synthetic_hw)
+        self.train_loader.rows = self._rows
 
         self.model = build_model(
             cfg.model, self.spec.num_classes, device=self.device,
@@ -194,6 +211,10 @@ class Trainer:
             state, meta = ckpt.load_checkpoint(cfg.resume, self.state)
             self.train_step.count = state.step
             self.start_epoch = int(meta.get("epoch", 0))
+        # every rank starts from rank 0's parameters, statistics and
+        # optimizer state
+        mesh.broadcast_state(self.model, self.optimizer)
+        self._writer = self.world.rank == 0
 
         os.makedirs(cfg.run_dir, exist_ok=True)
         self._log_path = os.path.join(cfg.run_dir, cfg.log_file)
@@ -211,11 +232,17 @@ class Trainer:
     def _log_header(self):
         name = torch.cuda.get_device_name(self.device) \
             if self.device.type == "cuda" else "cpu"
+        devices = mesh.rank_devices()   # a collective: every rank calls it
+        if not self._writer:
+            return
         with open(self._log_path, "a" if self.start_epoch else "w") as f:
             f.write(f"Model: {self.cfg.model}  dataset: {self.cfg.dataset}  "
                     f"params: {self.n_params}\n")
             f.write(f"device: {self.device} ({name})  "
                     f"compute_dtype: {self.compute_dtype}\n")
+            f.write(f"world: {self.world.size} rank(s)  backend: "
+                    f"{self.world.backend or 'none'}  devices: "
+                    f"{' '.join(devices)}\n")
             f.write("epoch\tlr\tloss_train\tmIoU_val\ttime_s\n")
 
     def _class_names(self):
@@ -225,6 +252,9 @@ class Trainer:
                 for i in range(self.spec.num_classes)]
 
     def _log_epoch(self, epoch, loss, lr, miou, seconds, iou=None, **walls):
+        if not self._writer:
+            self.step_timer.reset()
+            return
         miou_s = f"{miou:.4f}" if miou is not None else "-"
         with open(self._log_path, "a") as f:
             f.write(f"{epoch}\t{lr:.6f}\t{loss:.4f}\t{miou_s}\t"
@@ -265,7 +295,11 @@ class Trainer:
                     gen = torch.Generator().manual_seed(
                         fold_in(cfg.seed, epoch, i))
                     with profiling.annotate("augment"):
-                        draws = self.augment.draw(gen, images.shape[0])
+                        # drawn for the global batch; this rank's rows
+                        draws = self.augment.draw(
+                            gen, images.shape[0] * self.world.size)
+                        if self._rows is not None:
+                            draws = draws.take(self._rows)
                         x, y = self.augment(images, labels, draws)
                     with profiling.annotate("train_step"):
                         metrics = self.train_step({"image": x, "label": y})
@@ -300,10 +334,15 @@ class Trainer:
             dt = time.perf_counter() - t0
             self._log_epoch(epoch + 1, loss, lr, miou, dt, iou=iou_vec,
                             train_s=train_s, val_s=val_s)
-            ckpt.save_checkpoint(cfg.run_dir, epoch + 1, self.state,
-                                 {"mIoU": miou if miou is not None else -1.0,
-                                  "loss": loss})
+            if self._writer:
+                ckpt.save_checkpoint(
+                    cfg.run_dir, epoch + 1, self.state,
+                    {"mIoU": miou if miou is not None else -1.0,
+                     "loss": loss})
+            mesh.barrier()      # the checkpoint is on disk for every rank
             self._history.append((epoch + 1, loss, lr, miou))
+            if not self._writer:
+                continue
             print(f"epoch {epoch + 1}/{cfg.max_epochs} loss {loss:.4f} "
                   f"lr {lr:.6f}"
                   + (f" mIoU {miou:.4f}" if miou is not None else "")
@@ -315,7 +354,7 @@ class Trainer:
 
     def _plot_curves(self):
         """loss/IoU PNGs where matplotlib exists, as the reference."""
-        if not self._history:
+        if not self._history or not self._writer:
             return
         try:
             import matplotlib

@@ -973,3 +973,30 @@ def test_remat_step_on_cuda_matches_the_step_without(cuda, loss_name):
     gap = float((g_r - g).norm() / g.norm())
     noise = float((g_again - g).norm() / g.norm())
     assert gap <= 4 * noise + 1e-6, (gap, noise)
+
+
+def test_two_rank_step_on_cuda_matches_one_process(cuda):
+    """Two ranks on the card under gloo (the backend rule, with one card)
+    take the global-batch weighted-CE step of Fast-SCNN-19 through K3,
+    1 + 1 launches a rank, against one process on the same batch, f32
+    (TF32 off): the loss within 1e-5, the summed gradient within 1e-3
+    (rel-L2; the BN and loss sums split over the ranks, and the card's
+    atomics), the BN statistics within 1e-5."""
+    import _torch_parallel as TP
+    from esn_tpu_torch.parallel import launch
+    rng = np.random.RandomState(4)
+    images = rng.randn(4, 3, 128, 256).astype(np.float32)
+    labels = rng.randint(0, 19, (4, 128, 256)).astype(np.int32)
+    one = TP.cuda_step_case(images, labels)
+    ranks = launch.run_ranks(TP.cuda_step_case, 2, images, labels,
+                             device="cuda", timeout=300.0, threads=None)
+    for r in ranks:
+        assert r["launches"]["resize_ce_fwd"] == 1
+        assert r["launches"]["resize_ce_bwd"] == 1
+        assert abs(float(r["loss"]) - float(one["loss"])) \
+            <= 1e-5 * abs(float(one["loss"]))
+        assert np.linalg.norm(r["grads"] - one["grads"]) \
+            <= 1e-3 * np.linalg.norm(one["grads"])
+        np.testing.assert_allclose(r["stats"], one["stats"], rtol=1e-5,
+                                   atol=1e-5)
+    launch.assert_ranks_equal([r["stats"] for r in ranks])
