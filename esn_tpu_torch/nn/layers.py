@@ -220,12 +220,17 @@ class BatchNorm(_Recomputable):
             rm = self.running_mean if tape is None \
                 else tape.keep(self.running_mean.clone)
             xf = x.to(_at_least_f32(x.dtype)) - rm[:, None, None]
-            # the moments' sums over the global batch: one all-reduce of
-            # 2C values, whose backward sums the ranks' gradients
-            sums = mesh.global_sum(torch.cat([
-                xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
-            n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.world().size
-            d, m2 = (sums / n).chunk(2)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            if mesh.active():
+                # the moments over the global batch: one all-reduce of the
+                # 2C sums, whose backward sums the ranks' gradients
+                n *= mesh.world().size
+                d, m2 = (mesh.global_sum(torch.cat([
+                    xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
+                    / n).chunk(2)
+            else:
+                d = xf.mean(dim=(0, 2, 3))
+                m2 = xf.square().mean(dim=(0, 2, 3))
             mean = rm + d
             var = torch.clamp(m2 - d.square(), min=0.0)
             if tape is None or not tape.replaying:
@@ -291,13 +296,15 @@ class Dropout(_Recomputable):
             if self._tape.replaying:
                 self.generator.set_state(state)
         keep = 1.0 - self.rate
-        # drawn at the global batch's shape; this rank keeps its rows
         shape = self._mask_shape(x)
-        w = mesh.world()
-        u = torch.rand((shape[0] * w.size,) + shape[1:],
-                       generator=self.generator, device=x.device)
-        if w.size > 1:
+        if mesh.active():
+            # drawn at the global batch's shape; this rank keeps its rows
+            w = mesh.world()
+            u = torch.rand((shape[0] * w.size,) + shape[1:],
+                           generator=self.generator, device=x.device)
             u = u[w.rank * shape[0]:(w.rank + 1) * shape[0]]
+        else:
+            u = torch.rand(shape, generator=self.generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
     def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:

@@ -40,16 +40,14 @@ def to_numpy(tree: Any) -> Any:
     return tree
 
 
-def _rank_main(fn, args, rank, size, init_method, device, backend, threads,
-               results):
+def _rank_main(fn, args, rank, size, init_method, device, threads, results):
     from . import mesh
     try:
         if threads:
             torch.set_num_threads(threads)
         os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                           WORLD_SIZE=str(size), LOCAL_WORLD_SIZE=str(size))
-        mesh.init_data_parallel(device, rank=rank, world_size=size,
-                                init_method=init_method, backend=backend)
+        mesh.init_data_parallel(device, init_method)
         out = to_numpy(fn(*args))
         results.put((rank, True, out))
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -60,11 +58,11 @@ def _rank_main(fn, args, rank, size, init_method, device, backend, threads,
 
 
 def run_ranks(fn: Callable, size: int, *args, device: str = "cpu",
-              backend: Optional[str] = None, timeout: float = 120.0,
+              timeout: float = 120.0,
               threads: Optional[int] = 1) -> List[Any]:
     """``[fn(*args) on rank r for r in range(size)]``, each rank a spawned
-    process that has joined the group (``device`` "cpu" or "cuda";
-    ``backend`` None follows ``mesh.choose_backend``). ``fn`` must be
+    process that has joined the group (``device`` "cpu" or "cuda"; the
+    backend follows ``mesh.choose_backend``). ``fn`` must be
     importable by name (a module-level function) and return picklable
     values; tensors come back as numpy arrays. ``threads`` sets each
     rank's torch threads (None leaves torch's default)."""
@@ -73,8 +71,8 @@ def run_ranks(fn: Callable, size: int, *args, device: str = "cpu",
     with tempfile.TemporaryDirectory(prefix="esn_ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, args, r, size, init, device, backend,
-                                   threads, results), daemon=True)
+                             args=(fn, args, r, size, init, device, threads,
+                                   results), daemon=True)
                  for r in range(size)]
         for p in procs:
             p.start()

@@ -16,11 +16,10 @@ raises: the reference would use fewer devices, but a launched world
 cannot shrink.
 
 The world comes from the launcher's environment (``torchrun``'s
-``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) or from
-:func:`init_data_parallel`'s arguments. The backend is ``nccl`` when every
-rank of the host has a card of its own and ``gloo`` otherwise (several
-ranks on one card, or the CPU); the choice is printed, and a failure to
-initialise raises. Only ``all_reduce``, ``broadcast`` and ``barrier`` are
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``). The
+backend is ``nccl`` when every rank of the host has a card of its own and
+``gloo`` otherwise (several ranks on one card, or the CPU): a rule, not
+an option; it is printed, and a failure to initialise raises. Only ``all_reduce``, ``broadcast`` and ``barrier`` are
 used (gloo has no ``all_gather`` of CUDA tensors), always in f32, f64 or
 int64. With no group every helper is the identity, so a one-process run
 is unchanged.
@@ -29,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -37,10 +35,6 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
-
-# host seconds, calls and bytes of the collectives while ``TIMING["on"]``:
-# each collective then synchronizes the device before and after it
-TIMING = {"on": False, "calls": 0, "seconds": 0.0, "bytes": 0}
 
 _DEVICE: Optional[torch.device] = None
 
@@ -94,49 +88,39 @@ def choose_backend(device: torch.device, local_world_size: int) -> str:
     return "gloo"
 
 
-def init_data_parallel(device: str = "cuda", *, rank: Optional[int] = None,
-                       world_size: Optional[int] = None,
-                       local_rank: Optional[int] = None,
-                       local_world_size: Optional[int] = None,
-                       init_method: Optional[str] = None,
-                       backend: Optional[str] = None) -> World:
+def init_data_parallel(device: str = "cuda",
+                       init_method: Optional[str] = None) -> World:
     """Join the data-parallel group and return the world.
 
-    Arguments left None come from the launcher's environment
-    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``;
-    ``init_method`` then ``env://``). A world of one with no
-    ``init_method`` joins nothing (the one-process path); an explicit
-    ``init_method`` makes a group even of one. ``backend`` None follows
-    :func:`choose_backend`. A group that is already up is returned as it
-    is.
+    The world comes from the launcher's environment (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), the rendezvous from
+    ``init_method`` (``env://`` when None) and the backend from
+    :func:`choose_backend`. A world of one with no ``init_method`` joins
+    nothing (the one-process path); an explicit ``init_method`` makes a
+    group even of one. A group that is already up is returned as it is.
     """
     global _DEVICE
     if active():
         return world(device)
-    size = world_size if world_size is not None \
-        else _env_int("WORLD_SIZE", 1)
+    size = _env_int("WORLD_SIZE", 1)
     if size <= 1 and init_method is None:
         return world(device)
-    rank = rank if rank is not None else _env_int("RANK", 0)
-    local_rank = local_rank if local_rank is not None \
-        else _env_int("LOCAL_RANK", rank)
-    local_size = local_world_size if local_world_size is not None \
-        else _env_int("LOCAL_WORLD_SIZE", size)
-    dev = rank_device(device, local_rank)
+    rank = _env_int("RANK", 0)
+    local_size = _env_int("LOCAL_WORLD_SIZE", size)
+    dev = rank_device(device, _env_int("LOCAL_RANK", rank))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    rule = choose_backend(dev, local_size)
-    backend = backend or rule
+    backend = choose_backend(dev, local_size)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             rank=rank, world_size=size)
     _DEVICE = dev
     if rank == 0:
-        why = ("every rank has a card of its own" if rule == "nccl"
+        why = ("every rank has a card of its own" if backend == "nccl"
                else f"{local_size} ranks on {dev.type}"
                + (f" and {torch.cuda.device_count()} card(s)"
                   if dev.type == "cuda" else ""))
         print(f"[esn_tpu_torch.parallel] {size} rank(s), backend {backend} "
-              f"(rule: {rule}, {why})", flush=True)
+              f"({why})", flush=True)
     return world(device)
 
 
@@ -169,25 +153,11 @@ def _comm_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _collective(fn, t: torch.Tensor) -> None:
-    if not TIMING["on"]:
-        fn(t)
-        return
-    sync = torch.cuda.synchronize if t.is_cuda else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    fn(t)
-    sync()
-    TIMING["seconds"] += time.perf_counter() - t0
-    TIMING["calls"] += 1
-    TIMING["bytes"] += t.numel() * t.element_size()
-
-
 def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` (f32, f64 or int64) over the ranks, in place."""
     if t.dtype not in (torch.float32, torch.float64, torch.int64):
         raise TypeError(f"collectives take f32, f64 or int64, not {t.dtype}")
-    _collective(dist.all_reduce, t)
+    dist.all_reduce(t)
     return t
 
 
@@ -275,7 +245,7 @@ def all_reduce_grads(parameters: Iterable[torch.Tensor],
 def _broadcast_(t: torch.Tensor, src: int) -> None:
     buf = t.detach().to(device=_comm_device(t), dtype=_wire_dtype(t.dtype),
                         copy=True)
-    _collective(lambda b: dist.broadcast(b, src), buf)
+    dist.broadcast(buf, src)
     with torch.no_grad():
         t.copy_(buf)
 

@@ -11,8 +11,10 @@ come back as numpy.
 This module imports neither JAX nor the reference, so each rank starts
 quickly.
 """
+import contextlib
 import functools
 import os
+import types
 
 import numpy as np
 import torch
@@ -204,6 +206,39 @@ def step_case(arch, images, labels, cw, *, loss="ce_ohem", dtype="float64",
         loss=torch.stack(losses),
         grads={n: p.grad for n, p in model.named_parameters()},
         state=model.state_dict(), thresholds=th.values)
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """A rank that skips one of the step's collectives, planted in this
+    process for the duration: ``local_normaliser`` (the losses divide by
+    this rank's weight), ``local_bn_moments`` (BatchNorm takes this rank's
+    moments), ``unsummed_grads`` (the loss is summed, the gradients not);
+    ``none`` plants nothing."""
+    from esn_tpu_torch.nn import layers
+    swaps = {"none": [],
+             "local_normaliser": [(L, "_normalised", lambda total, weight:
+                                   total / torch.clamp(weight.detach(),
+                                                       min=1e-8))],
+             "local_bn_moments": [(layers, "mesh", types.SimpleNamespace(
+                 active=lambda: False))],
+             "unsummed_grads": [(mesh, "all_reduce_grads",
+                                 lambda params, *extra: tuple(
+                                     mesh.all_sum(e) for e in extra))]}[fault]
+    real = [getattr(owner, name) for owner, name, _ in swaps]
+    for owner, name, value in swaps:
+        setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        for (owner, name, _), value in zip(swaps, real):
+            setattr(owner, name, value)
+
+
+def fault_case(fault, *args, **kwargs):
+    """``step_case`` with ``fault`` planted (:func:`planted`)."""
+    with planted(fault):
+        return step_case(*args, **kwargs)
 
 
 @_numpy

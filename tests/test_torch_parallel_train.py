@@ -7,9 +7,12 @@ gloo, against one process and against the reference.
   within 1e-10: loss, gradients, BN running statistics and parameters;
   the OHEM thresholds bit for bit. Then ``grad_accum = 2`` and ``remat``
   at 2 ranks.
-- The same Fast-SCNN step in f32 at 4 ranks against the reference's step
-  on a 4-device JAX data mesh (``esn_tpu.parallel.mesh``), at the
-  tolerances of ``tests/test_torch_enet_train.py``.
+- The same Fast-SCNN step at 4 ranks against the reference on a 4-device
+  JAX data mesh (``esn_tpu.parallel.mesh``), at the tolerances of
+  ``tests/test_torch_enet_train.py``: in f32 the reference's step (loss,
+  BN statistics, parameters) and the per-leaf gradient of its loss
+  (``jax.value_and_grad`` on the mesh), the gradient summed over the
+  ranks; in f64 that gradient strictly.
 - ``run_eval`` at 2 ranks with a padded tail batch equals one process
   exactly, and the reference's ``run_eval(mesh=)`` on a 2-device mesh.
 
@@ -23,7 +26,9 @@ import pytest
 import torch
 
 import _torch_parallel as TP
-from _torch_parity import PLAIN_ENV, random_variables, reference_dropout_off
+from _torch_parity import (PLAIN_ENV, leaves, random_variables,
+                           reference_dropout_off, x64)
+from esn_tpu import nn as jnn
 from esn_tpu.models import build_model as jax_build_model
 from esn_tpu.parallel import mesh as jmesh
 from esn_tpu.train import evaluation as JEV
@@ -46,10 +51,18 @@ B, HW, C = 4, (64, 64), TP.CLASSES
 # train-mode BN, whose gradient is 0 in exact arithmetic, reads ~1e-10
 # of noise on both sides
 F64 = 1e-10
-# f32 against the reference on a 4-device mesh (tests/test_torch_enet_train.py):
-# loss within 1e-5 relative, BN statistics within 1e-4 (atol and rtol),
-# parameters within 2 lr (adam's first step moves each by ~lr sign(g))
-LOSS_REL, STAT_TOL = 1e-5, 1e-4
+# against the reference on a 4-device mesh (tests/test_torch_enet_train.py):
+# f32: loss within 1e-5 relative, BN statistics within 1e-4 (atol and
+# rtol), parameters within 2 lr (adam's first step moves each by
+# ~lr sign(g), whatever the gradient's size, so the gradient is held
+# itself): each leaf's gradient summed over the ranks within GRAD_F32
+# rel-L2 of the reference's f32 gradient on the mesh (Fast-SCNN's f32
+# bound there; read at this size: worst leaf 2.9e-3, median 1.4e-3), plus
+# ABS for the leaves whose exact gradient is 0; f64 (the port's model and
+# loss in f64, the reference under x64, whose loss still computes in f32):
+# the loss within LOSS_REL (read: 2.9e-7) and each leaf within GRAD_F64
+# rel-L2 (read: worst 6.4e-7, median 4.7e-7)
+LOSS_REL, STAT_TOL, GRAD_F32, GRAD_F64, ABS = 1e-5, 1e-4, 1e-2, 1e-4, 1e-6
 # eval against the reference: the share of pixels whose class may differ
 # (f32 in other orders; tests/test_torch_trainer_parity.py's CM_MISMATCH)
 CM_MISMATCH = 1e-3
@@ -94,6 +107,19 @@ AT = {2: ("fastscnn", "enet", "fastscnn_accum", "fastscnn_remat",
       4: ("fastscnn", "enet")}
 
 
+# chip_smoke.py's first-step bounds (DP_BOUNDS): the loss (relative), the
+# BN statistics' update (rel-L2) and the summed gradient's distance to an
+# f64 step over the one-process f32 gradient's (all parameters together)
+GATE = {"loss_rel": 1e-5, "stats_rel": 1e-4, "grad_to_f64_ratio": 2.0}
+FAULTS = ("none", "local_normaliser", "local_bn_moments", "unsummed_grads")
+
+
+def _fault_call(fault):
+    img, lab, cw = _batch(3)
+    return "fault_case", (fault, "fastscnn", img.astype(np.float32), lab, cw), \
+        dict(loss="ce", dtype="float32", dropout=False)
+
+
 def _step_call(name):
     kw = dict(STEPS[name])
     arch = kw.pop("arch")
@@ -110,7 +136,8 @@ def _eval_inputs():
 
 
 def _reference_call():
-    """The Fast-SCNN f32 step at 4 ranks from the reference's weights."""
+    """The Fast-SCNN step at 4 ranks from the reference's weights, in f32
+    and in f64."""
     jmodel = jax_build_model("fastscnn", C)
     reference_dropout_off(jmodel)       # the two packages draw differently
     shapes = jax.eval_shape(
@@ -121,9 +148,10 @@ def _reference_call():
     state = {k: v.numpy() for k, v in
              convert.to_state_dict(variables, model).items()}
     img, lab, cw = _batch(2)
-    call = ("step_case", ("fastscnn", img.astype(np.float32), lab, cw),
-            dict(dtype="float32", state=state, dropout=False))
-    return jmodel, variables, (img, lab, cw), call
+    calls = [("step_case", ("fastscnn", img.astype(getattr(np, dt)), lab, cw),
+              dict(dtype=dt, state=state, dropout=False))
+             for dt in ("float32", "float64")]
+    return jmodel, variables, (img, lab, cw), calls
 
 
 @pytest.fixture(scope="module")
@@ -134,8 +162,9 @@ def ranks(monkeypatch_module):
     img, lab = _eval_inputs()
     ref = _reference_call()
     calls = {2: [_step_call(n) for n in AT[2]]
+             + [_fault_call(f) for f in FAULTS]
              + [("eval_case", ("fastscnn", img, lab, 3), {})],
-             4: [_step_call(n) for n in AT[4]] + [ref[3]]}
+             4: [_step_call(n) for n in AT[4]] + ref[3]}
     out = {w: launch.run_ranks(TP.many_case, w, calls[w], timeout=LIMIT)
            for w in (2, 4)}
     return out, ref
@@ -194,15 +223,52 @@ def test_dropout_draws_the_global_masks(one_process):
                ) > 1e-6
 
 
+def _jax_loss(cw):
+    def loss(logits, labels):
+        return (JL.cross_entropy(logits, labels, num_classes=C,
+                                 class_weights=cw)
+                + JL.ohem_cross_entropy(logits, labels, num_classes=C))
+    return loss
+
+
+def _mesh_grads(jmodel, variables, img, lab, cw, dtype):
+    """The reference's loss and per-leaf gradient (path -> array) of the
+    step's loss on a 4-device data mesh: the batch sharded over the
+    devices, the variables replicated, the global view's autodiff."""
+    jm = jmesh.make_mesh(jax.devices()[:4])
+
+    def loss(params, stats, images, labels):
+        logits, _ = jnn.apply(jmodel, {"params": params, "stats": stats},
+                              images, train=True, mutable=True)
+        return _jax_loss(jnp.asarray(cw, dtype))(logits, labels)
+
+    v = jmesh.replicate(jax.tree_util.tree_map(
+        lambda a: jnp.asarray(np.asarray(a), dtype), variables), jm)
+    batch = jmesh.shard_batch({"image": img.transpose(0, 2, 3, 1).astype(dtype),
+                               "label": lab.astype(np.int32)}, jm)
+    value, grads = jax.jit(jax.value_and_grad(loss))(
+        v["params"], v["stats"], batch["image"], batch["label"])
+    return float(value), dict(leaves(jax.tree_util.tree_map(np.asarray,
+                                                            grads)))
+
+
+def _check_grads(got, want, rel):
+    """Each leaf of the ranks' summed gradient (port names) within ``rel``
+    rel-L2 of the reference's (paths), plus ABS."""
+    model = build_model("fastscnn", C, device="cpu")
+    got = dict(leaves(convert.params_tree(
+        {n: torch.from_numpy(g) for n, g in got.items()}, model)))
+    assert set(got) == set(want)
+    for path, ref in want.items():
+        g = np.asarray(got[path], np.float64)
+        assert np.linalg.norm(g - ref) <= rel * np.linalg.norm(ref) + ABS, (
+            path, float(np.linalg.norm(g - ref) / np.linalg.norm(ref)))
+
+
 def test_step_at_4_ranks_matches_the_reference_on_a_jax_mesh(ranks):
     out, (jmodel, variables, (img, lab, cw), _) = ranks
     jm = jmesh.make_mesh(jax.devices()[:4])
-
-    def loss(logits, labels):
-        return (JL.cross_entropy(logits, labels, num_classes=C,
-                                 class_weights=jnp.asarray(cw))
-                + JL.ohem_cross_entropy(logits, labels, num_classes=C))
-
+    loss = _jax_loss(jnp.asarray(cw))
     sched = JS.poly_schedule(TP.LR, TP.TOTAL)
     tx = JO.build_optimizer("adam", sched)
     step = jax_make_train_step(jmodel, loss, tx, schedule=sched,
@@ -216,10 +282,13 @@ def test_step_at_4_ranks_matches_the_reference_on_a_jax_mesh(ranks):
     model = build_model("fastscnn", C, device="cpu")
     ref_sd = convert.to_state_dict(jax.tree_util.tree_map(
         np.asarray, {"params": new.params, "stats": new.stats}), model)
+    value, grads = _mesh_grads(jmodel, variables, img, lab, cw, np.float32)
+    assert abs(value - want_loss) <= LOSS_REL * abs(want_loss)
     for o in out[4]:
-        got = o[-1]
+        got = o[len(AT[4])]
         assert abs(float(got["loss"][0]) - want_loss) \
             <= LOSS_REL * abs(want_loss)
+        _check_grads(got["grads"], grads, GRAD_F32)
         for k, v in ref_sd.items():
             v = v.numpy()
             if "running_" in k:
@@ -228,6 +297,72 @@ def test_step_at_4_ranks_matches_the_reference_on_a_jax_mesh(ranks):
             else:
                 assert np.all(np.abs(got["state"][k] - v)
                               <= 2 * TP.LR + 1e-7), k
+
+
+def test_step_gradient_at_4_ranks_matches_the_reference_mesh_in_f64(
+        ranks, monkeypatch):
+    """The f64 step at 4 ranks: its loss and each leaf of its summed
+    gradient against the reference's under x64 on the 4-device mesh. The
+    reference's OHEM threshold comes from ``lax.top_k`` there
+    (``ESN_TPU_OHEM_TOPK=1``, its own switch, bit-identical by its tests):
+    its radix select reads 32-bit patterns and does not trace under x64."""
+    out, (jmodel, variables, (img, lab, cw), _) = ranks
+    monkeypatch.setenv("ESN_TPU_OHEM_TOPK", "1")
+    with x64():
+        value, grads = _mesh_grads(jmodel, variables, img, lab, cw,
+                                   np.float64)
+    for o in out[4]:
+        got = o[len(AT[4]) + 1]
+        assert abs(float(got["loss"][0]) - value) <= LOSS_REL * abs(value)
+        _check_grads(got["grads"], grads, GRAD_F64)
+
+
+def _gate_readings(got, one, f64, before):
+    def update(state):
+        return np.concatenate([(state[k] - before[k]).ravel()
+                               for k in before if "running_" in k]
+                              ).astype(np.float64)
+
+    def grad(run):
+        return np.concatenate([run["grads"][k].ravel()
+                               for k in sorted(run["grads"])]
+                              ).astype(np.float64)
+    g64 = grad(f64)
+    return {"loss_rel": abs(float(got["loss"][0]) - float(one["loss"][0]))
+            / abs(float(one["loss"][0])),
+            "stats_rel": float(np.linalg.norm(update(got["state"])
+                                              - update(one["state"]))
+                               / np.linalg.norm(update(one["state"]))),
+            "grad_to_f64_ratio": float(np.linalg.norm(grad(got) - g64)
+                                       / np.linalg.norm(grad(one) - g64))}
+
+
+def test_planted_faults_fail_the_first_step_bounds(ranks):
+    """chip_smoke.py holds the two-rank step on the card to bounds on its
+    first step from equal weights (GATE). The same readings here, f32 at
+    2 ranks against one process, one weighted-CE adam step: the ranks as
+    they are pass, and a rank that skips any one collective fails at
+    least one bound tenfold or more. Read: as they are, loss 4.4e-7,
+    statistics 4.1e-6, ratio 0.39; a local normaliser, loss 1.0 and ratio
+    97; local BN moments, loss 6.6e-2, statistics 0.64 and ratio 2.6e2;
+    unsummed gradients, ratio 64."""
+    out, _ = ranks
+    img, lab, cw = _batch(3)
+    kw = dict(loss="ce", dropout=False)
+    one = TP.step_case("fastscnn", img.astype(np.float32), lab, cw,
+                       dtype="float32", **kw)
+    f64 = TP.step_case("fastscnn", img, lab, cw, dtype="float64", **kw)
+    before = {k: v.numpy() for k, v in build_model(
+        "fastscnn", C, device="cpu",
+        generator=torch.Generator().manual_seed(0)).state_dict().items()}
+    at = len(AT[2])
+    for i, fault in enumerate(FAULTS):
+        r = _gate_readings(out[2][0][at + i], one, f64, before)
+        over = {k: v / GATE[k] for k, v in r.items() if v > GATE[k]}
+        if fault == "none":
+            assert not over, r
+        else:
+            assert max(over.values(), default=0.0) >= 10.0, (fault, r)
 
 
 def test_eval_at_2_ranks_with_a_padded_tail(ranks):
