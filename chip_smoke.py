@@ -124,7 +124,19 @@ from zero:
   into their own cost (the same collectives replayed with the ranks
   aligned and the card idle) and waiting. Each rank reports its kernel
   launches back; a rank that raises, hangs or exits nonzero fails the
-  phase.
+  phase;
+- spatial sharding (``spatial``): two ranks on the one card under gloo
+  laid out as (1 data x 2 model), image height sharded over them
+  (``parallel.spatial``), on the reference's spatial route (full forward,
+  plain class-weighted CE; no kernel launches on it), against the same
+  step in one process: Fast-SCNN-19 at config 5 (batch 8) and ENet-19 at
+  3x512x1024, each one adam step from equal weights in f32 (TF32 off) and
+  bf16 within the data_parallel gate (DP_BOUNDS' first CE step: loss, BN
+  statistics, the gradient against an f64 step on the card); the ranks'
+  states bit for bit equal; the bf16 step's ms and peak memory a rank
+  against one process, and its collectives' count and own cost;
+  ``torchrun --nproc_per_node 2 -m esn_tpu_torch.cli.train --spatial 2``
+  against one process.
 
 Each phase prints its seconds. Exits non-zero on any failure, and when
 no CUDA device is present. The last line of standard output is one JSON
@@ -565,6 +577,54 @@ DP_LIMIT = 420.0
 # epoch 2 3.3e-5, the resume equal)
 DP_CLI_STEP2_REL = 2e-3
 DP_CLI_HW = (256, 512)
+
+# spatial sharding (the spatial phase): SP_RANKS ranks on the one card
+# under gloo, image height sharded over a model axis of SP_RANKS (n_data
+# 1), against one process on the same batch and weights. Both take the
+# reference's spatial route, the model's full forward and the plain
+# class-weighted CE (no fused resize-CE kernel: K3 reads no rows across
+# shards). From equal weights, one adam step in f32 (TF32 off) and one in
+# bf16, each held by the data_parallel gate (DP_BOUNDS["ce_first"]): the
+# loss, the BN statistics' update, and the gradient's distance to the same
+# one-process step in f64 on the card over the one-process f32 (bf16)
+# run's. Fast-SCNN-19 at config 5 (IMAGE_HW, global batch BATCH) and
+# ENet-19 at config 3's size (SP_ENET_HW). Then the bf16 step's ms and
+# peak memory a rank against one process, and its collectives' own cost
+# (collective_costs); torchrun cli.train --spatial at SP_CLI_HW for one
+# epoch of one step (f32), its loss within DP_LOSS_REL of one process's
+# (which takes K3: the same loss to f32 rounding).
+SP_RANKS, SP_TIMED_STEPS = 2, 5
+SP_ENET_HW = CONFIG3_HW
+SP_CLI_HW = DP_CLI_HW
+# Fast-SCNN's convs over a shard's window of rows round as over the whole
+# tensor (``sp_windows``: none differs, in f32 and bf16), and its pooled
+# PPM maps are the whole map's (``models/blocks.py``), so both of its
+# steps are held to the data_parallel gate as it is. ENet's are not:
+# cuDNN runs its transposed and 5x1 convs over a window with other
+# algorithms (``sp_windows`` reads which, and at how many elements),
+# so (this phase's readings on that card, NVIDIA H100 80GB HBM3, 700 W,
+# two runs, before these bounds were set) its f32 step's loss and
+# statistics meet the gate (3.0e-7, 6.1e-7) while its gradient, led by
+# the first layers' weight gradients, each a sum of ~4 M products with
+# heavy cancellation, comes out 1.79-1.96 times further from f64 than
+# one process's: held at SP_ENET_GRAD_RATIO, which still fails unsummed
+# gradients (64) or local BN moments (2.6e2; the data_parallel readings)
+# tenfold. In bf16 those one-ulp differences cascade through ENet's 16
+# dilated and asymmetric layers into a 1.0e-4 loss and 4.9e-4 statistics
+# gap, so its bf16 step is held to
+# the f64 step instead: its statistics' update and gradient each no
+# further from the f64 step's than SP_TO_F64_RATIO times the one-process
+# bf16 step's, and its loss within one bf16 ulp (2^-8) of one process's
+# (a scalar's distance to f64 can be near 0 by chance: no ratio).
+SP_ENET_GRAD_RATIO, SP_TO_F64_RATIO = 3.0, 2.0
+SP_GATES = {
+    "fastscnn": {"float32": DP_BOUNDS["ce_first"],
+                 "bfloat16": DP_BOUNDS["ce_first"]},
+    "enet": {"float32": {**DP_BOUNDS["ce_first"],
+                         "grad_to_f64_ratio": SP_ENET_GRAD_RATIO},
+             "bfloat16": {"loss_rel": 2.0 ** -8,
+                          "stats_to_f64_ratio": SP_TO_F64_RATIO,
+                          "grad_to_f64_ratio": SP_TO_F64_RATIO}}}
 
 class SmokeFailure(RuntimeError):
     pass
@@ -3086,7 +3146,8 @@ def dp_select(torch):
 @contextlib.contextmanager
 def recorded_all_reduces():
     """Every ``torch.distributed.all_reduce`` inside, in order: (numel,
-    dtype, host seconds of the call). ``parallel.mesh`` looks the function
+    dtype, host seconds of the call, its group: None for the world, a
+    model group under spatial sharding). ``parallel.mesh`` looks the function
     up at call time; a gloo all-reduce returns once the exchange is done,
     so a call's seconds hold its own cost and any wait (for this rank's
     queued kernels, before gloo copies a card's tensor to the host, and
@@ -3097,7 +3158,8 @@ def recorded_all_reduces():
     def record(t, *args, **kwargs):
         t0 = time.perf_counter()
         out = real(t, *args, **kwargs)
-        calls.append((t.numel(), t.dtype, time.perf_counter() - t0))
+        calls.append((t.numel(), t.dtype, time.perf_counter() - t0,
+                      kwargs.get("group")))
         return out
     dist.all_reduce = record
     try:
@@ -3130,13 +3192,15 @@ def collective_costs(torch, fn):
     import torch.distributed as dist
     with recorded_all_reduces() as calls:
         wall = _aligned(torch, fn)
-    bufs = [torch.ones(n, dtype=dt, device="cuda") for n, dt, _ in calls]
+    bufs = [(torch.ones(n, dtype=dt, device="cuda"), group)
+            for n, dt, _, group in calls]
     with recorded_all_reduces() as replayed:
-        replay_wall = _aligned(torch, lambda: [dist.all_reduce(b)
-                                               for b in bufs])
+        replay_wall = _aligned(torch, lambda: [
+            dist.all_reduce(b) if g is None else dist.all_reduce(b, group=g)
+            for b, g in bufs])
     host, own = (1e3 * sum(c[2] for c in cs) for cs in (calls, replayed))
     return {"ms": 1e3 * wall, "collectives": len(calls),
-            "mb": sum(b.numel() * b.element_size() for b in bufs) / 1e6,
+            "mb": sum(b.numel() * b.element_size() for b, _ in bufs) / 1e6,
             "host_ms": host, "own_ms": own, "wait_ms": host - own,
             "replay_ms": 1e3 * replay_wall}
 
@@ -3585,6 +3649,361 @@ def dp_rank_main_tensors(torch, steps):
                                   "after_ce", "after")}}
 
 
+def plain_ce_step(torch, model, opt, cw, dtype):
+    """Class-weighted CE on the model's full-resolution logits
+    (``fwd_method`` None): the spatial route, and the one-process step it
+    is held against; poly lr, dropout masks from a seeded generator."""
+    from esn_tpu_torch.train.losses import cross_entropy
+    from esn_tpu_torch.train.schedules import build_schedule
+    from esn_tpu_torch.train.step import make_train_step
+    device = next(model.parameters()).device
+    loss = functools.partial(cross_entropy, num_classes=cw.numel(),
+                             class_weights=cw.to(device),
+                             ignore_index=IGNORE)
+    return make_train_step(
+        model, loss, opt,
+        schedule=build_schedule("poly", TRAIN_LR, TRAIN_TOTAL_STEPS),
+        compute_dtype=dtype, fwd_method=None,
+        generator=torch.Generator(device=device).manual_seed(3))
+
+
+def _snapshot(model):
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def _my_rows(torch, batch):
+    """This rank's batch rows' image rows (``spatial.shard_batch_spatial``;
+    the batch itself in one process), as tensors of their own, the global
+    batch freed."""
+    from esn_tpu_torch.parallel import spatial
+    mine = {k: v.contiguous() for k, v in
+            spatial.shard_batch_spatial(batch).items()}
+    batch.clear()
+    torch.cuda.empty_cache()
+    return mine
+
+
+def sp_first_step(torch, F, arch, hw, dtype):
+    """One plain-CE adam step of ``arch`` at ``hw`` from the seeded weights
+    on this rank's rows: the loss, the gradient (summed over the ranks)
+    and the state before and after (f32 numpy)."""
+    model, opt, batch, cw = train_setup(torch, F, arch, hw)
+    before = _snapshot(model)
+    step = plain_ce_step(torch, model, opt, cw, dtype)
+    loss = float(step(_my_rows(torch, batch))["loss"])
+    return {"loss": loss, "before": before, "after": _snapshot(model),
+            "grads": {n: p.grad.detach().float().cpu().numpy()
+                      for n, p in model.named_parameters()}}
+
+
+def sp_oracle(torch, F, arch, hw):
+    """The first plain-CE step in f64 on the card (one process): its
+    loss, gradient and state before and after (f32 numpy)."""
+    model, opt, batch, cw = train_setup(torch, F, arch, hw)
+    model.double()
+    before = _snapshot(model)
+    loss = float(plain_ce_step(torch, model, opt, cw, torch.float64)(
+        batch)["loss"])
+    out = {"loss": loss, "before": before, "after": _snapshot(model),
+           "grads": {n: p.grad.detach().float().cpu().numpy()
+                     for n, p in model.named_parameters()}}
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_windows(torch, F, arch, hw, dtype):
+    """Each conv and transposed conv of ``arch``'s forward (train mode,
+    batch BATCH of ``hw``, the step's shapes) over the whole tensor against the same op over the
+    two windows of rows the spatial path computes (``parallel.spatial``'s
+    geometry, zeros beyond the border): the convs whose outputs differ,
+    and the largest share of elements that do."""
+    from esn_tpu_torch.models import build_model
+    from esn_tpu_torch.nn import layers, set_dropout_generator
+    from esn_tpu_torch.parallel import spatial
+
+    def pair(v):
+        return (v, v) if isinstance(v, int) else tuple(v)
+
+    def window(x, lo, hi):
+        out = x.new_zeros(x.shape[:2] + (hi - lo, x.shape[3]))
+        a, b = max(lo, 0), min(hi, x.shape[2])
+        out[:, :, a - lo:b - lo] = x[:, :, a:b]
+        return out.contiguous(memory_format=torch.channels_last)
+    model = build_model(arch, CLASSES, device="cuda",
+                        generator=torch.Generator().manual_seed(0)).train()
+    set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(1))
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: seen.append((m, i[0].detach())))
+        for m in model.modules()
+        if isinstance(m, (layers.Conv, layers.ConvTranspose))]
+    x = torch.randn((BATCH, 3) + tuple(hw), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        model(x.to(dtype).contiguous(memory_format=torch.channels_last))
+        for h in hooks:
+            h.remove()
+        differ, worst = [], 0.0
+        ax = spatial.Axis(SP_RANKS, 0, None)
+        for i, (m, xin) in enumerate(seen):
+            w = m.weight.to(dtype)
+            b = None if m.bias is None else m.bias.to(dtype)
+            k, (s, sw), (p, pw) = m.weight.shape[2], pair(m.stride), \
+                pair(m.padding)
+            h = xin.shape[2] // SP_RANKS
+            if isinstance(m, layers.ConvTranspose):
+                op = pair(m.output_padding)
+                y = F.conv_transpose2d(xin, w, b, m.stride, m.padding,
+                                       m.output_padding)
+                wins, ho, _ = spatial.transpose_windows(h, ax, k, s, p, op[0])
+                ys = torch.cat([F.conv_transpose2d(
+                    window(xin, lo, hi), w, b, (s, sw), (0, pw), (0, op[1])
+                ).narrow(2, j * ho + p - lo * s, ho)
+                    for j, (lo, hi) in enumerate(wins)], 2)
+            else:
+                if k == 1 and s == 1 and p == 0:
+                    continue
+                y = F.conv2d(xin, w, b, m.stride, m.padding, m.dilation,
+                             m.groups)
+                wins, _ = spatial.stencil_windows(h, ax, k, s, p,
+                                                  pair(m.dilation)[0])
+                ys = torch.cat([F.conv2d(window(xin, lo, hi), w, b, m.stride,
+                                         (0, pw), m.dilation, m.groups)
+                                for lo, hi in wins], 2)
+            share = float((ys != y).float().mean())
+            if share:
+                differ.append(f"{i}:{type(m).__name__}{tuple(m.weight.shape)}")
+                worst = max(worst, share)
+    return {"convs": len(seen), "differ": differ, "largest_share": worst}
+
+
+def sp_timing(torch, F, arch, hw):
+    """The bf16 plain-CE step on this rank's rows: its ms
+    (``timed_steps``) and the peak memory allocated over those steps,
+    from a reset after the set-up; under a group one more step's
+    ``collective_costs``."""
+    from esn_tpu_torch.parallel import mesh
+    model, opt, batch, cw = train_setup(torch, F, arch, hw)
+    step = plain_ce_step(torch, model, opt, cw, torch.bfloat16)
+    batch = _my_rows(torch, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"ms": 1e3 * timed_steps(torch, step, batch, SP_TIMED_STEPS),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "rows": list(batch["image"].shape)}
+    if mesh.active():
+        out["collectives"] = collective_costs(torch, lambda: step(batch))
+    return out
+
+
+SP_MODELS = (("fastscnn", IMAGE_HW), ("enet", SP_ENET_HW))
+
+
+def sp_rank_main():
+    """One rank of the spatial phase (with no group, the one-process run
+    it is held against): under a group the world laid out as (1,
+    SP_RANKS); for each model the f32 (TF32 off) and bf16 first steps of
+    ``sp_first_step`` and the bf16 timing of ``sp_timing``; the kernel
+    launches of the steps; each part's seconds."""
+    import torch
+    import torch.nn.functional as F
+
+    from esn_tpu_torch.ops import kernels as K
+    from esn_tpu_torch.parallel import mesh, spatial
+    if mesh.active():
+        spatial.make_spatial_mesh(mesh.world().size // SP_RANKS, SP_RANKS)
+    w = mesh.world()
+    out = {"rank": w.rank, "spatial": w.spatial, "backend": w.backend,
+           "seconds": {}}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return value
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K.reset_launches()
+    for arch, hw in SP_MODELS:
+        out[arch] = {d: part(f"{arch}_{d}", sp_first_step, torch, F, arch,
+                             hw, getattr(torch, d))
+                     for d in ("float32", "bfloat16")}
+    torch.backends.cudnn.allow_tf32 = True      # the library default
+    for arch, hw in SP_MODELS:
+        out[arch]["timing"] = part(f"{arch}_timing", sp_timing, torch, F,
+                                   arch, hw)
+    out["launches"] = dict(K.LAUNCHES)
+    return out
+
+
+def _np_rel(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def sp_readings(got, want, skip, oracle):
+    """The data_parallel gate's first-step readings (``dp_readings``'
+    ``ce_first``) of ``got`` against ``want``, their losses' distances
+    to the f64 step ``oracle``'s, and the ratio of their statistics'
+    updates' distances to its, numpy."""
+    import numpy as np
+    keys = [k for k in want["before"] if k not in skip]
+    stats = [k for k in keys if "running_" in k]
+    params = [k for k in keys if "running_" not in k]
+
+    def update(run):
+        return np.concatenate([(run["after"][k] - run["before"][k])
+                               .astype(np.float64).ravel() for k in stats])
+
+    def grad(grads):
+        return np.concatenate([np.asarray(grads[k], np.float64).ravel()
+                               for k in params])
+    g64, u64, l64 = grad(oracle["grads"]), update(oracle), oracle["loss"]
+    r = {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+         "stats_rel": _np_rel(update(got), update(want)),
+         "grad_to_f64": _np_rel(grad(got["grads"]), g64),
+         "one_process_grad_to_f64": _np_rel(grad(want["grads"]), g64),
+         "loss_to_f64": abs(got["loss"] - l64) / abs(l64),
+         "one_process_loss_to_f64": abs(want["loss"] - l64) / abs(l64),
+         "stats_to_f64_ratio": _np_rel(update(got), u64)
+         / max(_np_rel(update(want), u64), 1e-30)}
+    r["grad_to_f64_ratio"] = r["grad_to_f64"] / r["one_process_grad_to_f64"]
+    return r
+
+
+def sp_cli_phase(torch):
+    """``torchrun --nproc_per_node SP_RANKS -m esn_tpu_torch.cli.train
+    --spatial SP_RANKS`` (the ranks on the one card: gloo) on synthetic
+    Cityscapes-shaped data at SP_CLI_HW, one epoch of one step (f32, TF32
+    off), beside the same run in one process: the log names the mesh,
+    and the epoch's loss (the first step, from equal weights) lies within
+    DP_LOSS_REL of one process's."""
+    import os
+    tmp = tempfile.mkdtemp(prefix="esn_sp_cli_")
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    h, w = SP_CLI_HW
+    args = ["--model", "FastSCNN", "--dataset", "cityscapes",
+            "--input_size", f"{h},{w}", "--synthetic_hw", f"{h}x{w}",
+            "--batch_size", "8", "--synthetic_len", "8", "--max_epochs", "1",
+            "--val_epochs", "1", "--num_workers", "2",
+            "--compute_dtype", "float32",
+            "--data_root", os.path.join(tmp, "nodata")]
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(SP_RANKS), "-m",
+                "esn_tpu_torch.cli.train", "--spatial", str(SP_RANKS)]
+    one_cmd = [sys.executable, "-m", "esn_tpu_torch.cli.train"]
+    t0 = time.perf_counter()
+    with concurrent_runs() as pool:
+        runs = {name: pool.submit(run_command, cmd + args + [
+            "--savedir", os.path.join(tmp, name)], env, DP_LIMIT)
+            for name, cmd in (("sharded", torchrun), ("one", one_cmd))}
+        for name, run in runs.items():
+            rc, out = run.result()
+            check(rc == 0, f"{name} cli.train exited {rc}: {out[-3000:]}")
+    seconds = time.perf_counter() - t0
+
+    def run_dir(name, ranks):
+        return os.path.join(tmp, name, "cityscapes",
+                            f"FastSCNNbs8gpu{ranks}_train")
+
+    def events(path):
+        with open(os.path.join(path, "events.jsonl")) as f:
+            return [json.loads(line) for line in f]
+    with open(os.path.join(run_dir("sharded", SP_RANKS), "log.txt")) as f:
+        header = f.read().splitlines()[2]
+    e1, e2 = events(run_dir("one", 1)), events(run_dir("sharded", SP_RANKS))
+    rel = abs(e2[0]["loss"] - e1[0]["loss"]) / abs(e1[0]["loss"])
+    row = {"header": header, "one_loss": e1[0]["loss"],
+           "sharded_loss": e2[0]["loss"], "loss_rel": rel,
+           "bound": DP_LOSS_REL, "miou": [e1[0]["miou"], e2[0]["miou"]],
+           "seconds": seconds}
+    print("spatial torchrun", json.dumps(row))
+    check(header.endswith(f"mesh: 1 data x {SP_RANKS} model"),
+          f"torchrun --spatial log header: {header!r}")
+    check(rel <= DP_LOSS_REL, f"torchrun --spatial loss beyond its bound: "
+          f"{row}")
+    return row
+
+
+def spatial_phase(torch, F, K):
+    """Spatial sharding on the one card (see SP_RANKS): the torchrun
+    check beside the f64 oracles, then the one-process run and the
+    SP_RANKS-rank run of ``sp_rank_main``, held by the data_parallel
+    gate; the ranks' states equal bit for bit; no kernel launched on the
+    spatial route."""
+    from esn_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    with concurrent_runs() as pool:
+        cli = pool.submit(sp_cli_phase, torch)
+        skip = {arch: zero_gradient_leaves(torch, F, arch)[1]
+                for arch, _ in SP_MODELS}
+        oracle = {arch: sp_oracle(torch, F, arch, hw)
+                  for arch, hw in SP_MODELS}
+        torch.backends.cudnn.allow_tf32 = False
+        windows = {f"{arch}_{d}": sp_windows(torch, F, arch, hw,
+                                             getattr(torch, d))
+                   for arch, hw in SP_MODELS
+                   for d in ("float32", "bfloat16")}
+        torch.backends.cudnn.allow_tf32 = True
+        cli = cli.result()
+    print("spatial windows", json.dumps(windows))
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = launch.to_numpy(sp_rank_main())
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(sp_rank_main, SP_RANKS, device="cuda",
+                             timeout=DP_LIMIT, threads=None)
+    spawn_s = time.perf_counter() - t0
+    check([(r["backend"], r["spatial"]) for r in ranks]
+          == [("gloo", SP_RANKS)] * SP_RANKS,
+          f"spatial ranks: {[(r['backend'], r['spatial']) for r in ranks]}")
+    rows = {}
+    for r in ranks:
+        for arch, _ in SP_MODELS:
+            for d in ("float32", "bfloat16"):
+                got = sp_readings(r[arch][d], one[arch][d], skip[arch],
+                                  oracle[arch])
+                row = {**got, "bounds": SP_GATES[arch][d]}
+                rows[f"rank{r['rank']}_{arch}_{d}"] = row
+                print(f"spatial rank {r['rank']} {arch} {d}",
+                      json.dumps(row))
+                check(all(got[k] <= v
+                          for k, v in SP_GATES[arch][d].items()),
+                      f"spatial rank {r['rank']} {arch} {d} beyond its "
+                      f"bounds: {row}")
+    import numpy as np
+    for arch, _ in SP_MODELS:
+        for d in ("float32", "bfloat16"):
+            for k, v in ranks[0][arch][d]["after"].items():
+                check(all(np.array_equal(r[arch][d]["after"][k], v)
+                          for r in ranks),
+                      f"spatial {arch} {d}: the ranks' {k} differ")
+    for run in (one, *ranks):
+        check(not any(run["launches"].values()),
+              f"the spatial route launched kernels: {run['launches']}")
+    timing = {arch: {"one_process": one[arch]["timing"],
+                     "ranks": [r[arch]["timing"] for r in ranks]}
+              for arch, _ in SP_MODELS}
+    print("spatial timing (both ranks share the one card)",
+          json.dumps(timing))
+    seconds = {"torchrun_and_oracles": first_s, "one_process": one_s,
+               "ranks": spawn_s, "one_process_parts": one["seconds"],
+               "rank_parts": [r["seconds"] for r in ranks]}
+    print("spatial seconds", json.dumps(seconds))
+    return {"readings": rows, "timing": timing, "torchrun": cli,
+            "windows": windows, "seconds": seconds,
+            "skip": {a: sorted(v) for a, v in skip.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3743,6 +4162,10 @@ def main() -> int:
     # one-rank NCCL group, torchrun
     dp = phase("data_parallel", data_parallel_phase, torch, F, K, BatchNorm,
                build_model)
+    # spatial sharding: image height over two ranks on the one card
+    # against one process, Fast-SCNN at config 5 and ENet at config 3's
+    # size; torchrun cli.train --spatial 2
+    sp = phase("spatial", spatial_phase, torch, F, K)
 
     launches = {
         "fastscnn": {"predict": result["launches"],
@@ -3856,7 +4279,7 @@ def main() -> int:
          **config4,
          "espnet_c": espnet_c, **zoo, "radam_ranger": optims,
          "focal_lovasz": losses, "remat": remat, "cli": cli,
-         "data_parallel": dp,
+         "data_parallel": dp, "spatial": sp,
          "launches_total": total,
          "launches": launches, "phase_seconds": seconds,
          "kernels": kernels, "device": device}, indent=1))

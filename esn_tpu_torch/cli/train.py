@@ -21,8 +21,10 @@ gloo otherwise). ``--encoder_checkpoint`` grafts a trained ESPNet-C's
 checkpoint (the port's or the JAX package's) into ESPNet's encoder
 before training. Every optimizer (``--optim sgd|adam|adamw|radam|ranger``),
 loss (``--use_ohem``, ``--use_label_smoothing``, ``--use_focal``,
-``--use_lovaszsoftmax``) and ``--remat`` of the reference runs;
-``--spatial`` > 1 raises, naming its ``ROADMAP.md`` item.
+``--use_lovaszsoftmax``) and ``--remat`` of the reference runs.
+``--spatial S`` shards image height over ``S`` ranks (the reference's
+``(data, model)`` mesh, ``parallel.spatial``): launch ``n_data x S``
+ranks, e.g. ``--nproc_per_node 2 ... --spatial 2``.
 """
 import argparse
 import sys
@@ -84,7 +86,9 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true",
                    help="recompute the forward during the backward")
     p.add_argument("--spatial", type=int, default=1,
-                   help="only 1: sharding image height is not ported yet")
+                   help="shard image height over this many ranks (the "
+                        "model axis; launch n_data x spatial ranks with "
+                        "torchrun)")
     p.add_argument("--encoder_checkpoint", default="",
                    help="a trained ESPNet-C checkpoint (the port's or the "
                         "JAX package's) to graft into ESPNet's encoder")

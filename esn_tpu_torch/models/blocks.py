@@ -13,6 +13,7 @@ from ..nn.layers import IntOr2, _pair
 from ..ops import kernels as K
 from ..ops import pooling as P
 from ..ops import resize as R
+from ..parallel import spatial
 
 
 def _act_module(act: Optional[str], ch: int) -> Optional[nn.Module]:
@@ -133,7 +134,16 @@ class InvertedResidual(nn.Module):
 
 class PyramidPooling(nn.Module):
     """PPM: adaptive-avg-pool to ``bins``, 1x1 reduce, bilinear upsample,
-    concat, 1x1 fuse. Reducers are ``reduce0..reduce{n-1}``."""
+    concat, 1x1 fuse. Reducers are ``reduce0..reduce{n-1}``.
+
+    Under spatial sharding the branches pool the whole map, gathered
+    once from the model group (``spatial.whole``), so every pooled value
+    is the one-process value bit for bit: each is read by a whole bin of
+    pixels, and in bf16 a value summed in another order can round one
+    ulp apart and move the loss by ~1e-4 (pooling the shards' sums over
+    the group does). The pooled maps are replicated: their reduce and
+    upsample run marked as such (``spatial.replicated``), and the
+    upsample gives this rank's rows."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  bins: Sequence[int] = (1, 2, 3, 6), act: str = "relu"):
@@ -147,10 +157,11 @@ class PyramidPooling(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[2:]
-        feats = [x]
-        for i, b in enumerate(self.bins):
-            y = getattr(self, f"reduce{i}")(P.adaptive_avg_pool2d(x, b))
-            feats.append(R.resize_bilinear(y, (h, w)))
+        feats, full = [x], spatial.whole(x)
+        with spatial.replicated():
+            for i, b in enumerate(self.bins):
+                y = getattr(self, f"reduce{i}")(P.adaptive_avg_pool2d(full, b))
+                feats.append(R.resize_bilinear(y, (h, w)))
         return self.fuse(torch.cat(feats, dim=1))
 
 

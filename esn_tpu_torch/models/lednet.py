@@ -96,6 +96,8 @@ class APN(nn.Module):
 @register("lednet")
 class LEDNet(enn.SegModel):
     LOGITS_TAIL = "resize"
+    # under spatial sharding: the attention pyramid reaches 1/64
+    SPATIAL_DEEPEST = (64, "attention pyramid (apn.down3)")
 
     def __init__(self, classes: int = 19, in_ch: int = 3):
         super().__init__()

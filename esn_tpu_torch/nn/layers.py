@@ -16,7 +16,7 @@ from torch import nn
 
 from . import initializers as init
 from ..ops import convolution as C
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -182,6 +182,12 @@ class BatchNorm(_Recomputable):
     every rank centres on the same running mean, so the running statistics
     stay equal on every rank. A recompute reissues the all-reduce, so
     every rank recomputes the same layers in the same order.
+
+    Under spatial sharding every rank holds an equal piece (its batch
+    rows' image rows), so the same world sums and global count hold. On
+    a tensor replicated over the model group (``spatial.replicated``)
+    each element is summed ``S`` times: the moments' ratio is unchanged,
+    and the unbiased factor counts each element once.
     """
 
     def __init__(self, num_features: int, *, momentum: float = 0.1,
@@ -234,6 +240,9 @@ class BatchNorm(_Recomputable):
             mean = rm + d
             var = torch.clamp(m2 - d.square(), min=0.0)
             if tape is None or not tape.replaying:
+                rep = spatial.replicated_axis()
+                if rep is not None:
+                    n //= rep.size
                 unbiased = var * (n / max(n - 1, 1))
                 m = self.momentum
                 with torch.no_grad():
@@ -276,8 +285,13 @@ class Dropout(_Recomputable):
     recompute (:class:`Recompute`) draws the first run's mask again. Under
     a data-parallel group the mask is drawn at the global batch's shape
     and each rank keeps its rows, so the ranks draw what one process
-    would.
+    would: its data index's batch rows and, under spatial sharding, its
+    model index's image rows (a :class:`SpatialDropout` mask has one row
+    an image, so there only the batch rows).
     """
+
+    # whether the mask has the input's rows (sharded under spatial)
+    _rows_sharded = True
 
     def __init__(self, rate: float):
         super().__init__()
@@ -300,9 +314,19 @@ class Dropout(_Recomputable):
         if mesh.active():
             # drawn at the global batch's shape; this rank keeps its rows
             w = mesh.world()
-            u = torch.rand((shape[0] * w.size,) + shape[1:],
-                           generator=self.generator, device=x.device)
-            u = u[w.rank * shape[0]:(w.rank + 1) * shape[0]]
+            n = shape[0]
+            ax = spatial.axis() if self._rows_sharded else None
+            if ax is None:
+                u = torch.rand((n * w.n_data,) + shape[1:],
+                               generator=self.generator, device=x.device)
+                u = u[w.data_index * n:(w.data_index + 1) * n]
+            else:
+                h = shape[2]
+                u = torch.rand((n * w.n_data, shape[1], h * ax.size)
+                               + shape[3:], generator=self.generator,
+                               device=x.device)
+                u = u[w.data_index * n:(w.data_index + 1) * n, :,
+                      ax.index * h:(ax.index + 1) * h]
         else:
             u = torch.rand(shape, generator=self.generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
@@ -314,6 +338,8 @@ class Dropout(_Recomputable):
 class SpatialDropout(Dropout):
     """Channel dropout (Dropout2d): one mask value per (N, C), so whole
     feature maps drop together; drawn as ``Dropout`` draws."""
+
+    _rows_sharded = False
 
     def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return (x.shape[0], x.shape[1], 1, 1)

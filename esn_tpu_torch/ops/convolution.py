@@ -13,6 +13,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
+
 IntOr2 = Union[int, Tuple[int, int]]
 
 
@@ -39,6 +41,14 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, *, stride: IntOr2 = 1,
     """2D convolution. x: NCHW, weight: OIHW (I = in_channels // groups)."""
     b = None if bias is None else bias.to(x.dtype)
     w = weight.to(x.dtype)
+    ax = spatial.axis()
+    if ax is not None:
+        (kh, _), (sh, _) = w.shape[2:], _pair(stride)
+        (ph, pw), (dh, _) = _pair(padding), _pair(dilation)
+        if kh > 1 or sh > 1 or ph:
+            windows, _ = spatial.stencil_windows(x.shape[2], ax, kh, sh, ph,
+                                                 dh)
+            x, padding = spatial.fetch_window(x, windows, ax), (0, pw)
     if _cpu_bf16_row_dilated_depthwise(x, groups, dilation):
         # NCHW copies in, the result back in x's memory format. A copy,
         # not ``contiguous()``: a (C, 1, kh, kw) weight in channels_last
@@ -76,6 +86,16 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, *,
     it). The reference's subpixel and zero-insert lowerings are TPU
     workarounds and have no counterpart here."""
     b = None if bias is None else bias.to(x.dtype)
+    ax = spatial.axis()
+    if ax is not None:
+        (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+        oph, opw = _pair(output_padding)
+        windows, ho, start = spatial.transpose_windows(
+            x.shape[2], ax, weight.shape[2], sh, ph, oph)
+        y = F.conv_transpose2d(spatial.fetch_window(x, windows, ax),
+                               weight.to(x.dtype), b, stride=(sh, sw),
+                               padding=(0, pw), output_padding=(0, opw))
+        return y.narrow(2, start, ho)
     return F.conv_transpose2d(x, weight.to(x.dtype), b, stride=stride,
                               padding=padding, output_padding=output_padding)
 

@@ -14,7 +14,17 @@ window position in the order (0,0), (0,1), (1,0), (1,1); the unpool's
 gradient is the gather; the pool's gradient reaches only the remembered
 position (at a tie the reference's ``jnp.max`` splits it evenly among
 the tied elements, with the same sum a window: the two agree wherever
-nothing ties)."""
+nothing ties).
+
+Under spatial sharding (``parallel.spatial.sharded``) the window pools
+fetch the rows their windows read from the model group and pool with no
+H padding: max pools see -inf, average pools zeros at the global border
+only (``count_include_pad`` counts padded rows there alone). The global
+and adaptive pools sum each rank's rows over the group: their result is
+replicated on it. The 2x2 index pool and its unpool stay local: inside
+the envelope every shard starts on an even row, so a window never
+crosses two shards (asserted), and an index only needs to be read back
+by the same rank's unpool."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
@@ -22,7 +32,21 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
+
 IntOr2 = Union[int, Tuple[int, int]]
+
+
+def _pair(v: IntOr2) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def _halo(x: torch.Tensor, ax, window: IntOr2, stride: IntOr2,
+          padding: IntOr2, fill: float):
+    """(this rank's window of rows, the W padding, the windows)."""
+    (kh, _), (sh, _), (ph, pw) = _pair(window), _pair(stride), _pair(padding)
+    windows, _ = spatial.stencil_windows(x.shape[2], ax, kh, sh, ph)
+    return spatial.fetch_window(x, windows, ax, fill), (0, pw), windows
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -34,34 +58,87 @@ def avg_pool2d(x: torch.Tensor, window: IntOr2,
                stride: Optional[IntOr2] = None, padding: IntOr2 = 0,
                count_include_pad: bool = True) -> torch.Tensor:
     """Average pool with torch floor semantics."""
-    y = F.avg_pool2d(_wide(x), window, stride if stride is not None else window,
-                     padding, count_include_pad=count_include_pad)
+    stride = stride if stride is not None else window
+    ax = spatial.axis()
+    if ax is None:
+        y = F.avg_pool2d(_wide(x), window, stride, padding,
+                         count_include_pad=count_include_pad)
+        return y.to(x.dtype)
+    win, pad, windows = _halo(_wide(x), ax, window, stride, padding, 0.0)
+    y = F.avg_pool2d(win, window, stride, pad,
+                     count_include_pad=count_include_pad)
+    kh, total = _pair(window)[0], x.shape[2] * ax.size
+    if not count_include_pad and _pair(padding)[0]:
+        # the H count of each window: its rows inside [0, H)
+        lo, _ = windows[ax.index]
+        starts = lo + _pair(stride)[0] * torch.arange(y.shape[2])
+        rows = (torch.clamp(starts + kh, max=total)
+                - torch.clamp(starts, min=0)).to(y.dtype)
+        y = y * (kh / rows).to(y.device)[:, None]
     return y.to(x.dtype)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
-    return _wide(x).mean(dim=(2, 3), keepdim=keepdims).to(x.dtype)
+    ax = spatial.axis()
+    if ax is None:
+        return _wide(x).mean(dim=(2, 3), keepdim=keepdims).to(x.dtype)
+    s = spatial.group_sum(_wide(x).sum(dim=(2, 3), keepdim=keepdims), ax)
+    return (s / (x.shape[2] * ax.size * x.shape[3])).to(x.dtype)
+
+
+def _bins(length: int, n: int, dtype, device, rows=None) -> torch.Tensor:
+    """(n, len(rows)) 0/1 membership of ``rows`` (all of ``[0,
+    length)`` by default) in the n adaptive bins over ``length``: bin i
+    spans ``[floor(i*L/n), ceil((i+1)*L/n))``."""
+    r = torch.arange(length) if rows is None else rows
+    i = torch.arange(n)[:, None]
+    lo, hi = (i * length) // n, -((-(i + 1) * length) // n)
+    return ((r[None] >= lo) & (r[None] < hi)).to(dtype=dtype, device=device)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntOr2) -> torch.Tensor:
     """torch-style adaptive average pool: bin i of n over a length L spans
-    ``[floor(i*L/n), ceil((i+1)*L/n))``, the reference's bin edges."""
-    return F.adaptive_avg_pool2d(_wide(x), output_size).to(x.dtype)
+    ``[floor(i*L/n), ceil((i+1)*L/n))``, the reference's bin edges.
+
+    Under spatial sharding each rank sums its rows into every global bin
+    (bins overlap across shards where L/n is not whole), the sums are
+    added over the model group and divided by the global counts: the
+    result is replicated on the group."""
+    ax = spatial.axis()
+    if ax is None:
+        return F.adaptive_avg_pool2d(_wide(x), output_size).to(x.dtype)
+    (nh, nw), xw = _pair(output_size), _wide(x)
+    h, w = x.shape[2], x.shape[3]
+    rows = torch.arange(ax.index * h, (ax.index + 1) * h)
+    bh = _bins(h * ax.size, nh, xw.dtype, x.device, rows)
+    bw = _bins(w, nw, xw.dtype, x.device)
+    sums = spatial.group_sum(torch.einsum("nchw,ih,jw->ncij", xw, bh, bw), ax)
+    count_h = _bins(h * ax.size, nh, xw.dtype, x.device).sum(1)
+    return (sums / (count_h[:, None] * bw.sum(1)[None])).to(x.dtype)
 
 
 def max_pool2d(x: torch.Tensor, window: IntOr2,
                stride: Optional[IntOr2] = None,
                padding: IntOr2 = 0) -> torch.Tensor:
     """Standard max pool with torch floor semantics."""
-    return F.max_pool2d(x, window, stride if stride is not None else window,
-                        padding)
+    stride = stride if stride is not None else window
+    ax = spatial.axis()
+    if ax is None:
+        return F.max_pool2d(x, window, stride, padding)
+    win, pad, _ = _halo(x, ax, window, stride, padding, float("-inf"))
+    return F.max_pool2d(win, window, stride, pad)
 
 
 def max_pool2d_with_indices_2x2(x: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """2x2 stride-2 max pool returning ``(values, indices)``, both
     ``(N, C, H//2, W//2)``; indices int64 (see the module docstring). Odd
-    trailing rows and columns are dropped."""
+    trailing rows and columns are dropped. Local under spatial sharding
+    (see the module docstring): a shard of odd rows raises."""
+    if spatial.axis() is not None and x.shape[2] % 2:
+        raise ValueError(f"spatial: a 2x2 index pool over shards of "
+                         f"{x.shape[2]} rows would cross shards; the "
+                         f"envelope keeps shards even")
     h2, w2 = x.shape[2] // 2, x.shape[3] // 2
     return F.max_pool2d(x[:, :, :2 * h2, :2 * w2], 2, 2, return_indices=True)
 

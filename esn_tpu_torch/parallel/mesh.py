@@ -15,6 +15,13 @@ microbatch ``[i*B/k, (i+1)*B/k)``. A batch that the world does not divide
 raises: the reference would use fewer devices, but a launched world
 cannot shrink.
 
+Under spatial sharding (``parallel.spatial``) the world is the
+reference's ``(data, model)`` mesh: rank ``r`` of ``W = n_data x S``
+sits at data index ``r // S`` and model index ``r % S``
+(:func:`set_spatial`), the batch splits by the data index over
+``n_data`` and image height over the ``S`` ranks of a model group. With
+``S = 1`` the data index is the rank and ``n_data`` is ``W``.
+
 The world comes from the launcher's environment (``torchrun``'s
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``). The
 backend is ``nccl`` when every rank of the host has a card of its own and
@@ -37,6 +44,9 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 
 _DEVICE: Optional[torch.device] = None
+# the model axis: its size and this rank's model group (None at S = 1)
+_SPATIAL = 1
+_MODEL_GROUP = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +58,20 @@ class World:
     local_rank: int
     backend: Optional[str]
     device: torch.device
+    spatial: int = 1
+
+    @property
+    def n_data(self) -> int:
+        """The ranks along the data axis."""
+        return self.size // self.spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.spatial
 
 
 def active() -> bool:
@@ -65,7 +89,41 @@ def world(device: str = "cpu") -> World:
         return World(0, 1, 0, None, torch.device(device))
     rank = dist.get_rank()
     return World(rank, dist.get_world_size(), _env_int("LOCAL_RANK", rank),
-                 dist.get_backend(), _DEVICE or torch.device(device))
+                 dist.get_backend(), _DEVICE or torch.device(device),
+                 _SPATIAL)
+
+
+def set_spatial(n_spatial: int) -> World:
+    """Lay the world out as ``(data, model)`` with ``n_spatial`` ranks on
+    the model axis (the reference's ``devices.reshape(n_data,
+    n_spatial)``): rank ``r`` at data index ``r // n_spatial``, model
+    index ``r % n_spatial``. Every rank creates every model group, in the
+    same order, as ``dist.new_group`` requires. ``n_spatial = 1`` is the
+    data-parallel world. A world that ``n_spatial`` does not divide
+    raises: the reference would use fewer devices, but a launched world
+    cannot shrink."""
+    global _SPATIAL, _MODEL_GROUP
+    size = dist.get_world_size() if active() else 1
+    if n_spatial < 1 or size % n_spatial:
+        raise ValueError(
+            f"{size} rank(s) are not divisible by spatial={n_spatial}: a "
+            f"launched world cannot shrink, so launch a multiple of "
+            f"{n_spatial} ranks (n_data x {n_spatial})")
+    _SPATIAL, _MODEL_GROUP = 1, None
+    if n_spatial > 1:
+        rank = dist.get_rank()
+        for d in range(size // n_spatial):
+            group = dist.new_group(list(range(d * n_spatial,
+                                              (d + 1) * n_spatial)))
+            if d == rank // n_spatial:
+                _MODEL_GROUP = group
+        _SPATIAL = n_spatial
+    return world()
+
+
+def model_group():
+    """This rank's model group (None at ``S = 1``)."""
+    return _MODEL_GROUP
 
 
 def rank_device(device: str, local_rank: int) -> torch.device:
@@ -126,10 +184,10 @@ def init_data_parallel(device: str = "cuda",
 
 def shutdown() -> None:
     """Leave the group, if one is up."""
-    global _DEVICE
+    global _DEVICE, _SPATIAL, _MODEL_GROUP
     if active():
         dist.destroy_process_group()
-    _DEVICE = None
+    _DEVICE, _SPATIAL, _MODEL_GROUP = None, 1, None
 
 
 # --------------------------------------------------------------- collectives
@@ -153,11 +211,15 @@ def _comm_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` (f32, f64 or int64) over the ranks, in place."""
+def _all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` (f32, f64 or int64) over the ranks (of ``group``; the
+    world when None), in place."""
     if t.dtype not in (torch.float32, torch.float64, torch.int64):
         raise TypeError(f"collectives take f32, f64 or int64, not {t.dtype}")
-    dist.all_reduce(t)
+    if group is None:
+        dist.all_reduce(t)
+    else:
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -287,19 +349,23 @@ def rank_devices() -> List[str]:
 def rank_rows(n: int, grad_accum: int = 1,
               w: Optional[World] = None) -> np.ndarray:
     """The global rows of a batch of ``n`` that this rank holds: its part
-    ``[r*m/W, (r+1)*m/W)`` of each of the ``grad_accum`` microbatches of
-    ``m = n/grad_accum`` rows, in order. Raises when ``grad_accum x W``
-    does not divide ``n``."""
+    ``[d*m/D, (d+1)*m/D)`` of each of the ``grad_accum`` microbatches of
+    ``m = n/grad_accum`` rows, in order, with ``d`` its data index and
+    ``D`` the ranks on the data axis (its rank and ``W`` at ``S = 1``).
+    Raises when ``grad_accum x D`` does not divide ``n``."""
     w = w or world()
-    if n % (grad_accum * w.size):
+    nd, d = w.n_data, w.data_index
+    if n % (grad_accum * nd):
+        axis = f"{nd} rank(s)" if w.spatial == 1 else \
+            f"{nd} data rank(s) ({w.size} ranks / spatial={w.spatial})"
         raise ValueError(
             f"batch {n} is not divisible by grad_accum={grad_accum} x "
-            f"{w.size} rank(s): a launched world cannot shrink, so choose "
-            f"a batch size the world divides")
+            f"{axis}: a launched world cannot shrink, so choose a batch "
+            f"size the world divides")
     mb = n // grad_accum
-    part = mb // w.size
-    return np.concatenate([np.arange(i * mb + w.rank * part,
-                                     i * mb + (w.rank + 1) * part)
+    part = mb // nd
+    return np.concatenate([np.arange(i * mb + d * part,
+                                     i * mb + (d + 1) * part)
                            for i in range(grad_accum)])
 
 
@@ -319,9 +385,9 @@ def shard_batch(batch: Dict, grad_accum: int = 1,
                 w: Optional[World] = None) -> Dict:
     """This rank's rows (:func:`rank_rows`) of every array, tensor and list
     of ``batch`` whose leading size is the batch's; other values pass
-    through. The batch itself with no group."""
+    through. The batch itself on a data axis of one."""
     w = w or world()
-    if w.size == 1:
+    if w.n_data == 1:
         return batch
     n = next(len(v) for v in batch.values()
              if isinstance(v, (np.ndarray, torch.Tensor)))

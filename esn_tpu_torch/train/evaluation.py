@@ -9,10 +9,14 @@ Under a data-parallel group (``parallel.mesh``), as under the reference's
 ``mesh`` argument, the fixed batch is rounded up to a multiple of the
 world's ranks, each rank evaluates its rows of it, masks its rows past
 the batch's real count, and the confusion matrices are summed over the
-ranks.
+ranks. Under spatial sharding too: the reference evaluates on its data
+axis with whole, replicated images on the model axis; here eval runs
+outside ``spatial.sharded()``, each of the ``W`` ranks on whole images
+of its own, which gives the same confusion matrix.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -49,7 +53,8 @@ def run_eval(eval_step: Callable, loader: Iterable, eval_transform: Callable,
     every rank.
     """
     device = eval_step.device
-    w = mesh.world()
+    # every rank on rows of its own, whatever the (data, model) layout
+    w = dataclasses.replace(mesh.world(), spatial=1)
     target_b = getattr(loader, "batch_size", None)
     cm = np.zeros((num_classes, num_classes), np.int64)
     for batch in loader:
@@ -62,7 +67,7 @@ def run_eval(eval_step: Callable, loader: Iterable, eval_transform: Callable,
         padded, real = pad_batch_to(arrays, eval_batch_size(target_b,
                                                             w.size))
         rows = padded["image"].shape[0] // w.size
-        mine = mesh.shard_batch(padded)
+        mine = mesh.shard_batch(padded, w=w)
         images = eval_transform(torch.from_numpy(mine["image"]).to(device))
         pred, cm_b = eval_step({
             "image": images,

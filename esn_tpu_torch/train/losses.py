@@ -34,7 +34,7 @@ import torch
 
 from ..ops import kernels as K
 from ..ops.resize import resize_bilinear
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -95,13 +95,16 @@ def resize_cross_entropy(z, labels, *, num_classes: int,
     An integer isotropic scale 2 <= r <= 16 runs the fused kernel (z f32
     contiguous NHWC, labels int32 on the card); any other scale
     upsamples in f32 and takes :func:`cross_entropy`, as the reference's
-    materialized path does.
+    materialized path does. So does a step under spatial sharding, whose
+    upsample reads rows across shards (``ops.resize``) where the kernel
+    reads only its own.
     """
     b, h, w, c = z.shape
     hl, wl = labels.shape[1], labels.shape[2]
     r = hl // h
     if (hl % h or wl % w or r != wl // w
-            or not 2 <= r <= K.resize_ce.MAX_FACTOR):
+            or not 2 <= r <= K.resize_ce.MAX_FACTOR
+            or spatial.axis() is not None):
         full = resize_bilinear(_wide(z).permute(0, 3, 1, 2), (hl, wl))
         return cross_entropy(full.permute(0, 2, 3, 1), labels,
                              num_classes=num_classes,

@@ -17,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from ..nn import Recompute, SegModel, set_dropout_generator
 from ..ops.classify import argmax_lastdim
 from ..ops.resize import resize_bilinear
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from .metrics import confusion_matrix
 
 _MASK63 = (1 << 63) - 1
@@ -77,36 +77,41 @@ class TrainStep:
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         return self.loss_fn(logits.permute(0, 2, 3, 1), labels)
 
+    def _forward_backward(self, images: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+        """The loss and its gradients (``grad_accum`` microbatches in
+        order, averaged), before the sums over the ranks."""
+        ga = self.grad_accum
+        if ga == 1:
+            loss = self._loss(images, labels)
+            loss.backward()
+            return loss.detach()
+        b = images.shape[0]
+        if b % ga:
+            raise ValueError(f"batch {b} not divisible by grad_accum={ga}")
+        mb = b // ga
+        loss = torch.zeros((), device=self.device)
+        # microbatches in order: each BN update sees the last one's running
+        # stats, as the reference's scan threads them
+        for i in range(ga):
+            sl = slice(i * mb, (i + 1) * mb)
+            li = self._loss(images[sl], labels[sl], i)
+            li.backward()
+            loss = loss + li.detach()
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.grad.div_(ga)
+        return loss / ga
+
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor | float]:
         self.model.train()
         images = batch["image"]
         labels = batch["label"].to(device=self.device, dtype=torch.int32)
         self.optimizer.zero_grad(set_to_none=True)
-        ga = self.grad_accum
-        if ga == 1:
-            loss = self._loss(images, labels)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            b = images.shape[0]
-            if b % ga:
-                raise ValueError(f"batch {b} not divisible by "
-                                 f"grad_accum={ga}")
-            mb = b // ga
-            loss = torch.zeros((), device=self.device)
-            # microbatches in order: each BN update sees the last one's
-            # running stats, as the reference's scan threads them
-            for i in range(ga):
-                sl = slice(i * mb, (i + 1) * mb)
-                li = self._loss(images[sl], labels[sl], i)
-                li.backward()
-                loss = loss + li.detach()
-            loss = loss / ga
-            for group in self.optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(ga)
+        with spatial.sharded():
+            loss = self._forward_backward(images, labels)
         # the ranks' parts of the global loss and gradient, summed
         loss, = mesh.all_reduce_grads(
             (p for g in self.optimizer.param_groups for p in g["params"]),
@@ -153,6 +158,15 @@ def make_train_step(model: SegModel, loss_fn: Callable,
     the global loss, the gradients and that loss are summed over the ranks
     in one flat all-reduce after the backward, and every rank steps its
     optimizer alike. ``loss`` is then the global loss on every rank.
+
+    Under spatial sharding (``parallel.spatial``; the world laid out as
+    ``(data, model)``) the batch is this rank's batch rows' image rows
+    (``spatial.shard_batch_spatial``) and the forward and backward run
+    inside ``spatial.sharded()``: every op exchanges the rows it reads
+    across shards, whole-height reductions are summed over the model
+    group, and the sums over the world above are unchanged. Pair it with
+    the model's full forward and a plain loss (``fwd_method`` None), as
+    the reference's spatial step does.
 
     ``remat=True`` recomputes the model's forward during the backward
     (the reference's ``jax.checkpoint``), each microbatch's on its own: a

@@ -29,11 +29,24 @@ augmentation drawn at the global batch's shape), takes the global-batch
 step (``train.step``), validates its rows of each eval batch and sums the
 confusion matrices. A batch size that ``W x grad_accum`` does not divide
 raises. Rank 0 writes the log, the events and the checkpoints, and every
-rank reads a resume; ``run_dir`` says ``gpu{W}``. Not ported yet, and
-raising with the ``ROADMAP.md`` item that holds it: ``spatial > 1``
-(image height sharded over devices). The reference's retry of a step
-that failed to compile on the TPU has no counterpart: the step is called
-directly.
+rank reads a resume; ``run_dir`` says ``gpu{W}``.
+
+Spatial sharding, the reference's ``(data, model)`` mesh
+(``spatial = S > 1``, ``parallel.spatial``): the world is laid out as
+``n_data = W / S`` data ranks by ``S`` model ranks. Each rank loads and
+augments its data index's rows of every global batch at full height
+(augmentation runs outside the sharded context, so its resizes exchange
+nothing), keeps its model index's ``H / S`` image rows, and takes the
+global-batch step with every op exchanging the rows it reads across the
+model group. As in the reference the step takes the model's full
+forward and the plain loss, not the fused resize-CE route. Evaluation
+runs as under data parallelism: whole images split over all ``W`` ranks.
+The checks are the reference's: the envelope
+(``spatial.check_spatial_config``), then ``W`` divisible by ``S``, then
+the batch divisible by ``n_data x grad_accum``; where the reference
+would use fewer devices, the port raises, since a launched world cannot
+shrink. The reference's retry of a step that failed to compile on the
+TPU has no counterpart: the step is called directly.
 """
 from __future__ import annotations
 
@@ -52,7 +65,7 @@ from ..data.datasets import get_spec
 from ..data.loader import device_prefetch
 from ..data.palettes import CAMVID_CLASSES, CITYSCAPES_CLASSES
 from ..models import build_model
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..utils import profiling
 from ..utils.params import count_params
 from ..utils.seed import setup_seed
@@ -115,20 +128,15 @@ class TrainConfig:
                             f"gpu{mesh.world().size}_{self.train_type}")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to esn_tpu_torch yet (ROADMAP.md, Queue 1, "
-        f"{item})")
-
-
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise for an option this port does not run yet, naming the
-    ``ROADMAP.md`` item that holds it."""
-    if cfg.spatial > 1:
-        raise _not_ported(f"spatial={cfg.spatial} (image height sharded "
-                          f"over devices)", "item 10: parallelism")
+def check_config(cfg: TrainConfig) -> None:
+    """The checks that need no world: the augmentation mode, and with
+    ``spatial > 1`` the reference's envelope."""
     if cfg.aug_mode not in ("batch", "reference"):
         raise ValueError(f"aug_mode {cfg.aug_mode!r}: batch or reference")
+    if cfg.spatial < 1:
+        raise ValueError(f"spatial={cfg.spatial} must be >= 1")
+    if cfg.spatial > 1:
+        spatial.check_spatial_config(cfg.input_size, cfg.spatial)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -151,15 +159,20 @@ def resolve_compute_dtype(name: Optional[str], device) -> torch.dtype:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig):
-        check_ported(cfg)
+        check_config(cfg)
         self.cfg = cfg
         self.spec = get_spec(cfg.dataset)
-        self.world = mesh.init_data_parallel(cfg.device)
+        mesh.init_data_parallel(cfg.device)
+        # the (data, model) layout: W divisible by S (a launched world
+        # cannot shrink), then the batch by n_data (rank_rows)
+        mesh.set_spatial(cfg.spatial)
+        self.world = mesh.world(cfg.device)
         self.device = resolve_device(str(self.world.device))
-        # this rank's rows of each global batch (all of them in one process)
+        # this rank's rows of each global batch (all of them in one
+        # process): its data index's rows
         self._rows = mesh.rank_rows(cfg.batch_size, max(cfg.grad_accum, 1),
                                     self.world) \
-            if self.world.size > 1 else None
+            if self.world.n_data > 1 else None
         setup_seed(cfg.seed)
 
         (self.datas, self.train_loader, self.val_loader, self.augment,
@@ -177,6 +190,7 @@ class Trainer:
             generator=torch.Generator().manual_seed(cfg.seed))
         if cfg.encoder_checkpoint:
             ckpt.load_encoder(cfg.encoder_checkpoint, self.model)
+        spatial.check_model(self.model, cfg.input_size, cfg.spatial)
         self.n_params = count_params(self.model)
 
         weights = torch.from_numpy(np.asarray(
@@ -185,8 +199,10 @@ class Trainer:
         loss_kwargs = dict(num_classes=self.spec.num_classes,
                            ignore_index=self.spec.ignore_label)
         # a CE-family loss on a resize-tail model owns the x8 upsample:
-        # the fused resize-CE kernel, on logits_lowres
-        fused, fwd_method = fused_resize_ce_spec(self.model, cfg.loss)
+        # the fused resize-CE kernel, on logits_lowres; not under spatial
+        # sharding, as in the reference (the full forward, the plain loss)
+        fused, fwd_method = (None, None) if cfg.spatial > 1 else \
+            fused_resize_ce_spec(self.model, cfg.loss)
         self.loss_fn = partial(fused or build_loss(cfg.loss),
                                class_weights=weights, **loss_kwargs)
         total_steps = cfg.max_epochs * max(len(self.train_loader), 1)
@@ -242,7 +258,10 @@ class Trainer:
                     f"compute_dtype: {self.compute_dtype}\n")
             f.write(f"world: {self.world.size} rank(s)  backend: "
                     f"{self.world.backend or 'none'}  devices: "
-                    f"{' '.join(devices)}\n")
+                    f"{' '.join(devices)}"
+                    + (f"  mesh: {self.world.n_data} data x "
+                       f"{self.world.spatial} model"
+                       if self.world.spatial > 1 else "") + "\n")
             f.write("epoch\tlr\tloss_train\tmIoU_val\ttime_s\n")
 
     def _class_names(self):
@@ -297,10 +316,17 @@ class Trainer:
                     with profiling.annotate("augment"):
                         # drawn for the global batch; this rank's rows
                         draws = self.augment.draw(
-                            gen, images.shape[0] * self.world.size)
+                            gen, images.shape[0] * self.world.n_data)
                         if self._rows is not None:
                             draws = draws.take(self._rows)
                         x, y = self.augment(images, labels, draws)
+                        if self.world.spatial > 1:
+                            # this rank's image rows
+                            w = self.world
+                            x = spatial.shard_rows(x, w.spatial,
+                                                   w.model_index, 2)
+                            y = spatial.shard_rows(y, w.spatial,
+                                                   w.model_index, 1)
                     with profiling.annotate("train_step"):
                         metrics = self.train_step({"image": x, "label": y})
                     losses.append(metrics["loss"])

@@ -77,11 +77,26 @@ def test_config_from_args():
     assert resolve_compute_dtype("float32", "cuda") == torch.float32
 
 
-@pytest.mark.parametrize("flags,item", [(["--spatial", "2"], "item 10")])
-def test_unported_flags_raise_with_their_roadmap_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1, {item}"):
-        train_cli.main(flags + ["--cuda", "False", "--savedir",
-                                str(tmp_path)])
+@pytest.mark.parametrize("size,spatial", [("64,64", 2), ("160,160", 4),
+                                          ("96,128", 2)])
+def test_spatial_outside_the_envelope_raises_the_reference_s_error(
+        tmp_path, size, spatial):
+    """``--spatial`` runs (tests/test_torch_spatial_trainer.py); outside
+    the reference's envelope it raises the reference's ValueError before
+    anything is built."""
+    with pytest.raises(ValueError, match=r"need >=4 rows divisible by"):
+        train_cli.main(["--spatial", str(spatial), "--input_size", size,
+                        "--cuda", "False", "--savedir", str(tmp_path)])
+
+
+def test_spatial_on_a_world_it_does_not_divide_raises(tmp_path):
+    """One process cannot hold a model axis of 2: where the reference
+    asserts its devices divide, the port says to launch more ranks."""
+    with pytest.raises(ValueError, match=r"1 rank\(s\) are not divisible by "
+                                         r"spatial=2.*cannot shrink"):
+        train_cli.main(["--spatial", "2", "--input_size", "128,128",
+                        "--cuda", "False", "--savedir", str(tmp_path),
+                        "--data_root", str(tmp_path / "none")])
 
 
 @pytest.mark.parametrize("flags,loss", [

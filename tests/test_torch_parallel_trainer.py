@@ -11,7 +11,7 @@ a resume from epoch 1 (bit for bit the straight 2-rank run, as a
 one-process resume is the straight one-process run). What rank 0 writes:
 ``gpu2`` in the run dir, the world in the log's header. ``cli.train``
 then ``cli.test`` at 2 ranks against ``cli.test`` in one process on the
-same checkpoint. ``dryrun_multichip(2)``.
+same checkpoint. ``dryrun_multichip(2)``, which has no spatial pass.
 
 One spawn of 2 ranks (``file://`` rendezvous, one torch thread a rank,
 its own time limit) runs the Trainer and CLI cases; the dry run spawns
@@ -151,4 +151,5 @@ def test_dryrun_multichip_2(capsys):
     assert all(np.isfinite(v) for v in losses.values())
     out = capsys.readouterr().out
     assert "dp ok (ce+ohem loss)" in out and "dp enet ok" in out
-    assert "item 10" in out
+    # the spatial pass needs 4 ranks or more, as the reference's
+    assert "spatial" not in losses and "item 10" not in out

@@ -84,7 +84,8 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.train.step", "esn_tpu_torch.utils.params",
                  "esn_tpu_torch.parallel", "esn_tpu_torch.parallel.mesh",
                  "esn_tpu_torch.parallel.launch",
-                 "esn_tpu_torch.parallel.dryrun"):
+                 "esn_tpu_torch.parallel.dryrun",
+                 "esn_tpu_torch.parallel.spatial"):
         assert name in out["modules"]
     assert out["pred"] == {arch: [[1, 64, 128], "torch.int32"]
                            for arch in ARCHS}

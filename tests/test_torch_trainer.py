@@ -138,10 +138,24 @@ def test_resume_is_exact(straight, tmp_path):
         assert got[0][key] == want[key], key
 
 
-@pytest.mark.parametrize("over,item", [(dict(spatial=2), "item 10")])
-def test_unported_options_raise_with_their_roadmap_item(tmp_path, over, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, {item}"):
-        Trainer(make_cfg(tmp_path, "x", **over))
+@pytest.mark.parametrize("hw,spatial", [((64, 64), 2), ((160, 160), 4),
+                                        ((256, 96), 3)])
+def test_spatial_outside_the_envelope_raises_the_reference_s_error(
+        tmp_path, hw, spatial):
+    with pytest.raises(ValueError, match=r"need >=4 rows divisible by"):
+        Trainer(make_cfg(tmp_path, "x", input_size=hw, spatial=spatial))
+
+
+def test_spatial_on_a_world_it_does_not_divide_raises(tmp_path):
+    """Inside the envelope, one process cannot hold a model axis of 2:
+    where the reference asserts, the port raises and says why; a later
+    Trainer in the same process is data-parallel again."""
+    with pytest.raises(ValueError, match=r"1 rank\(s\) are not divisible by "
+                                         r"spatial=2.*cannot shrink"):
+        Trainer(make_cfg(tmp_path, "x", input_size=(128, 128), spatial=2))
+    trainer = Trainer(make_cfg(tmp_path, "y", synthetic_len=2,
+                               max_epochs=1))
+    assert trainer.world.spatial == 1
 
 
 @pytest.mark.parametrize("over", [
