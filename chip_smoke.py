@@ -597,32 +597,41 @@ SP_RANKS, SP_TIMED_STEPS = 2, 5
 SP_ENET_HW = CONFIG3_HW
 SP_CLI_HW = DP_CLI_HW
 # Fast-SCNN's convs over a shard's window of rows round as over the whole
-# tensor (``sp_windows``: none differs, in f32 and bf16), and its pooled
+# tensor (none differs, in f32 and bf16: ``python3 -m
+# esn_tpu_torch.tools.spatial_diag``'s ``conv_windows``), and its pooled
 # PPM maps are the whole map's (``models/blocks.py``), so both of its
 # steps are held to the data_parallel gate as it is. ENet's are not:
 # cuDNN runs its transposed and 5x1 convs over a window with other
-# algorithms (``sp_windows`` reads which, and at how many elements),
+# algorithms (``conv_windows`` reads which, and at how many elements),
 # so (this phase's readings on that card, NVIDIA H100 80GB HBM3, 700 W,
-# two runs, before these bounds were set) its f32 step's loss and
-# statistics meet the gate (3.0e-7, 6.1e-7) while its gradient, led by
-# the first layers' weight gradients, each a sum of ~4 M products with
-# heavy cancellation, comes out 1.79-1.96 times further from f64 than
-# one process's: held at SP_ENET_GRAD_RATIO, which still fails unsummed
-# gradients (64) or local BN moments (2.6e2; the data_parallel readings)
-# tenfold. In bf16 those one-ulp differences cascade through ENet's 16
-# dilated and asymmetric layers into a 1.0e-4 loss and 4.9e-4 statistics
-# gap, so its bf16 step is held to
+# before these bounds were set) its f32 step's loss and statistics meet
+# the gate (3.0e-7, 6.1e-7) while its gradient, led by the first layers'
+# weight gradients, each a sum of ~4 M products with heavy cancellation,
+# comes out 1.79-1.96 times further from f64 than one process's: held at
+# SP_ENET_GRAD_RATIO. In bf16 those one-ulp differences cascade through
+# ENet's 16 dilated and asymmetric layers into a 1.0e-4 loss and 4.9e-4
+# statistics gap (the same in every run), so its bf16 step is held to
 # the f64 step instead: its statistics' update and gradient each no
 # further from the f64 step's than SP_TO_F64_RATIO times the one-process
-# bf16 step's, and its loss within one bf16 ulp (2^-8) of one process's
-# (a scalar's distance to f64 can be near 0 by chance: no ratio).
-SP_ENET_GRAD_RATIO, SP_TO_F64_RATIO = 3.0, 2.0
+# bf16 step's (read 1.04, 1.02), and its loss within SP_ENET_BF16_LOSS of
+# one process's (a scalar's distance to f64 can be near 0 by chance: no
+# ratio). Held against a halo fault planted in every row exchange at
+# this phase's sizes (``spatial_diag``'s ``faults``, on that card): zero
+# halos read, f32, Fast-SCNN loss 1.95e-3, statistics 3.5e-2, gradient
+# ratio 163, ENet 7.9e-4, 8.7e-3, 161; bf16 Fast-SCNN loss 1.67e-3,
+# statistics 3.5e-2, ENet loss 6.4e-4, statistics and gradient ratios
+# 5.3 and 1.34. Each row fetched one row off: f32 Fast-SCNN 8.0e-4,
+# 9.9e-3, 139, ENet 3.9e-4, 6.9e-3, 146; bf16 Fast-SCNN 2.6e-4, 9.8e-3,
+# ENet 4.1e-4, ratios 4.3 and 1.27. So ENet's bf16 loss bound sits at
+# 2.5x its reading, under both faults' 4.1e-4 and 6.4e-4 (2^-8 passed
+# them), and each fault breaks at least two bounds of every step.
+SP_ENET_GRAD_RATIO, SP_TO_F64_RATIO, SP_ENET_BF16_LOSS = 3.0, 2.0, 2.5e-4
 SP_GATES = {
     "fastscnn": {"float32": DP_BOUNDS["ce_first"],
                  "bfloat16": DP_BOUNDS["ce_first"]},
     "enet": {"float32": {**DP_BOUNDS["ce_first"],
                          "grad_to_f64_ratio": SP_ENET_GRAD_RATIO},
-             "bfloat16": {"loss_rel": 2.0 ** -8,
+             "bfloat16": {"loss_rel": SP_ENET_BF16_LOSS,
                           "stats_to_f64_ratio": SP_TO_F64_RATIO,
                           "grad_to_f64_ratio": SP_TO_F64_RATIO}}}
 
@@ -3713,72 +3722,6 @@ def sp_oracle(torch, F, arch, hw):
     return out
 
 
-def sp_windows(torch, F, arch, hw, dtype):
-    """Each conv and transposed conv of ``arch``'s forward (train mode,
-    batch BATCH of ``hw``, the step's shapes) over the whole tensor against the same op over the
-    two windows of rows the spatial path computes (``parallel.spatial``'s
-    geometry, zeros beyond the border): the convs whose outputs differ,
-    and the largest share of elements that do."""
-    from esn_tpu_torch.models import build_model
-    from esn_tpu_torch.nn import layers, set_dropout_generator
-    from esn_tpu_torch.parallel import spatial
-
-    def pair(v):
-        return (v, v) if isinstance(v, int) else tuple(v)
-
-    def window(x, lo, hi):
-        out = x.new_zeros(x.shape[:2] + (hi - lo, x.shape[3]))
-        a, b = max(lo, 0), min(hi, x.shape[2])
-        out[:, :, a - lo:b - lo] = x[:, :, a:b]
-        return out.contiguous(memory_format=torch.channels_last)
-    model = build_model(arch, CLASSES, device="cuda",
-                        generator=torch.Generator().manual_seed(0)).train()
-    set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(1))
-    seen = []
-    hooks = [m.register_forward_hook(
-        lambda m, i, o: seen.append((m, i[0].detach())))
-        for m in model.modules()
-        if isinstance(m, (layers.Conv, layers.ConvTranspose))]
-    x = torch.randn((BATCH, 3) + tuple(hw), device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(2))
-    with torch.no_grad():
-        model(x.to(dtype).contiguous(memory_format=torch.channels_last))
-        for h in hooks:
-            h.remove()
-        differ, worst = [], 0.0
-        ax = spatial.Axis(SP_RANKS, 0, None)
-        for i, (m, xin) in enumerate(seen):
-            w = m.weight.to(dtype)
-            b = None if m.bias is None else m.bias.to(dtype)
-            k, (s, sw), (p, pw) = m.weight.shape[2], pair(m.stride), \
-                pair(m.padding)
-            h = xin.shape[2] // SP_RANKS
-            if isinstance(m, layers.ConvTranspose):
-                op = pair(m.output_padding)
-                y = F.conv_transpose2d(xin, w, b, m.stride, m.padding,
-                                       m.output_padding)
-                wins, ho, _ = spatial.transpose_windows(h, ax, k, s, p, op[0])
-                ys = torch.cat([F.conv_transpose2d(
-                    window(xin, lo, hi), w, b, (s, sw), (0, pw), (0, op[1])
-                ).narrow(2, j * ho + p - lo * s, ho)
-                    for j, (lo, hi) in enumerate(wins)], 2)
-            else:
-                if k == 1 and s == 1 and p == 0:
-                    continue
-                y = F.conv2d(xin, w, b, m.stride, m.padding, m.dilation,
-                             m.groups)
-                wins, _ = spatial.stencil_windows(h, ax, k, s, p,
-                                                  pair(m.dilation)[0])
-                ys = torch.cat([F.conv2d(window(xin, lo, hi), w, b, m.stride,
-                                         (0, pw), m.dilation, m.groups)
-                                for lo, hi in wins], 2)
-            share = float((ys != y).float().mean())
-            if share:
-                differ.append(f"{i}:{type(m).__name__}{tuple(m.weight.shape)}")
-                worst = max(worst, share)
-    return {"convs": len(seen), "differ": differ, "largest_share": worst}
-
-
 def sp_timing(torch, F, arch, hw):
     """The bf16 plain-CE step on this rank's rows: its ms
     (``timed_steps``) and the peak memory allocated over those steps,
@@ -3946,14 +3889,7 @@ def spatial_phase(torch, F, K):
                 for arch, _ in SP_MODELS}
         oracle = {arch: sp_oracle(torch, F, arch, hw)
                   for arch, hw in SP_MODELS}
-        torch.backends.cudnn.allow_tf32 = False
-        windows = {f"{arch}_{d}": sp_windows(torch, F, arch, hw,
-                                             getattr(torch, d))
-                   for arch, hw in SP_MODELS
-                   for d in ("float32", "bfloat16")}
-        torch.backends.cudnn.allow_tf32 = True
         cli = cli.result()
-    print("spatial windows", json.dumps(windows))
     first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     one = launch.to_numpy(sp_rank_main())
@@ -4000,7 +3936,7 @@ def spatial_phase(torch, F, K):
                "rank_parts": [r["seconds"] for r in ranks]}
     print("spatial seconds", json.dumps(seconds))
     return {"readings": rows, "timing": timing, "torchrun": cli,
-            "windows": windows, "seconds": seconds,
+            "seconds": seconds,
             "skip": {a: sorted(v) for a, v in skip.items()}}
 
 

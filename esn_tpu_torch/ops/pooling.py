@@ -20,8 +20,8 @@ Under spatial sharding (``parallel.spatial.sharded``) the window pools
 fetch the rows their windows read from the model group and pool with no
 H padding: max pools see -inf, average pools zeros at the global border
 only (``count_include_pad`` counts padded rows there alone). The global
-and adaptive pools sum each rank's rows over the group: their result is
-replicated on it. The 2x2 index pool and its unpool stay local: inside
+pool sums each rank's rows over the group: its result is replicated on
+it. The adaptive pool takes whole maps only (it raises on a shard). The 2x2 index pool and its unpool stay local: inside
 the envelope every shard starts on an even row, so a window never
 crosses two shards (asserted), and an index only needs to be read back
 by the same rank's unpool."""
@@ -86,35 +86,17 @@ def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     return (s / (x.shape[2] * ax.size * x.shape[3])).to(x.dtype)
 
 
-def _bins(length: int, n: int, dtype, device, rows=None) -> torch.Tensor:
-    """(n, len(rows)) 0/1 membership of ``rows`` (all of ``[0,
-    length)`` by default) in the n adaptive bins over ``length``: bin i
-    spans ``[floor(i*L/n), ceil((i+1)*L/n))``."""
-    r = torch.arange(length) if rows is None else rows
-    i = torch.arange(n)[:, None]
-    lo, hi = (i * length) // n, -((-(i + 1) * length) // n)
-    return ((r[None] >= lo) & (r[None] < hi)).to(dtype=dtype, device=device)
-
-
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntOr2) -> torch.Tensor:
     """torch-style adaptive average pool: bin i of n over a length L spans
     ``[floor(i*L/n), ceil((i+1)*L/n))``, the reference's bin edges.
 
-    Under spatial sharding each rank sums its rows into every global bin
-    (bins overlap across shards where L/n is not whole), the sums are
-    added over the model group and divided by the global counts: the
-    result is replicated on the group."""
-    ax = spatial.axis()
-    if ax is None:
-        return F.adaptive_avg_pool2d(_wide(x), output_size).to(x.dtype)
-    (nh, nw), xw = _pair(output_size), _wide(x)
-    h, w = x.shape[2], x.shape[3]
-    rows = torch.arange(ax.index * h, (ax.index + 1) * h)
-    bh = _bins(h * ax.size, nh, xw.dtype, x.device, rows)
-    bw = _bins(w, nw, xw.dtype, x.device)
-    sums = spatial.group_sum(torch.einsum("nchw,ih,jw->ncij", xw, bh, bw), ax)
-    count_h = _bins(h * ax.size, nh, xw.dtype, x.device).sum(1)
-    return (sums / (count_h[:, None] * bw.sum(1)[None])).to(x.dtype)
+    A shard raises: pool the whole map (``spatial.whole``) inside
+    ``spatial.replicated()``, as PPM does."""
+    if spatial.axis() is not None:
+        raise ValueError(
+            "adaptive_avg_pool2d: a shard's rows; pool spatial.whole(x) "
+            "inside spatial.replicated() (the result is replicated)")
+    return F.adaptive_avg_pool2d(_wide(x), output_size).to(x.dtype)
 
 
 def max_pool2d(x: torch.Tensor, window: IntOr2,

@@ -44,9 +44,11 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 
 _DEVICE: Optional[torch.device] = None
-# the model axis: its size and this rank's model group (None at S = 1)
+# the model axis: its size and this rank's model group (None at S = 1);
+# every layout's groups, made once a process group (``set_spatial``)
 _SPATIAL = 1
 _MODEL_GROUP = None
+_MODEL_GROUPS: Dict[int, List] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +100,11 @@ def set_spatial(n_spatial: int) -> World:
     the model axis (the reference's ``devices.reshape(n_data,
     n_spatial)``): rank ``r`` at data index ``r // n_spatial``, model
     index ``r % n_spatial``. Every rank creates every model group, in the
-    same order, as ``dist.new_group`` requires. ``n_spatial = 1`` is the
-    data-parallel world. A world that ``n_spatial`` does not divide
-    raises: the reference would use fewer devices, but a launched world
-    cannot shrink."""
+    same order, as ``dist.new_group`` requires, the first time this
+    ``n_spatial`` is laid out in the process group; a later call reuses
+    them. ``n_spatial = 1`` is the data-parallel world. A world that
+    ``n_spatial`` does not divide raises: the reference would use fewer
+    devices, but a launched world cannot shrink."""
     global _SPATIAL, _MODEL_GROUP
     size = dist.get_world_size() if active() else 1
     if n_spatial < 1 or size % n_spatial:
@@ -111,12 +114,12 @@ def set_spatial(n_spatial: int) -> World:
             f"{n_spatial} ranks (n_data x {n_spatial})")
     _SPATIAL, _MODEL_GROUP = 1, None
     if n_spatial > 1:
-        rank = dist.get_rank()
-        for d in range(size // n_spatial):
-            group = dist.new_group(list(range(d * n_spatial,
-                                              (d + 1) * n_spatial)))
-            if d == rank // n_spatial:
-                _MODEL_GROUP = group
+        if n_spatial not in _MODEL_GROUPS:
+            _MODEL_GROUPS[n_spatial] = [
+                dist.new_group(list(range(d * n_spatial,
+                                          (d + 1) * n_spatial)))
+                for d in range(size // n_spatial)]
+        _MODEL_GROUP = _MODEL_GROUPS[n_spatial][dist.get_rank() // n_spatial]
         _SPATIAL = n_spatial
     return world()
 
@@ -188,6 +191,7 @@ def shutdown() -> None:
     if active():
         dist.destroy_process_group()
     _DEVICE, _SPATIAL, _MODEL_GROUP = None, 1, None
+    _MODEL_GROUPS.clear()
 
 
 # --------------------------------------------------------------- collectives

@@ -161,8 +161,8 @@ def sharded() -> Iterator[None]:
 @contextlib.contextmanager
 def replicated() -> Iterator[None]:
     """Marks a call site whose tensors are whole on every rank of the
-    model group (the output of :func:`group_sum`, e.g. an adaptive pool):
-    ops run plainly on them, BatchNorm counts each element once, and
+    model group (the output of :func:`whole` or :func:`group_sum`, e.g.
+    PPM's pooled maps): ops run plainly on them, BatchNorm counts each element once, and
     ``ops.resize.resize_bilinear`` gives this rank's output rows."""
     global _REPLICATED
     if _AXIS is None:

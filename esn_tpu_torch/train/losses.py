@@ -95,16 +95,21 @@ def resize_cross_entropy(z, labels, *, num_classes: int,
     An integer isotropic scale 2 <= r <= 16 runs the fused kernel (z f32
     contiguous NHWC, labels int32 on the card); any other scale
     upsamples in f32 and takes :func:`cross_entropy`, as the reference's
-    materialized path does. So does a step under spatial sharding, whose
-    upsample reads rows across shards (``ops.resize``) where the kernel
-    reads only its own.
+    materialized path does. Under spatial sharding it raises: its
+    upsample would read rows across shards, which the kernel does not;
+    the spatial step takes the model's full forward and the plain loss
+    (the Trainer's route).
     """
+    if spatial.axis() is not None:
+        raise ValueError(
+            "resize_cross_entropy: the fused resize-CE loss reads no rows "
+            "across shards; under spatial sharding take the model's full "
+            "forward with the plain loss (build_loss)")
     b, h, w, c = z.shape
     hl, wl = labels.shape[1], labels.shape[2]
     r = hl // h
     if (hl % h or wl % w or r != wl // w
-            or not 2 <= r <= K.resize_ce.MAX_FACTOR
-            or spatial.axis() is not None):
+            or not 2 <= r <= K.resize_ce.MAX_FACTOR):
         full = resize_bilinear(_wide(z).permute(0, 3, 1, 2), (hl, wl))
         return cross_entropy(full.permute(0, 2, 3, 1), labels,
                              num_classes=num_classes,

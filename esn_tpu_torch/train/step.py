@@ -166,7 +166,8 @@ def make_train_step(model: SegModel, loss_fn: Callable,
     across shards, whole-height reductions are summed over the model
     group, and the sums over the world above are unchanged. Pair it with
     the model's full forward and a plain loss (``fwd_method`` None), as
-    the reference's spatial step does.
+    the reference's spatial step does: the fused resize-CE loss raises
+    there.
 
     ``remat=True`` recomputes the model's forward during the backward
     (the reference's ``jax.checkpoint``), each microbatch's on its own: a

@@ -93,11 +93,18 @@ OPS = {
     "resize_half": _plain(lambda x: R.resize_bilinear(
         x, (x.shape[2] // 2, x.shape[3] // 2))),
 }
+def whole_adaptive_pool(x, bins):
+    """PPM's pool of a shard: the adaptive pool of the whole map
+    (``spatial.whole``) inside ``spatial.replicated()``."""
+    full = spatial.whole(x)
+    with spatial.replicated():
+        return P.adaptive_avg_pool2d(full, bins)
+
+
 # whole-height reductions: the result is replicated on the model group
 REDUCTIONS = {
     "global_avg_pool": lambda x: P.global_avg_pool(x),
-    **{f"adaptive_{b}": functools.partial(P.adaptive_avg_pool2d,
-                                          output_size=b)
+    **{f"adaptive_{b}": functools.partial(whole_adaptive_pool, bins=b)
        for b in (1, 2, 3, 6)},
 }
 # a replicated input resized to this rank's rows of S x (rows, cols)
@@ -199,6 +206,24 @@ def bn_case(x, cot, params, n_spatial):
     mesh.all_reduce_grads(bn.parameters())
     return dict(y=y, dx=xr.grad, dweight=bn.weight.grad, dbias=bn.bias.grad,
                 running_mean=bn.running_mean, running_var=bn.running_var)
+
+
+@_numpy
+def regroup_case(n_spatial):
+    """Lay the world out at ``n_spatial``, then at S = 1, then at
+    ``n_spatial`` again: the second layout reuses the first's model group
+    (no new process group), and a group sum over it still gives S."""
+    layout(n_spatial)
+    first = mesh.model_group()
+    if mesh.active():
+        mesh.set_spatial(1)
+    w = layout(n_spatial)
+    with spatial.sharded():
+        ax = spatial.axis()
+        one = torch.ones(1, dtype=torch.float64)
+        total = spatial.group_sum(one, ax) if ax is not None else one
+    return dict(same=mesh.model_group() is first, spatial=w.spatial,
+                total=total)
 
 
 def many_case(calls):

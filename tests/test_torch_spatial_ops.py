@@ -7,8 +7,9 @@ result: the forward and the backward (input and parameter gradients).
   and 1 x k kernels, depthwise; transposed convs; max and average pools
   (the padded count in and out); the 2x2 index pool and its unpool;
   bilinear resizes x2, x4, x8, x1/4 and x1/2 of a sharded input;
-- the global and adaptive pools (bins 1, 2, 3, 6), whose result is
-  replicated on the model group, back-propagated from one rank only;
+- the global pool and PPM's adaptive pools of the whole map (bins 1, 2,
+  3, 6), whose result is replicated on the model group, back-propagated
+  from one rank only (an adaptive pool of a shard raises);
 - a replicated map resized to this rank's rows (PPM's upsample);
 - the training Dropout and SpatialDropout masks (the global draw's
   block), and a training BatchNorm (moments, statistics, gradients).
@@ -65,6 +66,8 @@ def _op_calls():
     xs = 3.0 + _x(504)
     calls.append(("bn_case", (xs, _x(505), bn), {}))
     want.append(TS.bn_case(xs, _x(505), bn, 1))
+    calls.append(("regroup_case", (), {}))
+    want.append(TS.regroup_case(1))
     return calls, want
 
 
@@ -128,6 +131,16 @@ def test_sharded_op_matches_the_whole_tensor(runs, s, name):
                 _close(o[k], one[k], k)
 
 
+@pytest.mark.parametrize("s", [2, 4])
+def test_a_second_layout_reuses_the_model_groups(runs, s):
+    got, want = runs
+    assert want[-1] == dict(same=True, spatial=1, total=np.ones(1))
+    for o in got[s]:
+        r = o[len(NAMES)]
+        assert r["same"] and r["spatial"] == s
+        np.testing.assert_array_equal(r["total"], [s])
+
+
 def test_the_envelope_is_the_reference_s():
     spatial.check_spatial_config((512, 1024), 4)
     spatial.check_spatial_config((128, 128), 2)
@@ -174,3 +187,35 @@ def test_no_spatial_context_without_a_model_axis():
         assert spatial.axis() is None and spatial.replicated_axis() is None
         with spatial.replicated():
             assert spatial.replicated_axis() is None
+
+
+def _on_a_shard(monkeypatch):
+    """Mark the ops' inputs as shard 0 of 2 without a group: an op that
+    raises on a shard does so before any collective."""
+    monkeypatch.setattr(spatial, "_AXIS", spatial.Axis(2, 0, None))
+    assert spatial.axis() is not None
+
+
+def test_an_adaptive_pool_of_a_shard_raises(monkeypatch):
+    from esn_tpu_torch.ops import pooling as P
+    x = torch.from_numpy(_x(0))
+    _on_a_shard(monkeypatch)
+    with pytest.raises(ValueError, match=r"spatial.whole\(x\) inside "
+                                         r"spatial.replicated\(\)"):
+        P.adaptive_avg_pool2d(x, 3)
+    with spatial.replicated():
+        np.testing.assert_array_equal(
+            P.adaptive_avg_pool2d(x, 3),
+            torch.nn.functional.adaptive_avg_pool2d(x, 3))
+
+
+def test_the_fused_resize_ce_loss_raises_on_a_shard(monkeypatch):
+    """The fused resize-CE loss reads no rows across shards: on a shard
+    it raises and names the plain route, which the Trainer takes."""
+    from esn_tpu_torch.train.losses import resize_cross_entropy
+    z = torch.from_numpy(_x(1, (N, 2, 2, 3))).float()
+    labels = torch.zeros((N, 16, 16), dtype=torch.int64)
+    _on_a_shard(monkeypatch)
+    with pytest.raises(ValueError, match=r"reads no rows across shards.*"
+                                         r"plain loss"):
+        resize_cross_entropy(z, labels, num_classes=3)
