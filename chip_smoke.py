@@ -136,7 +136,23 @@ from zero:
   states bit for bit equal; the bf16 step's ms and peak memory a rank
   against one process, and its collectives' count and own cost;
   ``torchrun --nproc_per_node 2 -m esn_tpu_torch.cli.train --spatial 2``
-  against one process.
+  against one process;
+- the port's image decoder (``decode``): Cityscapes-sized PNG records
+  (2048x1024 RGB images and grey labels) written with row filters 0-4
+  in turn by the phase's own encoder, each decoded equal to the array
+  written; the bilinear and nearest resizes equal to a numpy oracle of
+  the reference's formulas; records a second on one thread, through
+  ``BatchLoader`` at 1, 4 and 8 workers and through ``NativePipeline``,
+  beside what a b8 Fast-SCNN step consumes;
+- the golden runs (``golden``): ``GOLDEN.json``'s four tiny real-PNG
+  trainings (ENet, Fast-SCNN, ENet with OHEM, ERFNet on a CamVid-like
+  96x128 fixture) through ``tools/golden_run.py``: the fixture's PNGs
+  read through ``ManifestDataset`` and the decoder, each config trained
+  by the port's Trainer in f32 (TF32 off) and in bf16, each held to the
+  reference's spread over seeds (``golden_spread.json``), bf16 also
+  against f32; Fast-SCNN launches K3 once forward and once backward a
+  step (48 steps) and K2 4 times and K1 once in its validation, ENet and
+  ERFNet none.
 
 Each phase prints its seconds. Exits non-zero on any failure, and when
 no CUDA device is present. The last line of standard output is one JSON
@@ -3940,6 +3956,249 @@ def spatial_phase(torch, F, K):
             "skip": {a: sorted(v) for a, v in skip.items()}}
 
 
+
+# --- the port's decoder, and the golden runs -----------------------------
+
+# decode: images and labels at Cityscapes' size, as PNG files written by
+# the phase's own encoder with row filters 0-4 in turn
+DECODE_HW = (1024, 2048)
+DECODE_RECORDS = 8
+DECODE_WORKERS = (1, 4, 8)
+# what a b8 Fast-SCNN train step consumes: 8 images at ~90 ms a step
+# (PERF.md section 5, NVIDIA H100 80GB HBM3, 700 W)
+FASTSCNN_STEP_IMG_S = 89.0
+DECODE_ODD_HW = (383, 769)
+
+
+def _png_file(path, image):
+    """``image`` ((H, W) or (H, W, 3) uint8, RGB) as an 8-bit PNG whose
+    row y carries filter y % 5: None, Sub, Up, Average, Paeth."""
+    import struct
+    import zlib
+
+    import numpy as np
+    h, w = image.shape[:2]
+    bpp = 1 if image.ndim == 2 else 3
+    raw = image.reshape(h, w * bpp).astype(np.int16)
+    up = np.concatenate([np.zeros((1, w * bpp), np.int16), raw[:-1]])
+    left = np.concatenate([np.zeros((h, bpp), np.int16), raw[:, :-bpp]], 1)
+    upleft = np.concatenate([np.zeros((h, bpp), np.int16), up[:, :-bpp]], 1)
+    p = left + up - upleft
+    pa, pb, pc = abs(p - left), abs(p - up), abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = [np.zeros_like(raw), left, up, (left + up) // 2, paeth]
+    kind = np.arange(h) % 5
+    pred = np.choose(kind[:, None], preds)
+    rows = np.concatenate([kind[:, None], (raw - pred) % 256], 1)
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xffffffff))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             0 if bpp == 1 else 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(
+                    rows.astype(np.uint8).tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def _bilinear_oracle(np, src, hw):
+    """The reference's bilinear resize (native/esn_native.cc), in float32
+    numpy: half-pixel centres, +0.5 rounding."""
+    f32 = np.float32
+    sh, sw = src.shape[:2]
+
+    def axis(n_src, n_dst):
+        f = ((np.arange(n_dst, dtype=f32) + f32(0.5))
+             * (f32(n_src) / f32(n_dst)) - f32(0.5))
+        i0 = np.floor(f).astype(np.int64)
+        wt = f - i0.astype(f32)
+        neg = i0 < 0
+        i1 = np.where(neg, 0, i0 + 1)
+        i0, wt = np.where(neg, 0, i0), np.where(neg, f32(0), wt)
+        return np.minimum(i0, n_src - 1), np.minimum(i1, n_src - 1), wt
+
+    y0, y1, wy = axis(sh, hw[0])
+    x0, x1, wx = axis(sw, hw[1])
+    s = src.astype(f32)
+    wy, wx, one = wy[:, None, None], wx[None, :, None], f32(1)
+    v = (s[y0][:, x0] * (one - wy) * (one - wx)
+         + s[y0][:, x1] * (one - wy) * wx
+         + s[y1][:, x0] * wy * (one - wx) + s[y1][:, x1] * wy * wx)
+    return (v + f32(0.5)).astype(np.uint8)
+
+
+def _nearest_oracle(np, src, hw):
+    f32 = np.float32
+    sh, sw = src.shape
+    ys = np.minimum((np.arange(hw[0], dtype=f32)
+                     * (f32(sh) / f32(hw[0]))).astype(np.int64), sh - 1)
+    xs = np.minimum((np.arange(hw[1], dtype=f32)
+                     * (f32(sw) / f32(hw[1]))).astype(np.int64), sw - 1)
+    return src[ys][:, xs]
+
+
+def decode_phase(torch):
+    """The port's image decoder (``data/native.py``) on the card's host:
+
+    1. DECODE_RECORDS Cityscapes-sized records (2048x1024 RGB images of
+       8x8 blocks plus noise, grey labels of 32x32 blocks), written by
+       ``_png_file`` with every row filter; each decodes equal to the
+       array written (``decode_bgr`` the BGR of it, ``decode_grey`` the
+       label);
+    2. the resizes against a numpy oracle of the reference's formulas,
+       at half size and at an odd size (bit for bit);
+    3. decoded records a second on one thread (image and label, as
+       ``ManifestDataset`` reads them), through ``BatchLoader`` at batch
+       8 with ``num_workers`` DECODE_WORKERS, and through
+       ``NativePipeline`` on 8 threads, beside FASTSCNN_STEP_IMG_S.
+    """
+    import os
+
+    import numpy as np
+
+    from esn_tpu_torch.data import CAMVID, BatchLoader, native
+    from esn_tpu_torch.data.datasets import ManifestDataset
+
+    h, w = DECODE_HW
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        written, records = [], []
+        for i in range(DECODE_RECORDS):
+            base = rng.randint(0, 256, (h // 8, w // 8, 3)).astype(np.uint8)
+            img = (base.repeat(8, 0).repeat(8, 1).astype(np.int16)
+                   + rng.randint(-12, 13, (h, w, 3))).clip(0, 255).astype(
+                       np.uint8)
+            lab = rng.randint(0, CLASSES, (h // 32, w // 32)).astype(
+                np.uint8).repeat(32, 0).repeat(32, 1)
+            lab[rng.rand(h, w) < 0.02] = IGNORE
+            ip, lp = f"{tmp}/img_{i}.png", f"{tmp}/lab_{i}.png"
+            _png_file(ip, img)
+            _png_file(lp, lab)
+            written.append((img, lab))
+            records.append((ip, lp))
+        write_s = time.perf_counter() - t0
+        build_t0 = time.perf_counter()
+        native.library()
+        build_s = time.perf_counter() - build_t0
+        for (ip, lp), (img, lab) in zip(records, written):
+            check(np.array_equal(native.decode_bgr(ip), img[..., ::-1]),
+                  f"decode: {ip} differs from the array written")
+            check(np.array_equal(native.decode_grey(lp), lab),
+                  f"decode: {lp} differs from the array written")
+        img, lab = written[0]
+        for hw in ((h // 2, w // 2), DECODE_ODD_HW):
+            check(np.array_equal(native.decode_bgr(records[0][0], hw),
+                                 _bilinear_oracle(np, img[..., ::-1], hw)),
+                  f"decode: bilinear resize to {hw} differs from the "
+                  "reference's formula")
+            check(np.array_equal(native.decode_grey(records[0][1], hw),
+                                 _nearest_oracle(np, lab, hw)),
+                  f"decode: nearest resize to {hw} differs from the "
+                  "reference's formula")
+        ds = ManifestDataset(records * 2, CAMVID)
+        t1 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        rates = {"one_thread": len(ds) / (time.perf_counter() - t1)}
+        for n in DECODE_WORKERS:
+            loader = BatchLoader(ds, BATCH, num_workers=n)
+            t1 = time.perf_counter()
+            count = sum(len(b["image"]) for b in loader)
+            rates[f"batch_loader_{n}"] = count / (time.perf_counter() - t1)
+        with native.NativePipeline(records * 2, DECODE_HW, threads=8) as pipe:
+            t1 = time.perf_counter()
+            count = sum(1 for _ in pipe.epoch())
+            rates["native_pipeline_8"] = count / (time.perf_counter() - t1)
+    rates = {k: round(v, 3) for k, v in rates.items()}
+    print(f"decode: records/s at {w}x{h} (image + label)", json.dumps(rates),
+          f"beside a b8 Fast-SCNN step's ~{FASTSCNN_STEP_IMG_S} img/s")
+    return {"records_per_s": rates,
+            "fastscnn_step_img_s": FASTSCNN_STEP_IMG_S, "cpus": os.cpu_count(),
+            "write_s": write_s, "build_s": build_s}
+
+
+# golden: the four GOLDEN.json configs through the port's Trainer on the
+# card, f32 (TF32 off) and bf16, each held to the reference's spread over
+# seeds (esn_tpu_torch/tools/golden_spread.json, the bound the CPU tests
+# hold); bf16 also against f32 (golden_run.check_gap: each gap within two
+# widths of the reference's range, PERF.md). Fast-SCNN's weighted-CE
+# steps launch K3 once forward and once backward (24 epochs of 2 steps),
+# its validation K2 4 times and K1 once (one val batch of 4); ENet and
+# ERFNet launch none.
+GOLDEN_LAUNCHES = {
+    "fastscnn": {"dsconv": 4, "resize_argmax": 1, "resize_ce_fwd": 48,
+                 "resize_ce_bwd": 48, "cgblock": 0}}
+
+
+def golden_phase(torch, K):
+    """The golden runs on the card (see GOLDEN_LAUNCHES): the fixture
+    written as PNG files and read back through ``ManifestDataset`` (equal
+    to the port's stdlib reader's pixels), then every config in f32 and
+    in bf16, each config's launches counted from zero."""
+    import numpy as np
+
+    from esn_tpu_torch.data import CAMVID
+    from esn_tpu_torch.data.datasets import ManifestDataset, read_manifest
+    from esn_tpu_torch.data.png import read_png
+    from esn_tpu_torch.tools import golden_run as G
+
+    bounds = G.load_spread()["bounds"]
+    runs = {"float32": {}, "bfloat16": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = G.build_fixture(f"{tmp}/ds")
+        for split in ("train", "val"):
+            recs = read_manifest(f"{root}/camvid/camvid_{split}_list.txt")
+            ds = ManifestDataset(recs, CAMVID)
+            for i, (ip, lp) in enumerate(recs):
+                item = ds[i]
+                check(np.array_equal(item["image"], read_png(ip)[..., ::-1])
+                      and np.array_equal(item["label"], read_png(lp)),
+                      f"golden fixture: {ip} decodes otherwise")
+        for dtype in runs:
+            for name in G.CONFIGS:
+                K.reset_launches()
+                r = G.run_one(name, root, f"{tmp}/ckpt/{dtype}_{name}",
+                              device="cuda", dtype=dtype)
+                torch.cuda.synchronize()
+                r["launches"] = dict(K.LAUNCHES)
+                r["bound_failures"] = G.check(r, bounds[name])
+                r["tail_loss"] = G.tail_loss(r["losses"])
+                runs[dtype][name] = r
+                print(f"golden {name} {dtype}: mIoU {r['miou']:.4f}, "
+                      f"last-quarter loss {r['tail_loss']:.4f}, "
+                      f"{r['seconds']:.1f} s, launches "
+                      f"{json.dumps(r['launches'])}"
+                      + (f"; breaks its bound: {r['bound_failures']}"
+                         if r["bound_failures"] else ""))
+    gaps = {}
+    for name in G.CONFIGS:
+        low, f32 = runs["bfloat16"][name], runs["float32"][name]
+        gaps[name] = {"miou": low["miou"] - f32["miou"],
+                      "tail_loss": low["tail_loss"] - f32["tail_loss"],
+                      "failures": G.check_gap(low, f32, bounds[name])}
+    print("golden bf16 - f32", json.dumps(gaps))
+    for dtype, by_name in runs.items():
+        for name, r in by_name.items():
+            want = GOLDEN_LAUNCHES.get(name, dict.fromkeys(r["launches"], 0))
+            check(r["launches"] == want,
+                  f"golden {name} {dtype}: launches {r['launches']}, "
+                  f"want {want}")
+            check(not r["bound_failures"],
+                  f"golden {name} {dtype}: {r['bound_failures']}")
+    for name, gap in gaps.items():
+        check(not gap["failures"], f"golden {name}: bf16 against f32: "
+              f"{gap['failures']}")
+    return {"runs": runs, "bf16_minus_f32": gaps,
+            "launches": {f"{name}_{dtype}": r["launches"]
+                         for dtype, by_name in runs.items()
+                         for name, r in by_name.items()}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4102,6 +4361,10 @@ def main() -> int:
     # against one process, Fast-SCNN at config 5 and ENet at config 3's
     # size; torchrun cli.train --spatial 2
     sp = phase("spatial", spatial_phase, torch, F, K)
+    # the port's PNG decoder at Cityscapes' size, then the four golden
+    # trainings through it, f32 and bf16
+    decode = phase("decode", decode_phase, torch)
+    golden = phase("golden", golden_phase, torch, K)
 
     launches = {
         "fastscnn": {"predict": result["launches"],
@@ -4140,7 +4403,8 @@ def main() -> int:
                          "predict": cli["predict"]["launches"],
                          "train_ranger_lovasz_remat":
                              cli["ranger_lovasz_remat"]["launches"]},
-        "data_parallel_fastscnn": dp["launches"]}
+        "data_parallel_fastscnn": dp["launches"],
+        "golden": golden["launches"]}
     print("launches by model", json.dumps(launches))
     # each kernel's launches summed over every path above
     total = {}
@@ -4215,7 +4479,8 @@ def main() -> int:
          **config4,
          "espnet_c": espnet_c, **zoo, "radam_ranger": optims,
          "focal_lovasz": losses, "remat": remat, "cli": cli,
-         "data_parallel": dp, "spatial": sp,
+         "data_parallel": dp, "spatial": sp, "decode": decode,
+         "golden": golden,
          "launches_total": total,
          "launches": launches, "phase_seconds": seconds,
          "kernels": kernels, "device": device}, indent=1))

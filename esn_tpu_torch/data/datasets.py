@@ -9,10 +9,11 @@ device (``data/augment.py``). Contracts, as the reference's:
 - CamVid: 11 classes, ignore_label 11, source 720x960.
 
 An item is ``{"image": (H, W, 3) uint8 BGR, "label": (H, W) int32 (when
-labelled), "name": str, "size": (2,) int32}``. Image files are decoded
-with cv2, imported lazily; the reference's native C++ decoder
-(``data/native.py``) is not ported yet, and pre-packed ``.npy`` records
-need no codec.
+labelled), "name": str, "size": (2,) int32}``. Image files (PNG; JPEG
+where libjpeg is installed) are decoded by the port's own C++ decoder,
+``data/native.py``, into what ``cv2.imread`` returns, and resized with the
+reference's native formulas; pre-packed ``.npy`` records need no codec and
+are resized with the same functions. No module here imports cv2 or PIL.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import native
 
 
 @dataclass(frozen=True)
@@ -66,13 +69,6 @@ def read_manifest(list_path: str, root: Optional[str] = None
     return out
 
 
-def _cv2_resize(arr: np.ndarray, hw: Tuple[int, int], nearest: bool):
-    import cv2
-    h, w = hw
-    return cv2.resize(arr, (w, h), interpolation=(
-        cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR))
-
-
 class ManifestDataset:
     """Decoded (image BGR uint8 HWC, label int32 HW or None, name)
     records."""
@@ -95,19 +91,10 @@ class ManifestDataset:
         img_path, lab_path = self.records[i]
         if img_path.endswith(".npy"):
             return self._get_packed(i)
-        import cv2
-        image = cv2.imread(img_path, cv2.IMREAD_COLOR)  # BGR, as the reference
-        if image is None:
-            raise FileNotFoundError(img_path)
-        label = None
-        if lab_path is not None:
-            label = cv2.imread(lab_path, cv2.IMREAD_GRAYSCALE)
-            if label is None:
-                raise FileNotFoundError(lab_path)
-        if self.resize_hw is not None:
-            image = _cv2_resize(image, self.resize_hw, nearest=False)
-            if label is not None:
-                label = _cv2_resize(label, self.resize_hw, nearest=True)
+        # BGR, as the reference; bilinear image, nearest label
+        image = native.decode_bgr(img_path, self.resize_hw)
+        label = None if lab_path is None \
+            else native.decode_grey(lab_path, self.resize_hw)
         return _item(image, label, img_path)
 
     def _get_packed(self, i: int) -> Dict[str, np.ndarray]:
@@ -132,11 +119,11 @@ class ManifestDataset:
         if self.resize_hw is not None:
             hw = tuple(self.resize_hw)
             if tuple(image.shape[:2]) != hw:
-                image = _cv2_resize(image, hw, nearest=False)
+                image = native.resize_bilinear(image, hw)
             # the label's own shape decides: it may be packed at another
             # resolution than its image
             if label is not None and tuple(label.shape[:2]) != hw:
-                label = _cv2_resize(label, hw, nearest=True)
+                label = native.resize_nearest(label, hw)
         return _item(np.ascontiguousarray(image), label, img_path)
 
     def stats_samples(self):

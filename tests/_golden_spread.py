@@ -1,17 +1,20 @@
 """The reference's spread over seeds of its four golden runs, and the
 bound that the port's golden runs are held to.
 
-    JAX_PLATFORMS=cpu python tests/_golden_spread.py [--seeds 2 3 4]
+    JAX_PLATFORMS=cpu python tests/_golden_spread.py [--seeds 2 3 ... 8]
         [--reuse DIR]
 
 Runs ``tools/golden_run.run_one`` for every config at each seed, one
 process a seed (all started together), on the reference's golden platform
 (8 virtual CPU devices); ``CONFIGS`` is changed in memory only. Seed 1 is
 ``GOLDEN.json``'s. Writes ``esn_tpu_torch/tools/golden_spread.json``: the
-runs, the command, the jax version and, from
-``esn_tpu_torch.tools.golden_run.spread_bounds``, each config's bound.
-``--reuse DIR`` reads the per-seed files ``seed<N>.json`` that an earlier
-run left in ``DIR`` instead of running again.
+runs, the command, the jax version, each config's bound from every seed
+(``esn_tpu_torch.tools.golden_run.spread_bounds``) and its leave-one-out
+check on the reference (each seed against the bound of the others). Also
+the first rule, built from seeds 1-4 before any port run was compared,
+which also asked every class nonzero at every seed to stay nonzero, and
+what seeds 5-8 make of it. ``--reuse DIR`` reads the per-seed files
+``seed<N>.json`` that an earlier run left in ``DIR`` instead of running.
 """
 import argparse
 import json
@@ -21,7 +24,10 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIRST_RULE_SEEDS = (1, 2, 3, 4)
 
 
 def run_seed(seed: int, out: str) -> None:
@@ -46,9 +52,28 @@ def run_seed(seed: int, out: str) -> None:
                 json.dump(record, f, indent=1)
 
 
+def first_rule(port, runs):
+    """The rule as first stated: the bound of ``spread_bounds`` and the
+    classes nonzero at every seed of ``runs``."""
+    bound = port.spread_bounds(runs)
+    nonzero = np.all([np.asarray(r["per_class_iou"]) > 0 for r in runs], 0)
+    bound["nonzero_classes"] = [int(c) for c in np.flatnonzero(nonzero)]
+    return bound
+
+
+def first_rule_check(port, result, bound):
+    bad = port.check(result, bound)
+    zero = [c for c in bound["nonzero_classes"]
+            if not result["per_class_iou"][c] > 0]
+    if zero:
+        bad.append(f"classes {zero} have IoU 0 (nonzero at every seed)")
+    return bad
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--seeds", type=int, nargs="+", default=[2, 3, 4])
+    parser.add_argument("--seeds", type=int, nargs="+",
+                        default=[2, 3, 4, 5, 6, 7, 8])
     parser.add_argument("--reuse", default="")
     parser.add_argument("--one", type=int, default=None,
                         help=argparse.SUPPRESS)
@@ -76,8 +101,20 @@ def main() -> None:
             rec = json.load(f)
         seeds[s] = rec["results"]
         jax_versions.add(rec["jax_version"])
-    bounds = {name: port.spread_bounds([seeds[s][name] for s in seeds])
-              for name in golden["results"]}
+    names = list(golden["results"])
+    bounds, leave_one_out, first = {}, {}, {}
+    for name in names:
+        runs = {s: seeds[s][name] for s in seeds}
+        bounds[name] = port.spread_bounds(list(runs.values()))
+        leave_one_out[name] = {
+            str(s): port.check(r, port.spread_bounds(
+                [o for t, o in runs.items() if t != s]))
+            for s, r in runs.items()}
+        if all(s in runs for s in FIRST_RULE_SEEDS):
+            b = first_rule(port, [runs[s] for s in FIRST_RULE_SEEDS])
+            first[name] = {"bound": b, "held_out": {
+                str(s): first_rule_check(port, r, b)
+                for s, r in runs.items() if s not in FIRST_RULE_SEEDS}}
     payload = {
         "command": "JAX_PLATFORMS=cpu python tests/_golden_spread.py "
                    "--seeds " + " ".join(map(str, args.seeds)),
@@ -87,16 +124,24 @@ def main() -> None:
         "rule": ("per config, from the reference's runs at every seed: the "
                  "port's final mIoU, and its mean loss over the last "
                  "quarter of epochs, each within the seeds' range widened "
-                 f"on each side by the range's width (at least "
-                 f"{port.MIN_WIDEN}); every class with nonzero IoU at "
-                 "every seed nonzero in the port"),
+                 "on each side by the range's width (at least "
+                 f"{port.MIN_WIDEN})"),
         "seeds": {str(s): ("GOLDEN.json" if s == 1 else seeds[s])
                   for s in seeds},
         "bounds": bounds,
+        "leave_one_out": leave_one_out,
+        "first_rule": {
+            "seeds": list(FIRST_RULE_SEEDS),
+            "rule": ("the same ranges from seeds 1-4, and every class with "
+                     "nonzero IoU at every one of them nonzero"),
+            "configs": first},
     }
     with open(port.SPREAD_PATH, "w") as f:
         json.dump(payload, f, indent=1)
-    print(json.dumps(bounds, indent=1))
+    print(json.dumps({"bounds": bounds, "leave_one_out": leave_one_out,
+                      "first_rule_held_out": {
+                          n: v["held_out"] for n, v in first.items()}},
+                     indent=1))
 
 
 if __name__ == "__main__":

@@ -85,7 +85,10 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
                  "esn_tpu_torch.parallel", "esn_tpu_torch.parallel.mesh",
                  "esn_tpu_torch.parallel.launch",
                  "esn_tpu_torch.parallel.dryrun",
-                 "esn_tpu_torch.parallel.spatial"):
+                 "esn_tpu_torch.parallel.spatial",
+                 "esn_tpu_torch.data.native",
+                 "esn_tpu_torch.tools.golden_run",
+                 "esn_tpu_torch.tools.pack_dataset"):
         assert name in out["modules"]
     assert out["pred"] == {arch: [[1, 64, 128], "torch.int32"]
                            for arch in ARCHS}
@@ -93,3 +96,39 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
     assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
                                "resize_ce_fwd": 0, "resize_ce_bwd": 0,
                                "cgblock": 0}
+
+
+_PNG_PROBE = r"""
+import json, sys
+sys.modules["cv2"] = None      # importing either now raises ImportError
+sys.modules["PIL"] = None
+import os, tempfile
+import numpy as np
+from esn_tpu_torch.data import CAMVID
+from esn_tpu_torch.data.datasets import ManifestDataset, read_manifest
+from esn_tpu_torch.tools.golden_run import build_fixture
+root = build_fixture(tempfile.mkdtemp())
+ds = ManifestDataset(read_manifest(
+    os.path.join(root, "camvid", "camvid_train_list.txt")), CAMVID,
+    resize_hw=(48, 64))
+item = ds[0]
+print(json.dumps({
+    "shapes": [list(item["image"].shape), list(item["label"].shape)],
+    "loaded": sorted(m for m, v in sys.modules.items() if v is not None
+                     and m.split(".")[0] in ("cv2", "PIL", "jax",
+                                             "esn_tpu")),
+}))
+"""
+
+
+def test_png_manifest_reads_without_cv2_or_pil():
+    """``ManifestDataset`` decodes PNG files with cv2 and PIL blocked
+    from import, and loads neither (nor jax, nor the reference)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _PNG_PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"shapes": [[48, 64, 3], [48, 64]], "loaded": []}
