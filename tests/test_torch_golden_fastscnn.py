@@ -19,3 +19,12 @@ def test_fastscnn_within_the_reference_spread(result):
 
 def test_fastscnn_equals_the_port_pin(result):
     golden.check_pin(NAME, result)
+
+
+def test_fastscnn_bound_breaks_on_mirrored_labels(tmp_path_factory):
+    """A planted fault (train labels mirrored left to right, their images
+    not) breaks the bound at every seed: the mIoU floor."""
+    runs = golden.run(NAME, tmp_path_factory, plant="mirrored_labels")
+    bound = golden.G.load_spread()["bounds"][NAME]
+    assert all(golden.G.check(r, bound) for r in runs), golden.summary(runs)
+    assert golden.G.check_runs(runs, bound)
