@@ -52,8 +52,8 @@ _ERRORS = {
     -6: "a JPEG, and no JPEG decoder is loaded",
     -7: "libjpeg failed to decode it",
     -8: "a decoded size that is not the one asked for",
-    -9: "a 16-bit colour PNG with a gAMA or sRGB chunk read as grey "
-        "(libpng's 16-bit gamma tables are not reproduced)",
+    -9: "a colour PNG with a gAMA or sRGB chunk read as grey (libpng's "
+        "gamma-corrected colour-to-grey is not reproduced)",
 }
 _NO_JPEG = -6
 
@@ -65,8 +65,6 @@ _SIGNATURES = {
     "esn_decode": ([_CP, _I32, _U8P, _I32, _I32], _I32),
     "esn_resize_bilinear": ([_U8P, _I32, _I32, _U8P, _I32, _I32, _I32], None),
     "esn_resize_nearest": ([_U8P, _I32, _I32, _U8P, _I32, _I32], None),
-    "esn_inflate": ([_U8P, ctypes.c_size_t, _U8P, ctypes.c_size_t],
-                    ctypes.c_long),
     "esn_set_jpeg_decoder": ([_VP], None),
     "esn_pipe_create": ([_I32, ctypes.POINTER(_CP), ctypes.POINTER(_CP), _I32,
                          _I32, _I32], _VP),
@@ -223,17 +221,6 @@ def resize_nearest(label: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     library().esn_resize_nearest(_u8(src), src.shape[0], src.shape[1],
                                  _u8(out), hw[0], hw[1])
     return out
-
-
-def inflate(data: bytes, size: int) -> bytes:
-    """Inflate a zlib stream with the decoder's own inflate (at most
-    ``size`` bytes out); raises on a malformed stream."""
-    src = np.frombuffer(data, np.uint8)
-    out = np.empty(max(size, 1), np.uint8)
-    n = library().esn_inflate(_u8(src), len(src), _u8(out), size)
-    if n < 0:
-        raise ValueError("esn_inflate: malformed zlib stream")
-    return out[:n].tobytes()
 
 
 _JPEG_EXT = (".jpg", ".jpeg", ".jpe", ".jfif")

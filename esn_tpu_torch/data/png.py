@@ -1,12 +1,11 @@
-"""PNG writer and reader on the standard library (``zlib``, ``struct``).
+"""PNG writer on the standard library (``zlib``, ``struct``).
 
 The card's machine has no PIL, so prediction maps are written here: 8-bit
 greyscale (colour type 0) for an ``(H, W)`` uint8 array and 8-bit RGB
 (colour type 2) for ``(H, W, 3)``, the pixels that PIL's
 ``Image.fromarray(a).save(path)`` writes. Rows carry filter type 0 and
-the image data is one zlib stream in one IDAT chunk. :func:`read_png`
-reads back what :func:`write_png` writes (8-bit grey or RGB,
-non-interlaced, rows unfiltered).
+the image data is one zlib stream in one IDAT chunk. The port's decoder
+(``data/native.py``) reads them back.
 """
 from __future__ import annotations
 
@@ -16,7 +15,6 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3}    # colour type -> channels
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -40,36 +38,3 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(_SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + _chunk(b"IEND", b""))
-
-
-def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit grey or RGB non-interlaced PNG: ``(H, W)`` or
-    ``(H, W, 3)`` uint8."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        n, kind = struct.unpack_from(">I4s", data, pos)
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
-        raise ValueError(f"{path}: only 8-bit grey/RGB non-interlaced PNGs "
-                         f"(depth {depth}, colour type {color}, interlace "
-                         f"{interlace})")
-    c = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, 1 + w * c)
-    if raw[:, 0].any():
-        raise ValueError(f"{path}: rows with a filter other than None "
-                         f"(write_png writes None only)")
-    rows = raw[:, 1:]
-    return rows.reshape(h, w, c) if c > 1 else rows.reshape(h, w)

@@ -10,11 +10,11 @@
 //     what the datasets hold; palette (1-8 bits), grey at 1, 2 and 4 bits
 //     (scaled to 0..255), grey+alpha and RGBA (alpha dropped), 16-bit (the
 //     high byte) and colour read as grey (libpng's fixed-point weights,
-//     which cv2 asks for, through libpng's 8-bit gamma tables where a gAMA
-//     or sRGB chunk sets a gamma) follow libpng's transforms as cv2 sets
-//     them up. Adam7-interlaced files, and 16-bit colour files with a
-//     gamma read as grey, are refused. Chunk CRCs and the other ancillary
-//     chunks (tRNS, ...) are not read: cv2's outputs drop alpha.
+//     which cv2 asks for) follow libpng's transforms as cv2 sets them up.
+//     Adam7-interlaced files, and colour files with a gamma (a gAMA or
+//     sRGB chunk, which makes libpng's colour-to-grey weigh linear values)
+//     read as grey, are refused. Chunk CRCs and the other ancillary chunks
+//     (tRNS, ...) are not read: cv2's outputs drop alpha.
 //   - JPEG: the size from the SOF marker here; the pixels from a decoder
 //     registered at run time (esn_set_jpeg_decoder), a small library of
 //     its own linked against libjpeg where that is installed.
@@ -53,7 +53,7 @@ enum : int {
   kErrNoJpeg = -6,       // JPEG without a registered decoder
   kErrJpeg = -7,         // the JPEG decoder failed
   kErrSize = -8,         // a size argument out of range
-  kErrGamma16 = -9,      // a 16-bit colour PNG with a gamma read as grey
+  kErrGamma = -9,        // a colour PNG with a gamma read as grey
 };
 
 // The file's bytes, or its first `limit` bytes when limit > 0; *whole says
@@ -293,10 +293,8 @@ uint32_t adler32(const uint8_t* p, size_t n) {
 
 // Inflate the zlib stream src[0, n) into exactly `want` bytes of dst.
 // Returns want, or kErrCorrupt on a malformed stream, a wrong Adler-32, or
-// a stream whose data is longer or shorter than `want` (`exact`; without it
-// a shorter stream returns its length).
-long inflate_zlib(const uint8_t* src, size_t n, uint8_t* dst, size_t want,
-                  bool exact) {
+// a stream whose data is longer or shorter than `want`.
+long inflate_zlib(const uint8_t* src, size_t n, uint8_t* dst, size_t want) {
   if (n < 6) return kErrCorrupt;
   const int cmf = src[0], flg = src[1];
   if ((cmf & 15) != 8 || (cmf >> 4) > 7 || (cmf * 256 + flg) % 31 != 0 ||
@@ -373,7 +371,7 @@ long inflate_zlib(const uint8_t* src, size_t n, uint8_t* dst, size_t want,
     tail[i] = static_cast<uint8_t>(br.bits(8));
   }
   if (br.overrun() || be32(tail) != adler32(dst, pos)) return kErrCorrupt;
-  if (exact && pos != want) return kErrCorrupt;
+  if (pos != want) return kErrCorrupt;
   return static_cast<long>(pos);
 }
 
@@ -422,46 +420,18 @@ int png_header(const std::vector<uint8_t>& d, PngHeader* hd) {
 // libpng's rgb_to_gray as cv2 sets it up (png_set_rgb_to_gray(png, 1,
 // 0.299, 0.587)): coefficients 29900 * 32768 / 100000 = 9797 and 19234 in
 // 15-bit fixed point, blue the rest, the sum truncated; grey pixels pass.
-// A file gamma (gAMA, or sRGB's 45455, ahead of PLTE and IDAT) more than 5%
-// from 1 makes libpng weigh linear values instead: each sample through its
-// gamma_to_1 table, the rounded sum back through gamma_from_1 (8-bit
-// tables, png_build_8bit_table).
 constexpr uint32_t kRc = 9797, kGc = 19234, kBc = 32768 - kRc - kGc;
 
-struct Grey {
-  bool gamma = false;
-  uint8_t to_1[256], from_1[256];
-
-  uint32_t operator()(uint32_t r, uint32_t g, uint32_t b) const {
-    if (r == g && r == b) return r;
-    if (!gamma) return (kRc * r + kGc * g + kBc * b) >> 15;
-    return from_1[(kRc * to_1[r] + kGc * to_1[g] + kBc * to_1[b] + 16384) >>
-                  15];
-  }
-};
-
-// libpng's fixed-point gamma arithmetic (1.0 is 100000)
-int png_reciprocal(int g) {
-  return static_cast<int>(std::floor(1e10 / g + .5));
+uint32_t rgb_to_grey(uint32_t r, uint32_t g, uint32_t b) {
+  if (r == g && r == b) return r;
+  return (kRc * r + kGc * g + kBc * b) >> 15;
 }
 
-bool gamma_significant(int g) { return g < 95000 || g > 105000; }
-
-void gamma_table(uint8_t* table, int g) {
-  for (int i = 0; i < 256; ++i)
-    table[i] = static_cast<uint8_t>(
-        (!gamma_significant(g) || i == 0 || i == 255)
-            ? i : std::floor(255 * std::pow(i / 255., g * .00001) + .5));
-}
-
-// The grey conversion of a file whose gamma is file_gamma (0: none).
-void set_gamma(Grey* grey, int file_gamma) {
-  if (file_gamma <= 0) return;
-  const int screen = png_reciprocal(file_gamma);
-  if (!gamma_significant(file_gamma) && !gamma_significant(screen)) return;
-  grey->gamma = true;
-  gamma_table(grey->to_1, png_reciprocal(file_gamma));
-  gamma_table(grey->from_1, png_reciprocal(screen));
+// Whether a file gamma (libpng's fixed point, 1.0 is 100000) changes
+// libpng's colour-to-grey: it or its reciprocal more than 5% from 1.
+bool gamma_significant(int g) {
+  const int inv = static_cast<int>(std::floor(1e10 / g + .5));
+  return g < 95000 || g > 105000 || inv < 95000 || inv > 105000;
 }
 
 uint8_t paeth(int a, int b, int c) {
@@ -499,8 +469,7 @@ bool unfilter(uint8_t* row, const uint8_t* prev, int type, size_t stride,
 
 // One unfiltered row to the output's pixels: out_ch 3 (BGR) or 1 (grey).
 void convert_row(const PngHeader& hd, const uint8_t* row,
-                 const uint8_t (*palette)[3], const Grey& rgb_to_grey,
-                 uint8_t* out, int out_ch) {
+                 const uint8_t (*palette)[3], uint8_t* out, int out_ch) {
   const int w = hd.w, dp = hd.depth;
   if (dp < 8) {  // grey or palette, samples packed high bit first
     const int per_byte = 8 / dp, mask = (1 << dp) - 1;
@@ -603,18 +572,16 @@ int png_decode(const std::vector<uint8_t>& d, int out_ch,
     pos += 12 + len;
   }
   if (hd.color == 3 && !have_palette) return kErrCorrupt;
-  Grey grey;
   const bool colour = hd.color == 2 || hd.color == 3 || hd.color == 6;
-  if (out_ch == 1 && colour) {
-    set_gamma(&grey, srgb ? 45455 : file_gamma);
-    // libpng converts 16-bit samples through 16-bit tables: not here
-    if (grey.gamma && hd.depth == 16) return kErrGamma16;
-  }
+  // sRGB's gamma is 45455
+  if (out_ch == 1 && colour && (srgb || (file_gamma > 0 &&
+      gamma_significant(file_gamma))))
+    return kErrGamma;
   const int bits = hd.channels * hd.depth;
   const size_t stride = (static_cast<size_t>(hd.w) * bits + 7) / 8;
   const int bpp = std::max(1, bits / 8);
   std::vector<uint8_t> raw(static_cast<size_t>(hd.h) * (stride + 1));
-  if (inflate_zlib(z.data(), z.size(), raw.data(), raw.size(), true) < 0)
+  if (inflate_zlib(z.data(), z.size(), raw.data(), raw.size()) < 0)
     return kErrCorrupt;
   out.resize(static_cast<size_t>(hd.h) * hd.w * out_ch);
   std::vector<uint8_t> zeros(stride, 0);
@@ -622,7 +589,7 @@ int png_decode(const std::vector<uint8_t>& d, int out_ch,
   for (int y = 0; y < hd.h; ++y) {
     uint8_t* line = raw.data() + static_cast<size_t>(y) * (stride + 1);
     if (!unfilter(line + 1, prev, line[0], stride, bpp)) return kErrCorrupt;
-    convert_row(hd, line + 1, palette, grey,
+    convert_row(hd, line + 1, palette,
                 out.data() + static_cast<size_t>(y) * hd.w * out_ch, out_ch);
     prev = line + 1;
   }
@@ -879,12 +846,6 @@ void esn_resize_bilinear(const uint8_t* src, int sh, int sw, uint8_t* dst,
 void esn_resize_nearest(const uint8_t* src, int sh, int sw, uint8_t* dst,
                         int dh, int dw) {
   resize_nearest(src, sh, sw, dst, dh, dw);
-}
-
-// Inflate a whole zlib stream into dst (at most cap bytes): the bytes
-// produced, or an error code.
-long esn_inflate(const uint8_t* src, size_t n, uint8_t* dst, size_t cap) {
-  return inflate_zlib(src, n, dst, cap, false);
 }
 
 void esn_set_jpeg_decoder(JpegDecoder fn) { g_jpeg.store(fn); }

@@ -216,10 +216,11 @@ def _map(tree, fn):
             for k, v in tree.items()}
 
 
-def gaps(a, b, init, colls=("params", "stats")):
-    """Per leaf: |a - b| / |b - init| (rel-L2), by path."""
+def gaps(a, b, init):
+    """Per leaf of the params and stats: |a - b| / |b - init| (rel-L2),
+    by path."""
     out = {}
-    for coll in colls:
+    for coll in ("params", "stats"):
         la, lb, li = (dict(_leaves(t[coll])) for t in (a, b, init))
         for path, vb in lb.items():
             move = np.linalg.norm(vb.astype(np.float64) - li[path])
@@ -229,7 +230,7 @@ def gaps(a, b, init, colls=("params", "stats")):
     return out
 
 
-def witness(config, optim, steps, seed=1, control=True, worst=0):
+def witness(config, optim, steps, seed=1, control=True):
     """Both packages' ``steps`` float64 steps of golden ``config`` with
     ``optim``: one row a snapshot step (the relative loss gap, the state
     gaps' median and max over leaves, and the control's)."""
@@ -247,13 +248,8 @@ def witness(config, optim, steps, seed=1, control=True, worst=0):
             c_losses, c_snaps, _ = port(kw, ref, perturb=1e-12)
     rows = []
     for n in sorted(snaps):
-        named = gaps(snaps[n], ref["snaps"][n], ref["init"])
-        for coll in ("params", "stats")[:2 if worst else 0]:
-            w = sorted(((v, k) for k, v in named.items() if k[0] == coll),
-                       reverse=True)
-            print(n, coll, ["%.2e %s" % (v, "/".join(k[1:]))
-                            for v, k in w[:worst]])
-        g = np.asarray(list(named.values()))
+        g = np.asarray(list(gaps(snaps[n], ref["snaps"][n],
+                                 ref["init"]).values()))
         row = {"step": n,
                "loss_gap": abs(losses[n - 1] - ref["losses"][n - 1])
                / abs(ref["losses"][n - 1]),
@@ -281,14 +277,11 @@ def main():
     parser.add_argument("--seed", type=int, default=1)
     parser.add_argument("--threads", type=int, default=2)
     parser.add_argument("--out", default="")
-    parser.add_argument("--worst", type=int, default=0,
-                        help="print the N leaves furthest apart")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     import torch
     torch.set_num_threads(args.threads)
-    record = witness(args.config, args.optim, args.steps, args.seed,
-                     worst=args.worst)
+    record = witness(args.config, args.optim, args.steps, args.seed)
     for r in record["snapshots"]:
         print("step %4d  loss gap %.3e (control %.3e)  state gap median "
               "%.3e max %.3e (control %.3e %.3e)" % (

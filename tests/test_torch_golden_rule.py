@@ -61,3 +61,9 @@ def test_check_gap_takes_medians():
     assert G.check_gap(low, f32, limit) == []
     assert len(G.check_gap(low, f32, {"miou": 0.001,
                                       "tail_loss": 0.001})) == 2
+
+
+def test_bf16_gap_limits_cover_every_config():
+    assert set(G.BF16_GAP) == set(G.CONFIGS)
+    assert all(set(v) == {"miou", "tail_loss"} and min(v.values()) > 0
+               for v in G.BF16_GAP.values())

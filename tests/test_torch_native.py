@@ -1,5 +1,6 @@
 """The port's image decoder, ``esn_tpu_torch/data/native.py`` and
-``native/esn_native.cc``: its inflate against zlib, every kind of PNG
+``native/esn_native.cc``: its inflate on zlib's streams (through decode),
+every kind of PNG
 against ``cv2.imread`` bit for bit (fixtures written by cv2, by PIL and by
 an encoder here that sets each row's filter), decode + resize against the
 reference's native loader bit for bit and within 1 of ``cv2.resize``, the
@@ -47,10 +48,11 @@ def _filter_row(row, prev, kind, bpp):
 
 
 def write_png(path, samples, *, color, depth=8, palette=None,
-              filters=(0, 1, 2, 3, 4), interlace=0, level=6):
+              filters=(0, 1, 2, 3, 4), interlace=0, level=6,
+              strategy=zlib.Z_DEFAULT_STRATEGY):
     """Write ``samples`` ((H, W) or (H, W, C) ints, one per channel) as a
     PNG of ``color`` type and bit ``depth``; row y takes filter
-    ``filters[y % len(filters)]``."""
+    ``filters[y % len(filters)]``; zlib at ``level`` and ``strategy``."""
     s = np.asarray(samples)
     h, w = s.shape[:2]
     s = s.reshape(h, w, -1).astype(np.int64)
@@ -79,14 +81,15 @@ def write_png(path, samples, *, color, depth=8, palette=None,
         b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
     if palette is not None:
         data += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
-    data += _chunk(b"IDAT", zlib.compress(b"".join(out), level))
+    c = zlib.compressobj(level, zlib.DEFLATED, 15, 9, strategy)
+    data += _chunk(b"IDAT", c.compress(b"".join(out)) + c.flush())
     data += _chunk(b"IEND", b"")
     with open(path, "wb") as f:
         f.write(data)
     return path
 
 
-# --- inflate ------------------------------------------------------------------
+# --- inflate, through decode -------------------------------------------------
 
 _STRATEGIES = {"default": zlib.Z_DEFAULT_STRATEGY, "filtered": zlib.Z_FILTERED,
                "huffman": zlib.Z_HUFFMAN_ONLY, "rle": zlib.Z_RLE,
@@ -95,33 +98,46 @@ _STRATEGIES = {"default": zlib.Z_DEFAULT_STRATEGY, "filtered": zlib.Z_FILTERED,
 
 @pytest.mark.parametrize("level", [0, 1, 6, 9])
 @pytest.mark.parametrize("strategy", sorted(_STRATEGIES))
-def test_inflate_equals_zlib(level, strategy):
+def test_inflate_equals_zlib(tmp_path, level, strategy):
+    """Grey images whose rows (filter None) are the payloads: zlib's
+    streams at every level and strategy decode to them."""
     rng = np.random.RandomState(level)
-    payloads = [b"", b"a", b"ab" * 40000,
+    payloads = [b"a", b"ab" * 40000,
                 rng.randint(0, 256, 70000).astype(np.uint8).tobytes(),
                 (np.arange(200000) // 7 % 13).astype(np.uint8).tobytes(),
                 # long runs next to noise: lengths up to 258, far distances
                 np.repeat(rng.randint(0, 4, 3000), rng.randint(1, 300, 3000)
                           ).astype(np.uint8).tobytes()]
-    for data in payloads:
-        c = zlib.compressobj(level, zlib.DEFLATED, 15, 9,
-                             _STRATEGIES[strategy])
-        z = c.compress(data) + c.flush()
-        assert native.inflate(z, len(data) + 7) == data
+    for i, data in enumerate(payloads):
+        a = np.frombuffer(data, np.uint8)
+        w = min(len(a), 1000)
+        img = np.resize(a, (-(-len(a) // w), w))
+        path = write_png(str(tmp_path / f"{i}.png"), img, color=0,
+                         filters=(0,), level=level,
+                         strategy=_STRATEGIES[strategy])
+        np.testing.assert_array_equal(native.decode_grey(path), img)
 
 
-def test_inflate_refuses_bad_streams():
-    data = bytes(range(256)) * 50
-    z = bytearray(zlib.compress(data, 6))
-    assert native.inflate(bytes(z), len(data)) == data
-    bad_adler = bytes(z[:-1] + bytes([z[-1] ^ 1]))
-    short = bytes(z[:len(z) // 2])
-    bad_header = bytes([0x78, 0x9d]) + bytes(z[2:])
-    for stream in (bad_adler, short, bad_header, b"\x00\x00"):
-        with pytest.raises(ValueError, match="zlib"):
-            native.inflate(stream, len(data))
-    with pytest.raises(ValueError):     # more data than room
-        native.inflate(bytes(z), len(data) - 1)
+def test_inflate_refuses_bad_streams(tmp_path):
+    """A PNG whose zlib stream is broken: a wrong Adler-32, cut short, a
+    bad header, or holding more or less data than the image's rows."""
+    img = np.tile(np.arange(256, dtype=np.uint8), (50, 1))
+    good = write_png(str(tmp_path / "good.png"), img, color=0, filters=(0,))
+    np.testing.assert_array_equal(native.decode_grey(good), img)
+    z = _idat(good)
+    raw = zlib.decompress(z)
+    streams = {"adler": z[:-1] + bytes([z[-1] ^ 1]), "short": z[:len(z) // 2],
+               "header": bytes([0x78, 0x9d]) + z[2:], "empty": b"\x00\x00",
+               "long": zlib.compress(raw + b"\x00", 6),
+               "less": zlib.compress(raw[:-1], 6)}
+    head = open(good, "rb").read()
+    head = head[:head.index(b"IDAT") - 4]
+    for name, stream in streams.items():
+        path = str(tmp_path / f"{name}.png")
+        with open(path, "wb") as f:
+            f.write(head + _chunk(b"IDAT", stream) + _chunk(b"IEND", b""))
+        with pytest.raises(ValueError, match="corrupt"):
+            native.decode_grey(path)
 
 
 # --- PNG kinds against cv2.imread ---------------------------------------------
@@ -262,8 +278,10 @@ def _with_chunk(path, chunk, before):
     ("rgb8", b"IDAT"), ("rgba8", b"IDAT"), ("pal8", b"PLTE"),
     ("pal4", b"PLTE"), ("pal8", b"IDAT")])
 def test_gamma_chunks_equal_cv2(tmp_path, kind, before, chunk):
-    """A gamma (gAMA, or sRGB's) turns libpng's colour-to-grey linear;
-    after PLTE or IDAT libpng ignores the chunk, as the port does."""
+    """A gamma chunk leaves colour reads as cv2's. Read as grey, a gamma
+    (gAMA, or sRGB's) more than 5% from 1 turns libpng's colour-to-grey
+    linear, which the port does not reproduce: it raises. After PLTE or
+    IDAT libpng ignores the chunk, and so does the port: cv2's grey."""
     rng = np.random.RandomState(5)
     pal = rng.randint(0, 256, (256, 3))
     kw = {"rgb8": dict(samples=rng.randint(0, 256, (H, W, 3)), color=2),
@@ -274,9 +292,16 @@ def test_gamma_chunks_equal_cv2(tmp_path, kind, before, chunk):
                        palette=pal[:16])}[kind]
     path = _with_chunk(write_png(str(tmp_path / "g.png"), **kw),
                        _GAMMA_CHUNKS[chunk], before)
-    for flag, decode in ((cv2.IMREAD_COLOR, native.decode_bgr),
-                         (cv2.IMREAD_GRAYSCALE, native.decode_grey)):
-        np.testing.assert_array_equal(decode(path), cv2.imread(path, flag))
+    np.testing.assert_array_equal(native.decode_bgr(path),
+                                  cv2.imread(path, cv2.IMREAD_COLOR))
+    ignored = chunk == "gama97000" or (kind.startswith("pal")
+                                       and before == b"IDAT")
+    if ignored:
+        np.testing.assert_array_equal(
+            native.decode_grey(path), cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    else:
+        with pytest.raises(ValueError, match="gAMA or sRGB"):
+            native.decode_grey(path)
 
 
 def test_16bit_colour_with_a_gamma_read_as_grey_raises(tmp_path):
