@@ -4141,8 +4141,7 @@ def golden_phase(torch, K):
     """The golden runs on the card (see GOLDEN_LAUNCHES): the fixture
     written as PNG files and read back through ``ManifestDataset`` (equal
     to the arrays written), then every config at each seed in f32 and in
-    bf16, one process a seed (the runs are host-bound), each process's
-    launches counted from zero and summed over the seeds."""
+    bf16, each config's launches counted from zero."""
     import numpy as np
 
     from esn_tpu_torch.data import CAMVID
@@ -4164,10 +4163,11 @@ def golden_phase(torch, K):
                   f"golden fixture: {split} {i} decodes otherwise")
         for dtype in runs:
             for name in G.CONFIGS:
+                K.reset_launches()
                 rs = G.run_seeds(name, root, f"{tmp}/ckpt/{dtype}_{name}",
-                                 device="cuda", dtype=dtype, processes=True)
-                launches[f"{name}_{dtype}"] = {
-                    k: sum(r["launches"][k] for r in rs) for k in K.LAUNCHES}
+                                 device="cuda", dtype=dtype)
+                torch.cuda.synchronize()
+                launches[f"{name}_{dtype}"] = dict(K.LAUNCHES)
                 for r in rs:
                     r["tail_loss"] = G.tail_loss(r["losses"])
                     r["bound_failures"] = G.check(r, bounds[name])

@@ -144,13 +144,11 @@ def run_one(name: str, data_root: str, savedir: str, *, device: str = "cpu",
             dtype: Optional[str] = None, plant: Optional[str] = None,
             **overrides) -> Dict:
     """Train config ``name`` with the port's Trainer: the loss of each
-    epoch, the final mIoU and the per-class IoU, the seconds taken and
-    the kernels' launches. ``dtype`` None is float32 on the CPU and
-    bfloat16 on the card; on the card float32 runs with TF32 off.
-    ``plant`` one of ``PLANTS``; ``overrides`` change config fields
-    (``seed``)."""
+    epoch, the final mIoU and the per-class IoU, and the seconds taken.
+    ``dtype`` None is float32 on the CPU and bfloat16 on the card; on
+    the card float32 runs with TF32 off. ``plant`` one of ``PLANTS``;
+    ``overrides`` change config fields (``seed``)."""
     import torch
-    from ..ops import kernels as K
     from ..train.trainer import TrainConfig, Trainer
     if plant not in (None,) + PLANTS:
         raise ValueError(f"plant {plant!r}: one of {PLANTS}")
@@ -162,7 +160,6 @@ def run_one(name: str, data_root: str, savedir: str, *, device: str = "cpu",
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    before = dict(K.LAUNCHES)
     try:
         t0 = time.perf_counter()
         tr = Trainer(cfg)
@@ -176,8 +173,7 @@ def run_one(name: str, data_root: str, savedir: str, *, device: str = "cpu",
          torch.backends.cudnn.allow_tf32) = tf32
     return {"seed": cfg.seed, "losses": losses, "miou": float(miou),
             "per_class_iou": [round(float(v), 6) for v in iou],
-            "seconds": seconds,
-            "launches": {k: v - before[k] for k, v in K.LAUNCHES.items()}}
+            "seconds": seconds}
 
 
 def run_seeds(name: str, data_root: str, savedir: str,
@@ -185,12 +181,14 @@ def run_seeds(name: str, data_root: str, savedir: str,
               dtype: Optional[str] = None, plant: Optional[str] = None,
               processes: bool = False) -> List[Dict]:
     """``run_one`` at each seed: in this process one after another, or
-    (``processes``) one process a seed with one torch thread, all started
-    together (on the card they share it: the runs are host-bound)."""
+    (``processes``, CPU) one process a seed with one torch thread, all
+    started together."""
     if not processes:
         return [run_one(name, data_root, os.path.join(savedir, f"s{s}"),
                         device=device, dtype=dtype, plant=plant, seed=s)
                 for s in seeds]
+    if device != "cpu":
+        raise ValueError("processes: CPU runs only")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     outs = [os.path.join(savedir, f"s{s}.json") for s in seeds]
     os.makedirs(savedir, exist_ok=True)
@@ -198,8 +196,7 @@ def run_seeds(name: str, data_root: str, savedir: str,
         [sys.executable, "-m", "esn_tpu_torch.tools.golden_run",
          "--configs", name, "--seeds", str(s), "--data_root", data_root,
          "--savedir", os.path.join(savedir, f"s{s}"), "--threads", "1",
-         "--device", device, "--out", out]
-        + (["--dtype", dtype] if dtype else [])
+         "--dtype", dtype or "float32", "--out", out]
         + (["--plant", plant] if plant else []),
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for s, out in zip(seeds, outs)]
@@ -289,7 +286,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--seeds", default=",".join(map(str, SEEDS)))
     parser.add_argument("--plant", default=None, choices=PLANTS)
     parser.add_argument("--processes", action="store_true",
-                        help="one process a seed, one thread each")
+                        help="one CPU process a seed, one thread each")
     parser.add_argument("--threads", type=int, default=0,
                         help="torch threads (0: torch's default)")
     parser.add_argument("--data_root", default="",
