@@ -136,7 +136,13 @@ from zero:
   states bit for bit equal; the bf16 step's ms and peak memory a rank
   against one process, and its collectives' count and own cost;
   ``torchrun --nproc_per_node 2 -m esn_tpu_torch.cli.train --spatial 2``
-  against one process;
+  against one process, each rank's validation launching K1 and K2;
+- uneven spatial shards (``spatial_uneven``): K2 at Fast-SCNN's four
+  eval DSConvs and K1 at its predict tail at CamVid's 720x960 against
+  their plain versions; then the same runs as ``spatial`` with
+  Fast-SCNN-19 and LEDNet-19 at 720x960, whose stages split into shards
+  a row apart (45 rows at 1/16 over 2), held to ``SPU_GATES``; the
+  row-count sums' share of a step; the torchrun check at 720x960;
 - the port's image decoder (``decode``): Cityscapes-sized PNG records
   (2048x1024 RGB images and grey labels) written with row filters 0-4
   in turn by the phase's own encoder, each decoded equal to the array
@@ -651,6 +657,66 @@ SP_GATES = {
              "bfloat16": {"loss_rel": SP_ENET_BF16_LOSS,
                           "stats_to_f64_ratio": SP_TO_F64_RATIO,
                           "grad_to_f64_ratio": SP_TO_F64_RATIO}}}
+
+# uneven spatial shards (the spatial_uneven phase): Fast-SCNN-19 and
+# LEDNet-19 at CamVid's native 720x960 over SP_RANKS ranks on the one
+# card, as the spatial phase runs config 5. The rows of a stage split
+# balanced (``parallel.spatial.bounds``): Fast-SCNN keeps 45 rows at 1/16
+# (22 + 23) and 23 at 1/32 (11 + 12), LEDNet's attention pyramid 45, 23
+# and 12. The bounds below were set from ``spatial_diag --uneven`` before
+# this phase's first reading.
+# Before anything is timed, K2 at Fast-SCNN's four eval DSConvs and K1 at
+# its predict tail at this size, each against its plain version (their
+# column tiles end in tails at 120 and 240 columns). The bounds, with
+# ``spatial_diag --uneven``'s readings on that card (NVIDIA H100 80GB
+# HBM3, 700 W; sound, and under zero_halo / shifted_halo / t_miscount):
+# - Fast-SCNN f32: SP_GATES["fastscnn"] as it is (sound loss 0,
+#   statistics 2.7e-7, gradient ratio 1.06; the faults 1.7e-4 / 2.4e-3 /
+#   9.1e-4, 4.8e-2 / 1.6e-2 / 8.6e-2, 141 / 144 / 133).
+# - Fast-SCNN bf16: the gate's statistics and gradient bounds, and the
+#   loss within SP_ENET_BF16_LOSS of one process's, as ENet's bf16 step
+#   at config 3 (SP_GATES["enet"]): its convs round over a window as over
+#   the whole tensor (``conv_windows``: none of 45 differs), but its BN
+#   moments sum a shard at a time and a scale one f32 ulp apart rounds to
+#   another bf16 value now and then, so the sound step read a loss 4.5e-5
+#   from one process's, over the gate's 1e-5 (statistics 5.7e-6, its
+#   distances to the f64 step 1.000 and 0.998 times one process's); the
+#   faults read loss 1.2e-3 / 2.4e-3 / 8.5e-4, statistics 4.9e-2 /
+#   1.6e-2 / 8.6e-2: each breaks two bounds.
+# - LEDNet f32: the data_parallel gate (sound 7.0e-8, 3.3e-7, 0.79; the
+#   faults 1.3e-3 / 4.1e-4 / 1.0e-4, 2.0e-2 / 6.8e-3 / 1.7e-2, 97 / 71 /
+#   8.0: each breaks all three).
+# - LEDNet bf16: cuDNN runs 50 of its 114 convs (the 3x1 ones) otherwise
+#   over a window (up to 2.6e-5 of their elements), and its bf16 loss is
+#   chaotic at 1e-3 (one process's lies 1.7e-3 from the f64 step's; the
+#   sharded step's loss read 1.6e-3 from one process's, the faults
+#   1.7-2.5e-3): no loss bound. Its statistics' update within
+#   SPU_LEDNET_BF16_STATS of one process's (read 7.8e-4; the faults
+#   2.0e-2 / 8.8e-3 / 1.7e-2) and no further from the f64 step's than
+#   SPU_LEDNET_TO_F64 times one process's (read 1.005; the faults 5.2 /
+#   1.98 / 4.6): each fault breaks both.
+# Then ``torchrun
+# --nproc_per_node SP_RANKS -m esn_tpu_torch.cli.train --spatial
+# SP_RANKS`` at 720x960 for one step and a validation pass (whole images
+# split over the ranks: each rank's predicts launch K1 and K2), its loss
+# within DP_LOSS_REL of one process's.
+CAMVID_HW = (720, 960)
+SPU_MODELS = (("fastscnn", CAMVID_HW), ("lednet", CAMVID_HW))
+SPU_CLI_HW = CAMVID_HW
+SPU_DSCONV = [("fastscnn", "ltd.ds1", (BATCH, 360, 480, 32), 48, 2),
+              ("fastscnn", "ltd.ds2", (BATCH, 180, 240, 48), 64, 2),
+              ("fastscnn", "head.ds1", (BATCH, 90, 120, 128), 128, 1),
+              ("fastscnn", "head.ds2", (BATCH, 90, 120, 128), 128, 1)]
+SPU_ARGMAX = (BATCH, 90, 120, CLASSES)
+SPU_LEDNET_BF16_STATS, SPU_LEDNET_TO_F64 = 3e-3, 1.5
+SPU_GATES = {
+    "fastscnn": {"float32": SP_GATES["fastscnn"]["float32"],
+                 "bfloat16": {**SP_GATES["fastscnn"]["bfloat16"],
+                              "loss_rel": SP_ENET_BF16_LOSS}},
+    "lednet": {"float32": DP_BOUNDS["ce_first"],
+               "bfloat16": {"stats_rel": SPU_LEDNET_BF16_STATS,
+                            "stats_to_f64_ratio": SPU_LEDNET_TO_F64}}}
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -3173,7 +3239,8 @@ def dp_select(torch):
 def recorded_all_reduces():
     """Every ``torch.distributed.all_reduce`` inside, in order: (numel,
     dtype, host seconds of the call, its group: None for the world, a
-    model group under spatial sharding). ``parallel.mesh`` looks the function
+    model group under spatial sharding, the tensor's device type: the
+    row counts of uneven shards are host integers). ``parallel.mesh`` looks the function
     up at call time; a gloo all-reduce returns once the exchange is done,
     so a call's seconds hold its own cost and any wait (for this rank's
     queued kernels, before gloo copies a card's tensor to the host, and
@@ -3185,7 +3252,7 @@ def recorded_all_reduces():
         t0 = time.perf_counter()
         out = real(t, *args, **kwargs)
         calls.append((t.numel(), t.dtype, time.perf_counter() - t0,
-                      kwargs.get("group")))
+                      kwargs.get("group"), t.device.type))
         return out
     dist.all_reduce = record
     try:
@@ -3218,8 +3285,8 @@ def collective_costs(torch, fn):
     import torch.distributed as dist
     with recorded_all_reduces() as calls:
         wall = _aligned(torch, fn)
-    bufs = [(torch.ones(n, dtype=dt, device="cuda"), group)
-            for n, dt, _, group in calls]
+    bufs = [(torch.ones(n, dtype=dt, device=dev), group)
+            for n, dt, _, group, dev in calls]
     with recorded_all_reduces() as replayed:
         replay_wall = _aligned(torch, lambda: [
             dist.all_reduce(b) if g is None else dist.all_reduce(b, group=g)
@@ -3741,18 +3808,25 @@ def sp_oracle(torch, F, arch, hw):
 
 def sp_timing(torch, F, arch, hw):
     """The bf16 plain-CE step on this rank's rows: its ms
-    (``timed_steps``) and the peak memory allocated over those steps,
-    from a reset after the set-up; under a group one more step's
-    ``collective_costs``."""
-    from esn_tpu_torch.parallel import mesh
+    (``timed_steps``), the peak memory allocated over those steps, from a
+    reset after the set-up, and the row-count sums a step made
+    (``spatial.ROW_SUMS``: count, host ms, share of the step); under a
+    group one more step's ``collective_costs``."""
+    from esn_tpu_torch.parallel import mesh, spatial
     model, opt, batch, cw = train_setup(torch, F, arch, hw)
     step = plain_ce_step(torch, model, opt, cw, torch.bfloat16)
     batch = _my_rows(torch, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    spatial.ROW_SUMS[:] = [0, 0.0]
     out = {"ms": 1e3 * timed_steps(torch, step, batch, SP_TIMED_STEPS),
            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
            "rows": list(batch["image"].shape)}
+    # the row-count sums of a step (the warm-up's too: SP_TIMED_STEPS + 1)
+    calls, secs = spatial.ROW_SUMS
+    out["row_sums"] = {"a_step": calls / (SP_TIMED_STEPS + 1),
+                       "ms_a_step": 1e3 * secs / (SP_TIMED_STEPS + 1)}
+    out["row_sums"]["share"] = out["row_sums"]["ms_a_step"] / out["ms"]
     if mesh.active():
         out["collectives"] = collective_costs(torch, lambda: step(batch))
     return out
@@ -3761,12 +3835,13 @@ def sp_timing(torch, F, arch, hw):
 SP_MODELS = (("fastscnn", IMAGE_HW), ("enet", SP_ENET_HW))
 
 
-def sp_rank_main():
+def sp_rank_main(models=SP_MODELS):
     """One rank of the spatial phase (with no group, the one-process run
     it is held against): under a group the world laid out as (1,
-    SP_RANKS); for each model the f32 (TF32 off) and bf16 first steps of
-    ``sp_first_step`` and the bf16 timing of ``sp_timing``; the kernel
-    launches of the steps; each part's seconds."""
+    SP_RANKS); for each model of ``models`` the f32 (TF32 off) and bf16
+    first steps of ``sp_first_step`` and the bf16 timing of
+    ``sp_timing``; the kernel launches of the steps; each part's
+    seconds."""
     import torch
     import torch.nn.functional as F
 
@@ -3788,12 +3863,12 @@ def sp_rank_main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     K.reset_launches()
-    for arch, hw in SP_MODELS:
+    for arch, hw in models:
         out[arch] = {d: part(f"{arch}_{d}", sp_first_step, torch, F, arch,
                              hw, getattr(torch, d))
                      for d in ("float32", "bfloat16")}
     torch.backends.cudnn.allow_tf32 = True      # the library default
-    for arch, hw in SP_MODELS:
+    for arch, hw in models:
         out[arch]["timing"] = part(f"{arch}_timing", sp_timing, torch, F,
                                    arch, hw)
     out["launches"] = dict(K.LAUNCHES)
@@ -3836,60 +3911,42 @@ def sp_readings(got, want, skip, oracle):
     return r
 
 
-def sp_cli_phase(torch):
-    """``torchrun --nproc_per_node SP_RANKS -m esn_tpu_torch.cli.train
-    --spatial SP_RANKS`` (the ranks on the one card: gloo) on synthetic
-    Cityscapes-shaped data at SP_CLI_HW, one epoch of one step (f32, TF32
-    off), beside the same run in one process: the log names the mesh,
-    and the epoch's loss (the first step, from equal weights) lies within
-    DP_LOSS_REL of one process's."""
-    import os
-    tmp = tempfile.mkdtemp(prefix="esn_sp_cli_")
-    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
-               PYTHONPATH=str(REPO) + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    h, w = SP_CLI_HW
-    args = ["--model", "FastSCNN", "--dataset", "cityscapes",
-            "--input_size", f"{h},{w}", "--synthetic_hw", f"{h}x{w}",
-            "--batch_size", "8", "--synthetic_len", "8", "--max_epochs", "1",
-            "--val_epochs", "1", "--num_workers", "2",
-            "--compute_dtype", "float32",
-            "--data_root", os.path.join(tmp, "nodata")]
-    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc_per_node", str(SP_RANKS), "-m",
-                "esn_tpu_torch.cli.train", "--spatial", str(SP_RANKS)]
-    one_cmd = [sys.executable, "-m", "esn_tpu_torch.cli.train"]
-    t0 = time.perf_counter()
-    with concurrent_runs() as pool:
-        runs = {name: pool.submit(run_command, cmd + args + [
-            "--savedir", os.path.join(tmp, name)], env, DP_LIMIT)
-            for name, cmd in (("sharded", torchrun), ("one", one_cmd))}
-        for name, run in runs.items():
-            rc, out = run.result()
-            check(rc == 0, f"{name} cli.train exited {rc}: {out[-3000:]}")
-    seconds = time.perf_counter() - t0
-
-    def run_dir(name, ranks):
-        return os.path.join(tmp, name, "cityscapes",
-                            f"FastSCNNbs8gpu{ranks}_train")
-
-    def events(path):
-        with open(os.path.join(path, "events.jsonl")) as f:
-            return [json.loads(line) for line in f]
-    with open(os.path.join(run_dir("sharded", SP_RANKS), "log.txt")) as f:
-        header = f.read().splitlines()[2]
-    e1, e2 = events(run_dir("one", 1)), events(run_dir("sharded", SP_RANKS))
-    rel = abs(e2[0]["loss"] - e1[0]["loss"]) / abs(e1[0]["loss"])
-    row = {"header": header, "one_loss": e1[0]["loss"],
-           "sharded_loss": e2[0]["loss"], "loss_rel": rel,
-           "bound": DP_LOSS_REL, "miou": [e1[0]["miou"], e2[0]["miou"]],
-           "seconds": seconds}
-    print("spatial torchrun", json.dumps(row))
-    check(header.endswith(f"mesh: 1 data x {SP_RANKS} model"),
-          f"torchrun --spatial log header: {header!r}")
-    check(rel <= DP_LOSS_REL, f"torchrun --spatial loss beyond its bound: "
-          f"{row}")
-    return row
+def sp_check(ranks, one, skip, oracle, models, gates, label):
+    """Hold the ranks of ``sp_rank_main`` (``ranks``) against the
+    one-process run ``one`` and the f64 steps ``oracle``: each rank's
+    first-step readings (``sp_readings``) within ``gates[arch][dtype]``
+    (a model whose gates are None is read, not held), the ranks' states
+    equal bit for bit, no kernel launched on the spatial route. Returns
+    the readings by rank, model and dtype."""
+    import numpy as np
+    check([(r["backend"], r["spatial"]) for r in ranks]
+          == [("gloo", SP_RANKS)] * SP_RANKS,
+          f"{label} ranks: {[(r['backend'], r['spatial']) for r in ranks]}")
+    rows = {}
+    for r in ranks:
+        for arch, _ in models:
+            for d in ("float32", "bfloat16"):
+                got = sp_readings(r[arch][d], one[arch][d], skip[arch],
+                                  oracle[arch])
+                gate = None if gates[arch] is None else gates[arch][d]
+                row = {**got, "bounds": gate}
+                rows[f"rank{r['rank']}_{arch}_{d}"] = row
+                print(f"{label} rank {r['rank']} {arch} {d}",
+                      json.dumps(row))
+                check(gate is None or all(got[k] <= v
+                                          for k, v in gate.items()),
+                      f"{label} rank {r['rank']} {arch} {d} beyond its "
+                      f"bounds: {row}")
+    for arch, _ in models:
+        for d in ("float32", "bfloat16"):
+            for k, v in ranks[0][arch][d]["after"].items():
+                check(all(np.array_equal(r[arch][d]["after"][k], v)
+                          for r in ranks),
+                      f"{label} {arch} {d}: the ranks' {k} differ")
+    for run in (one, *ranks):
+        check(not any(run["launches"].values()),
+              f"the {label} route launched kernels: {run['launches']}")
+    return rows
 
 
 def spatial_phase(torch, F, K):
@@ -3916,33 +3973,8 @@ def spatial_phase(torch, F, K):
     ranks = launch.run_ranks(sp_rank_main, SP_RANKS, device="cuda",
                              timeout=DP_LIMIT, threads=None)
     spawn_s = time.perf_counter() - t0
-    check([(r["backend"], r["spatial"]) for r in ranks]
-          == [("gloo", SP_RANKS)] * SP_RANKS,
-          f"spatial ranks: {[(r['backend'], r['spatial']) for r in ranks]}")
-    rows = {}
-    for r in ranks:
-        for arch, _ in SP_MODELS:
-            for d in ("float32", "bfloat16"):
-                got = sp_readings(r[arch][d], one[arch][d], skip[arch],
-                                  oracle[arch])
-                row = {**got, "bounds": SP_GATES[arch][d]}
-                rows[f"rank{r['rank']}_{arch}_{d}"] = row
-                print(f"spatial rank {r['rank']} {arch} {d}",
-                      json.dumps(row))
-                check(all(got[k] <= v
-                          for k, v in SP_GATES[arch][d].items()),
-                      f"spatial rank {r['rank']} {arch} {d} beyond its "
-                      f"bounds: {row}")
-    import numpy as np
-    for arch, _ in SP_MODELS:
-        for d in ("float32", "bfloat16"):
-            for k, v in ranks[0][arch][d]["after"].items():
-                check(all(np.array_equal(r[arch][d]["after"][k], v)
-                          for r in ranks),
-                      f"spatial {arch} {d}: the ranks' {k} differ")
-    for run in (one, *ranks):
-        check(not any(run["launches"].values()),
-              f"the spatial route launched kernels: {run['launches']}")
+    rows = sp_check(ranks, one, skip, oracle, SP_MODELS, SP_GATES,
+                    "spatial")
     timing = {arch: {"one_process": one[arch]["timing"],
                      "ranks": [r[arch]["timing"] for r in ranks]}
               for arch, _ in SP_MODELS}
@@ -3953,9 +3985,178 @@ def spatial_phase(torch, F, K):
                "rank_parts": [r["seconds"] for r in ranks]}
     print("spatial seconds", json.dumps(seconds))
     return {"readings": rows, "timing": timing, "torchrun": cli,
-            "seconds": seconds,
+            "seconds": seconds, "launches": cli_launches(cli),
             "skip": {a: sorted(v) for a, v in skip.items()}}
 
+
+
+def spu_kernel_checks(torch, F, K):
+    """K2 at Fast-SCNN's four eval DSConvs and K1 at its predict tail at
+    CamVid's 720x960 (SPU_DSCONV, SPU_ARGMAX), bf16 and f32, each against
+    its plain version at the kernel phase's tolerances, and timed."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for model, name, shape, cout, stride in SPU_DSCONV:
+            row = dsconv_case(K, torch, gen, shape, cout, stride, dtype)
+            row.update(kernel="fused_dsconv", model=model, layer=name)
+            rows.append(row)
+        row = resize_argmax_case(K, torch, F, gen, SPU_ARGMAX, 8, dtype)
+        row.update(kernel="resize_argmax", model="fastscnn",
+                   layer="predict tail")
+        rows.append(row)
+    torch.backends.cudnn.allow_tf32 = True      # the library default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for row in rows:
+        print("spatial_uneven kernel", json.dumps(row))
+    bad = [r for r in rows if not (r["within_tol"] and r["bit_identical"])]
+    check(not bad, f"kernel at CamVid's width outside tolerance: {bad}")
+    return rows
+
+
+def cli_rank_main(out_dir, argv) -> int:
+    """``esn_tpu_torch.cli.train.main(argv)`` with the kernel launches
+    counted from zero, written to ``out_dir/launches_rank{RANK}.json``:
+    what ``torchrun ... chip_smoke.py --cli-launches OUT ARGS`` runs on
+    each rank (and ``python3 chip_smoke.py --cli-launches OUT ARGS`` in
+    one process)."""
+    import os
+    sys.path.insert(0, str(REPO))
+    from esn_tpu_torch.cli.train import main as train_main
+    from esn_tpu_torch.ops import kernels as K
+    K.reset_launches()
+    rc = train_main(argv)
+    rank = int(os.environ.get("RANK", "0"))
+    Path(out_dir, f"launches_rank{rank}.json").write_text(
+        json.dumps(dict(K.LAUNCHES)))
+    return rc
+
+
+def sp_cli_phase(torch, hw=SP_CLI_HW, label="spatial"):
+    """``torchrun --nproc_per_node SP_RANKS`` of ``cli.train --spatial
+    SP_RANKS`` (through ``cli_rank_main``, which counts each rank's
+    launches) on synthetic 19-class data at ``hw``, one epoch of one step
+    (f32, TF32 off) and its validation pass, beside the same run in one
+    process: the log names the mesh, the epoch's loss (the first step,
+    from equal weights) lies within DP_LOSS_REL of one process's (which
+    takes K3: the same loss to f32 rounding), and each rank's validation
+    (its whole images, Fast-SCNN's predict) launched K1, and K2 four
+    times a K1."""
+    import os
+    tmp = tempfile.mkdtemp(prefix="esn_sp_cli_")
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    h, w = hw
+    args = ["--model", "FastSCNN", "--dataset", "cityscapes",
+            "--input_size", f"{h},{w}", "--synthetic_hw", f"{h}x{w}",
+            "--batch_size", "8", "--synthetic_len", "8", "--max_epochs", "1",
+            "--val_epochs", "1", "--num_workers", "2",
+            "--compute_dtype", "float32",
+            "--data_root", os.path.join(tmp, "nodata")]
+    me = [str(REPO / "chip_smoke.py"), "--cli-launches"]
+    cmds = {"sharded": [sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node", str(SP_RANKS)]
+            + me + [os.path.join(tmp, "sharded"), "--spatial",
+                    str(SP_RANKS)],
+            "one": [sys.executable] + me + [os.path.join(tmp, "one")]}
+    t0 = time.perf_counter()
+    with concurrent_runs() as pool:
+        runs = {}
+        for name, cmd in cmds.items():
+            os.makedirs(os.path.join(tmp, name))
+            runs[name] = pool.submit(run_command, cmd + args + [
+                "--savedir", os.path.join(tmp, name)], env, DP_LIMIT)
+        for name, run in runs.items():
+            rc, out = run.result()
+            check(rc == 0, f"{name} cli.train exited {rc}: {out[-3000:]}")
+    seconds = time.perf_counter() - t0
+
+    def run_dir(name, ranks):
+        return os.path.join(tmp, name, "cityscapes",
+                            f"FastSCNNbs8gpu{ranks}_train")
+
+    def events(path):
+        with open(os.path.join(path, "events.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def launches(name, ranks):
+        return [json.loads(Path(tmp, name, f"launches_rank{r}.json")
+                           .read_text()) for r in range(ranks)]
+    with open(os.path.join(run_dir("sharded", SP_RANKS), "log.txt")) as f:
+        header = f.read().splitlines()[2]
+    e1, e2 = events(run_dir("one", 1)), events(run_dir("sharded", SP_RANKS))
+    rel = abs(e2[0]["loss"] - e1[0]["loss"]) / abs(e1[0]["loss"])
+    row = {"header": header, "one_loss": e1[0]["loss"],
+           "sharded_loss": e2[0]["loss"], "loss_rel": rel,
+           "bound": DP_LOSS_REL, "miou": [e1[0]["miou"], e2[0]["miou"]],
+           "launches": {"ranks": launches("sharded", SP_RANKS),
+                        "one_process": launches("one", 1)[0]},
+           "seconds": seconds}
+    print(f"{label} torchrun", json.dumps(row))
+    check(header.endswith(f"mesh: 1 data x {SP_RANKS} model"),
+          f"torchrun --spatial log header: {header!r}")
+    check(rel <= DP_LOSS_REL, f"torchrun --spatial at {h}x{w}: loss beyond "
+          f"its bound: {row}")
+    for r, n in enumerate(row["launches"]["ranks"]):
+        check(n["resize_argmax"] >= 1
+              and n["dsconv"] == 4 * n["resize_argmax"]
+              and n["resize_ce_fwd"] == n["resize_ce_bwd"] == 0,
+              f"torchrun --spatial at {h}x{w}: rank {r} launched {n}")
+    return row
+
+
+def cli_launches(cli):
+    """``sp_cli_phase``'s launches by run, for ``launches by model``."""
+    return {**{f"cli_rank{r}": n
+               for r, n in enumerate(cli["launches"]["ranks"])},
+            "cli_one_process": cli["launches"]["one_process"]}
+
+
+def spatial_uneven_phase(torch, F, K):
+    """Uneven spatial shards on the one card (see CAMVID_HW): K1 and K2
+    at CamVid's width against their plain versions, the torchrun check
+    beside the f64 oracles, then ``sp_rank_main`` over SPU_MODELS in one
+    process and on SP_RANKS ranks, held by SPU_GATES (``sp_check``)."""
+    from esn_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    kernel_rows = spu_kernel_checks(torch, F, K)
+    kernels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with concurrent_runs() as pool:
+        cli = pool.submit(sp_cli_phase, torch, SPU_CLI_HW, "spatial_uneven")
+        skip = {arch: zero_gradient_leaves(torch, F, arch)[1]
+                for arch, _ in SPU_MODELS}
+        oracle = {arch: sp_oracle(torch, F, arch, hw)
+                  for arch, hw in SPU_MODELS}
+        cli = cli.result()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = launch.to_numpy(sp_rank_main(SPU_MODELS))
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(sp_rank_main, SP_RANKS, SPU_MODELS,
+                             device="cuda", timeout=DP_LIMIT, threads=None)
+    spawn_s = time.perf_counter() - t0
+    rows = sp_check(ranks, one, skip, oracle, SPU_MODELS, SPU_GATES,
+                    "spatial_uneven")
+    timing = {arch: {"one_process": one[arch]["timing"],
+                     "ranks": [r[arch]["timing"] for r in ranks]}
+              for arch, _ in SPU_MODELS}
+    print("spatial_uneven timing (both ranks share the one card)",
+          json.dumps(timing))
+    seconds = {"kernels": kernels_s, "torchrun_and_oracles": first_s,
+               "one_process": one_s, "ranks": spawn_s,
+               "one_process_parts": one["seconds"],
+               "rank_parts": [r["seconds"] for r in ranks]}
+    print("spatial_uneven seconds", json.dumps(seconds))
+    return {"kernels": kernel_rows, "readings": rows, "timing": timing,
+            "torchrun": cli, "seconds": seconds,
+            "launches": cli_launches(cli),
+            "skip": {a: sorted(v) for a, v in skip.items()}}
 
 
 # --- the port's decoder, and the golden runs -----------------------------
@@ -4206,6 +4407,8 @@ def golden_phase(torch, K):
 
 
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--cli-launches":
+        return cli_rank_main(sys.argv[2], sys.argv[3:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4367,6 +4570,10 @@ def main() -> int:
     # against one process, Fast-SCNN at config 5 and ENet at config 3's
     # size; torchrun cli.train --spatial 2
     sp = phase("spatial", spatial_phase, torch, F, K)
+    # uneven shards: Fast-SCNN-19 and LEDNet-19 at CamVid's 720x960 over
+    # two ranks on the one card; torchrun cli.train --spatial 2 there,
+    # whose validation launches K1 and K2 on each rank
+    spu = phase("spatial_uneven", spatial_uneven_phase, torch, F, K)
     # the port's PNG decoder at Cityscapes' size, then the four golden
     # trainings through it, f32 and bf16
     decode = phase("decode", decode_phase, torch)
@@ -4410,6 +4617,8 @@ def main() -> int:
                          "train_ranger_lovasz_remat":
                              cli["ranger_lovasz_remat"]["launches"]},
         "data_parallel_fastscnn": dp["launches"],
+        "spatial_cli_fastscnn": sp["launches"],
+        "spatial_uneven_cli_fastscnn": spu["launches"],
         "golden": golden["launches"]}
     print("launches by model", json.dumps(launches))
     # each kernel's launches summed over every path above
@@ -4485,7 +4694,8 @@ def main() -> int:
          **config4,
          "espnet_c": espnet_c, **zoo, "radam_ranger": optims,
          "focal_lovasz": losses, "remat": remat, "cli": cli,
-         "data_parallel": dp, "spatial": sp, "decode": decode,
+         "data_parallel": dp, "spatial": sp, "spatial_uneven": spu,
+         "decode": decode,
          "golden": golden,
          "launches_total": total,
          "launches": launches, "phase_seconds": seconds,

@@ -24,7 +24,10 @@ loss (``--use_ohem``, ``--use_label_smoothing``, ``--use_focal``,
 ``--use_lovaszsoftmax``) and ``--remat`` of the reference runs.
 ``--spatial S`` shards image height over ``S`` ranks (the reference's
 ``(data, model)`` mesh, ``parallel.spatial``): launch ``n_data x S``
-ranks, e.g. ``--nproc_per_node 2 ... --spatial 2``.
+ranks, e.g. ``--nproc_per_node 2 ... --spatial 2``. Every height inside
+the reference's envelope runs, also where a stage's rows do not split
+evenly (CamVid's 720 rows over 2 keep 45 at 1/16): such a stage's shards
+differ by a row, or are empty.
 """
 import argparse
 import sys

@@ -25,6 +25,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..ops import resize as R
+from ..parallel import spatial
 from .blocks import ConvBNAct, DSConv, InvertedResidual
 from .registry import register
 
@@ -99,7 +100,8 @@ class ContextNet(enn.SegModel):
     def logits_lowres(self, x: torch.Tensor) -> torch.Tensor:
         """1/8-res logits (``predict`` fuses the x8 upsample + argmax)."""
         h, w = x.shape[2:]
-        x_small = R.resize_bilinear(x, (h // 4, w // 4))
+        x_small = R.resize_bilinear(x, (spatial.share(h, lambda t: t // 4),
+                                        w // 4))
         y = self.fusion(self.shallow(x), self.deep(x_small))
         return self.head(self.drop(self.ds2(self.ds1(y))))
 

@@ -183,11 +183,13 @@ class BatchNorm(_Recomputable):
     stay equal on every rank. A recompute reissues the all-reduce, so
     every rank recomputes the same layers in the same order.
 
-    Under spatial sharding every rank holds an equal piece (its batch
-    rows' image rows), so the same world sums and global count hold. On
-    a tensor replicated over the model group (``spatial.replicated``)
-    each element is summed ``S`` times: the moments' ratio is unchanged,
-    and the unbiased factor counts each element once.
+    Under spatial sharding every rank holds its batch rows' shard of
+    image rows, equal or not (``spatial.bounds``): the same world sums
+    hold, over the global count ``N x n_data x T x W`` with ``T`` the
+    global rows (``spatial.global_rows``). On a tensor replicated over the
+    model group (``spatial.replicated``) each element is summed ``S``
+    times: the moments' ratio is unchanged, and the unbiased factor counts
+    each element once.
     """
 
     def __init__(self, num_features: int, *, momentum: float = 0.1,
@@ -229,8 +231,12 @@ class BatchNorm(_Recomputable):
             n = x.shape[0] * x.shape[2] * x.shape[3]
             if mesh.active():
                 # the moments over the global batch: one all-reduce of the
-                # 2C sums, whose backward sums the ranks' gradients
-                n *= mesh.world().size
+                # 2C sums, whose backward sums the ranks' gradients; the
+                # count is the global tensor's (a shard's rows are not T/S)
+                w, ax = mesh.world(), spatial.axis()
+                rows = x.shape[2] * w.spatial if ax is None \
+                    else spatial.global_rows(ax, x.shape[2])[0]
+                n = x.shape[0] * w.n_data * rows * x.shape[3]
                 d, m2 = (mesh.global_sum(torch.cat([
                     xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
                     / n).chunk(2)
@@ -321,12 +327,12 @@ class Dropout(_Recomputable):
                                generator=self.generator, device=x.device)
                 u = u[w.data_index * n:(w.data_index + 1) * n]
             else:
-                h = shape[2]
-                u = torch.rand((n * w.n_data, shape[1], h * ax.size)
+                total = spatial.global_rows(ax, shape[2])[0]
+                lo, hi = spatial.my_rows(total, ax)
+                u = torch.rand((n * w.n_data, shape[1], total)
                                + shape[3:], generator=self.generator,
                                device=x.device)
-                u = u[w.data_index * n:(w.data_index + 1) * n, :,
-                      ax.index * h:(ax.index + 1) * h]
+                u = u[w.data_index * n:(w.data_index + 1) * n, :, lo:hi]
         else:
             u = torch.rand(shape, generator=self.generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))

@@ -20,11 +20,13 @@ Under spatial sharding (``parallel.spatial.sharded``) the window pools
 fetch the rows their windows read from the model group and pool with no
 H padding: max pools see -inf, average pools zeros at the global border
 only (``count_include_pad`` counts padded rows there alone). The global
-pool sums each rank's rows over the group: its result is replicated on
-it. The adaptive pool takes whole maps only (it raises on a shard). The 2x2 index pool and its unpool stay local: inside
-the envelope every shard starts on an even row, so a window never
-crosses two shards (asserted), and an index only needs to be read back
-by the same rank's unpool."""
+pool sums each rank's rows over the group and divides by the global
+count: its result is replicated on it. The adaptive pool takes whole
+maps only (it raises on a shard). The 2x2 index pool and its unpool
+stay local: where every shard starts on an even row (SegNet and
+LinkNet, whose sides are multiples of 32, inside the envelope), a
+window never crosses two shards, and an index only needs to be read
+back by the same rank's unpool; elsewhere every rank raises."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
@@ -43,10 +45,11 @@ def _pair(v: IntOr2) -> Tuple[int, int]:
 
 def _halo(x: torch.Tensor, ax, window: IntOr2, stride: IntOr2,
           padding: IntOr2, fill: float):
-    """(this rank's window of rows, the W padding, the windows)."""
+    """(this rank's window of rows, the W padding, the stencil)."""
     (kh, _), (sh, _), (ph, pw) = _pair(window), _pair(stride), _pair(padding)
-    windows, _ = spatial.stencil_windows(x.shape[2], ax, kh, sh, ph)
-    return spatial.fetch_window(x, windows, ax, fill), (0, pw), windows
+    st = spatial.stencil_windows(x.shape[2], ax, kh, sh, ph)
+    return (spatial.fetch_window(x, st.windows, ax, fill, total=st.total),
+            (0, pw), st)
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -64,15 +67,15 @@ def avg_pool2d(x: torch.Tensor, window: IntOr2,
         y = F.avg_pool2d(_wide(x), window, stride, padding,
                          count_include_pad=count_include_pad)
         return y.to(x.dtype)
-    win, pad, windows = _halo(_wide(x), ax, window, stride, padding, 0.0)
+    win, pad, st = _halo(_wide(x), ax, window, stride, padding, 0.0)
     y = F.avg_pool2d(win, window, stride, pad,
-                     count_include_pad=count_include_pad)
-    kh, total = _pair(window)[0], x.shape[2] * ax.size
+                     count_include_pad=count_include_pad).narrow(2, 0, st.rows)
+    kh = _pair(window)[0]
     if not count_include_pad and _pair(padding)[0]:
         # the H count of each window: its rows inside [0, H)
-        lo, _ = windows[ax.index]
+        lo, _ = st.windows[ax.index]
         starts = lo + _pair(stride)[0] * torch.arange(y.shape[2])
-        rows = (torch.clamp(starts + kh, max=total)
+        rows = (torch.clamp(starts + kh, max=st.total)
                 - torch.clamp(starts, min=0)).to(y.dtype)
         y = y * (kh / rows).to(y.device)[:, None]
     return y.to(x.dtype)
@@ -83,7 +86,8 @@ def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     if ax is None:
         return _wide(x).mean(dim=(2, 3), keepdim=keepdims).to(x.dtype)
     s = spatial.group_sum(_wide(x).sum(dim=(2, 3), keepdim=keepdims), ax)
-    return (s / (x.shape[2] * ax.size * x.shape[3])).to(x.dtype)
+    total = spatial.global_rows(ax, x.shape[2])[0]
+    return (s / (total * x.shape[3])).to(x.dtype)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntOr2) -> torch.Tensor:
@@ -107,8 +111,8 @@ def max_pool2d(x: torch.Tensor, window: IntOr2,
     ax = spatial.axis()
     if ax is None:
         return F.max_pool2d(x, window, stride, padding)
-    win, pad, _ = _halo(x, ax, window, stride, padding, float("-inf"))
-    return F.max_pool2d(win, window, stride, pad)
+    win, pad, st = _halo(x, ax, window, stride, padding, float("-inf"))
+    return F.max_pool2d(win, window, stride, pad).narrow(2, 0, st.rows)
 
 
 def max_pool2d_with_indices_2x2(x: torch.Tensor
@@ -116,11 +120,15 @@ def max_pool2d_with_indices_2x2(x: torch.Tensor
     """2x2 stride-2 max pool returning ``(values, indices)``, both
     ``(N, C, H//2, W//2)``; indices int64 (see the module docstring). Odd
     trailing rows and columns are dropped. Local under spatial sharding
-    (see the module docstring): a shard of odd rows raises."""
-    if spatial.axis() is not None and x.shape[2] % 2:
-        raise ValueError(f"spatial: a 2x2 index pool over shards of "
-                         f"{x.shape[2]} rows would cross shards; the "
-                         f"envelope keeps shards even")
+    (see the module docstring): where a shard starts on an odd row every
+    rank raises."""
+    ax = spatial.axis()
+    if ax is not None:
+        b = spatial.bounds(spatial.global_rows(ax, x.shape[2])[0], ax.size)
+        if any(v % 2 for v in b[:-1]):
+            raise ValueError(f"spatial: a 2x2 index pool over shards "
+                             f"{b} of rows would cross shards (one starts "
+                             f"on an odd row)")
     h2, w2 = x.shape[2] // 2, x.shape[3] // 2
     return F.max_pool2d(x[:, :, :2 * h2, :2 * w2], 2, 2, return_indices=True)
 

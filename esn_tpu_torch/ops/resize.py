@@ -6,7 +6,8 @@ the plain 2-tap kernel at every scale, as ``F.interpolate`` does. Labels
 resize with cv2's ``INTER_NEAREST`` indices (:func:`resize_nearest_cv2`).
 
 Under spatial sharding (``parallel.spatial``) ``size`` is this rank's
-share: ``S`` shards of ``size[0]`` rows. A sharded input (``sharded``)
+share: the ranks' ``size[0]`` sum to the output's rows, which split as
+every tensor does (``spatial.bounds``). A sharded input (``sharded``)
 fetches the source rows its output rows read beyond its own, resizes
 that window with ``F.interpolate`` by the global ratio and keeps its
 rows: the window starts on a row whose half-pixel grid is the global one
@@ -45,41 +46,51 @@ def _interpolate(x: torch.Tensor, ratio: float, w_out: int) -> torch.Tensor:
 
 class _ShardedResize(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, size, ax):
-        rows = spatial.resize_rows(x.shape[2], size[0], ax.size, ax.index)
-        ctx.rows, ctx.ax, ctx.size, ctx.shape = rows, ax, size, x.shape
-        win = spatial.gather_window(x, rows.windows, ax)
-        return _interpolate(win, rows.ratio, size[1]).narrow(
-            2, rows.start, size[0])
+    def forward(ctx, x, rows, w_out, ax):
+        ctx.rows, ctx.ax, ctx.w_out, ctx.shape = rows, ax, w_out, x.shape
+        win = spatial.gather_window(x, rows.windows, ax, rows.total_in)
+        return _interpolate(win, rows.ratio, w_out).narrow(
+            2, rows.start, rows.rows)
 
     @staticmethod
     def backward(ctx, g):
         rows, ax = ctx.rows, ctx.ax
         n, c, h, w = ctx.shape
-        g = spatial.gather_window(g, rows.grad_windows, ax)
+        g = spatial.gather_window(g, rows.grad_windows, ax, rows.total_out)
         lo, hi = rows.grad_in
+        if lo == hi:    # no output row reads these rows: it joined the exchange
+            return g.new_zeros((n, c, h, w)), None, None, None
         with torch.enable_grad():
             t = spatial._like(g.new_zeros((n, c, hi - lo, w)), g) \
                 .requires_grad_()
-            y = _interpolate(t, rows.ratio, ctx.size[1]).narrow(
+            y = _interpolate(t, rows.ratio, ctx.w_out).narrow(
                 2, rows.grad_start, g.shape[2])
             gx, = torch.autograd.grad(y, t, g)
-        return gx.narrow(2, rows.own, h), None, None
+        return gx.narrow(2, rows.own, h), None, None, None
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of an NCHW tensor to ``size`` = (H, W)."""
+    """Bilinear resize of an NCHW tensor to ``size`` = (H, W). Under
+    spatial sharding ``size[0]`` is this rank's share of the output rows:
+    the output's global rows are the ranks' shares summed, and this rank
+    gets its shard of them (:func:`spatial.bounds`), which is its share
+    wherever the shares are the balanced split."""
     rep = spatial.replicated_axis()
     if rep is not None:
-        full = F.interpolate(x, size=(size[0] * rep.size, size[1]),
-                             mode="bilinear", align_corners=False,
-                             antialias=False)
-        return full.narrow(2, rep.index * size[0], size[0])
-    if tuple(size) == tuple(x.shape[2:]):
-        return x
+        total = spatial.global_rows(rep, size[0])[0]
+        lo, hi = spatial.my_rows(total, rep)
+        full = F.interpolate(x, size=(total, size[1]), mode="bilinear",
+                             align_corners=False, antialias=False)
+        return full.narrow(2, lo, hi - lo)
     ax = spatial.axis()
     if ax is not None:
-        return _ShardedResize.apply(x, tuple(size), ax)
+        t_in, t_out = spatial.global_rows(ax, x.shape[2], size[0])
+        if (t_in, size[1]) == (t_out, x.shape[3]):
+            return x
+        rows = spatial.resize_rows(t_in, t_out, ax.size, ax.index)
+        return _ShardedResize.apply(x, rows, size[1], ax)
+    if tuple(size) == tuple(x.shape[2:]):
+        return x
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False, antialias=False)
 

@@ -49,6 +49,9 @@ _DEVICE: Optional[torch.device] = None
 _SPATIAL = 1
 _MODEL_GROUP = None
 _MODEL_GROUPS: Dict[int, List] = {}
+# gloo groups over the same ranks, for sums of host integers under nccl
+_ROWS_GROUP = None
+_ROWS_GROUPS: Dict[int, List] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,21 +108,26 @@ def set_spatial(n_spatial: int) -> World:
     them. ``n_spatial = 1`` is the data-parallel world. A world that
     ``n_spatial`` does not divide raises: the reference would use fewer
     devices, but a launched world cannot shrink."""
-    global _SPATIAL, _MODEL_GROUP
+    global _SPATIAL, _MODEL_GROUP, _ROWS_GROUP
     size = dist.get_world_size() if active() else 1
     if n_spatial < 1 or size % n_spatial:
         raise ValueError(
             f"{size} rank(s) are not divisible by spatial={n_spatial}: a "
             f"launched world cannot shrink, so launch a multiple of "
             f"{n_spatial} ranks (n_data x {n_spatial})")
-    _SPATIAL, _MODEL_GROUP = 1, None
+    _SPATIAL, _MODEL_GROUP, _ROWS_GROUP = 1, None, None
     if n_spatial > 1:
+        ranks = [list(range(d * n_spatial, (d + 1) * n_spatial))
+                 for d in range(size // n_spatial)]
         if n_spatial not in _MODEL_GROUPS:
-            _MODEL_GROUPS[n_spatial] = [
-                dist.new_group(list(range(d * n_spatial,
-                                          (d + 1) * n_spatial)))
-                for d in range(size // n_spatial)]
-        _MODEL_GROUP = _MODEL_GROUPS[n_spatial][dist.get_rank() // n_spatial]
+            _MODEL_GROUPS[n_spatial] = [dist.new_group(r) for r in ranks]
+            if dist.get_backend() != "gloo":
+                _ROWS_GROUPS[n_spatial] = [
+                    dist.new_group(r, backend="gloo") for r in ranks]
+        d = dist.get_rank() // n_spatial
+        _MODEL_GROUP = _MODEL_GROUPS[n_spatial][d]
+        if n_spatial in _ROWS_GROUPS:
+            _ROWS_GROUP = _ROWS_GROUPS[n_spatial][d]
         _SPATIAL = n_spatial
     return world()
 
@@ -127,6 +135,13 @@ def set_spatial(n_spatial: int) -> World:
 def model_group():
     """This rank's model group (None at ``S = 1``)."""
     return _MODEL_GROUP
+
+
+def model_rows_group():
+    """A gloo group over this rank's model group, for sums of host
+    integers (``parallel.spatial.global_rows``): None where the model
+    group is gloo itself, or at ``S = 1``."""
+    return _ROWS_GROUP
 
 
 def rank_device(device: str, local_rank: int) -> torch.device:
@@ -187,11 +202,12 @@ def init_data_parallel(device: str = "cuda",
 
 def shutdown() -> None:
     """Leave the group, if one is up."""
-    global _DEVICE, _SPATIAL, _MODEL_GROUP
+    global _DEVICE, _SPATIAL, _MODEL_GROUP, _ROWS_GROUP
     if active():
         dist.destroy_process_group()
-    _DEVICE, _SPATIAL, _MODEL_GROUP = None, 1, None
+    _DEVICE, _SPATIAL, _MODEL_GROUP, _ROWS_GROUP = None, 1, None, None
     _MODEL_GROUPS.clear()
+    _ROWS_GROUPS.clear()
 
 
 # --------------------------------------------------------------- collectives
@@ -257,26 +273,35 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, counts):
         w = world()
-        n = x.shape[0]
-        buf = torch.zeros((w.size * n,) + tuple(x.shape[1:]),
+        at = np.cumsum((0,) + tuple(counts))
+        buf = torch.zeros((int(at[-1]),) + tuple(x.shape[1:]),
                           dtype=_wire_dtype(x.dtype), device=_comm_device(x))
-        buf[w.rank * n:(w.rank + 1) * n] = x
-        ctx.rows, ctx.device = (w.rank * n, (w.rank + 1) * n), x.device
+        buf[at[w.rank]:at[w.rank + 1]] = x
+        ctx.rows = (int(at[w.rank]), int(at[w.rank + 1]))
         return _all_reduce_(buf).to(device=x.device, dtype=x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return all_sum(g)[ctx.rows[0]:ctx.rows[1]]
+        return all_sum(g)[ctx.rows[0]:ctx.rows[1]], None
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` stacked along dim 0 in rank order (each rank
-    gives as many rows), on every rank: an all-reduce of a zero buffer in
-    which each rank writes its own rows. The backward sums the ranks'
-    upstream gradients and keeps this rank's rows. ``x`` with no group."""
-    return _GatherRows.apply(x) if active() else x
+def gather_rows(x: torch.Tensor,
+                counts: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """Every rank's ``x`` stacked along dim 0 in rank order, on every
+    rank: an all-reduce of a zero buffer in which each rank writes its own
+    rows. Rank ``r`` gives ``counts[r]`` rows (as many as this rank when
+    None). The backward sums the ranks' upstream gradients and keeps this
+    rank's rows. ``x`` with no group."""
+    if not active():
+        return x
+    if counts is None:
+        counts = (x.shape[0],) * world().size
+    if counts[world().rank] != x.shape[0]:
+        raise ValueError(f"gather_rows: {x.shape[0]} rows, counted "
+                         f"{counts[world().rank]}")
+    return _GatherRows.apply(x, tuple(counts))
 
 
 def all_reduce_grads(parameters: Iterable[torch.Tensor],

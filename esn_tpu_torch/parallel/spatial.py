@@ -10,15 +10,27 @@ insert the halo exchanges. Here they are written by hand:
 - :func:`make_spatial_mesh` lays the world out (``parallel.mesh``): rank
   ``r`` of ``n_data x S`` at data index ``r // S``, model index
   ``r % S``; :func:`shard_batch_spatial` gives a rank its batch rows and
-  its ``H / S`` image rows.
+  its image rows.
+- Every tensor of ``T`` rows is split the same way, balanced
+  (:func:`bounds`): model index ``j`` holds rows ``[floor(j*T/S),
+  floor((j+1)*T/S))``. Where ``S`` divides ``T`` these are equal shards;
+  elsewhere the shards differ by a row, and where ``T < S`` some are
+  empty. No row is padding, so every sum over the group counts real rows
+  only. A rank's own row count does not tell ``T`` (at ``S = 2`` rank 0
+  holds 22 rows of 44 and of 45), so an op that needs it sums the ranks'
+  counts (:func:`global_rows`: one all-reduce of host integers over the
+  model group, on gloo, with no wait on the device).
 - Inside :func:`sharded` (the train step's forward and backward) the ops
   of ``esn_tpu_torch.ops`` treat their NCHW inputs as this rank's rows of
-  a tensor of ``S`` equal shards: a conv, pool or resize fetches the rows
-  its outputs read from the group (:func:`fetch_window`, whose backward
-  returns their gradients to the rank that owns them) and runs with no H
-  padding, so zeros or -inf pad only the global border; a whole-height
-  reduction is summed over the group (:func:`group_sum`) and its result
-  is replicated there.
+  such a tensor: a conv, pool or resize fetches the rows its outputs read
+  from the group (:func:`fetch_window`, whose backward returns their
+  gradients to the rank that owns them) and runs with no H padding, so
+  zeros or -inf pad only the global border; its output is split as
+  above. A rank whose output shard is empty computes one row (the next
+  rank's first) and keeps none of it, so it runs the same kernels and
+  joins every exchange, forward and backward, with zero gradients. A
+  whole-height reduction is summed over the group (:func:`group_sum`)
+  and its result is replicated there.
 - Inside :func:`replicated` (marked call sites: PPM's pooled branches,
   which pool the map :func:`whole` gives every rank of the group) the
   tensors are whole on every rank of the group: the ops run plainly,
@@ -27,9 +39,9 @@ insert the halo exchanges. Here they are written by hand:
 
 The world sums of BatchNorm's moments, the losses' normalisers, OHEM's
 select and the Lovász gather, and the gradients' flat all-reduce stay
-over every rank: each holds an equal piece of the global batch. With
-``S = 1`` nothing here runs: :func:`sharded` enters nothing and every op
-takes its plain path.
+over every rank; their counts are the global tensor's (``N x n_data x T
+x W``), not a multiple of a rank's. With ``S = 1`` nothing here runs:
+:func:`sharded` enters nothing and every op takes its plain path.
 
 Every collective is an all-reduce over the model group in f32 or f64
 (gloo has no ``all_gather`` of CUDA tensors); a row fetch writes each
@@ -40,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,29 +77,6 @@ def check_spatial_config(input_hw: Tuple[int, int], n_spatial: int,
             f"by {n_spatial} (use >= {max_stride * 4}px inputs)")
 
 
-def check_model(model: torch.nn.Module, input_hw: Tuple[int, int],
-                n_spatial: int) -> None:
-    """Models with a stage deeper than the envelope's stride 32
-    (``SPATIAL_DEEPEST = (stride, stage)``; LEDNet's attention pyramid
-    reaches 1/64): the rows there must split into whole, equal shards.
-    The reference's XLA pads such a stage; the port raises, naming the
-    model, the stage and the H that works."""
-    deepest = getattr(model, "SPATIAL_DEEPEST", None)
-    if deepest is None or n_spatial == 1:
-        return
-    stride, stage = deepest
-    h = input_hw[0]
-    rows = h // stride
-    if rows < 1 or rows % n_spatial or h % stride:
-        step = stride * n_spatial
-        raise ValueError(
-            f"{type(model).__name__}: its {stage} works at 1/{stride}, where "
-            f"H={h} leaves {rows} row(s) for spatial={n_spatial} shards; "
-            f"those do not split into whole, equal rows (the reference's "
-            f"XLA pads them, the port does not): use H a multiple of "
-            f"{step} (e.g. H={max(step, -(-h // step) * step)})")
-
-
 def make_spatial_mesh(n_data: int, n_spatial: int) -> mesh.World:
     """The ``(data, model)`` world: batch over ``data``, height over
     ``model`` (``parallel.mesh.set_spatial``). The launched world must
@@ -98,15 +88,21 @@ def make_spatial_mesh(n_data: int, n_spatial: int) -> mesh.World:
     return mesh.set_spatial(n_spatial)
 
 
+def bounds(total: int, size: int) -> Tuple[int, ...]:
+    """Where each of ``size`` shards of ``total`` rows starts, and the
+    end: model index ``j`` holds rows ``[b[j], b[j+1])``, ``b[j] =
+    floor(j*total/size)`` (equal shards where ``size`` divides ``total``;
+    otherwise they differ by one row, and some are empty when ``total <
+    size``)."""
+    return tuple(j * total // size for j in range(size + 1))
+
+
 def shard_rows(x, n_spatial: int, index: int, dim: int):
-    """Rows ``[index*h, (index+1)*h)`` of dim ``dim``, ``h = size /
-    n_spatial`` (a numpy array or a tensor; a view)."""
-    n = x.shape[dim]
-    if n % n_spatial:
-        raise ValueError(f"{n} rows do not split into {n_spatial} shards")
-    h = n // n_spatial
+    """Shard ``index`` of ``n_spatial`` (:func:`bounds`) along dim ``dim``
+    (a numpy array or a tensor; a view)."""
+    b = bounds(x.shape[dim], n_spatial)
     sl = [slice(None)] * x.ndim
-    sl[dim] = slice(index * h, (index + 1) * h)
+    sl[dim] = slice(b[index], b[index + 1])
     return x[tuple(sl)]
 
 
@@ -131,10 +127,13 @@ def shard_batch_spatial(batch: Dict, grad_accum: int = 1,
 @dataclasses.dataclass(frozen=True)
 class Axis:
     """The model axis as an op sees it: ``size`` shards, this rank's
-    ``index``, its model ``group``."""
+    ``index``, its model ``group`` and the gloo group over the same ranks
+    that sums host integers (``rows_group``; the model group itself under
+    gloo)."""
     size: int
     index: int
     group: object
+    rows_group: object = None
 
 
 _AXIS: Optional[Axis] = None
@@ -151,7 +150,8 @@ def sharded() -> Iterator[None]:
     if w.spatial == 1:
         yield
         return
-    prev, _AXIS = _AXIS, Axis(w.spatial, w.model_index, mesh.model_group())
+    prev, _AXIS = _AXIS, Axis(w.spatial, w.model_index, mesh.model_group(),
+                              mesh.model_rows_group())
     try:
         yield
     finally:
@@ -212,6 +212,56 @@ def group_sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     return _GroupSum.apply(x, ax)
 
 
+# the row-count sums since the last reset: [calls, seconds on the host]
+ROW_SUMS = [0, 0.0]
+
+
+def global_rows(ax: Axis, *local: int) -> Tuple[int, ...]:
+    """The global row counts ``T`` of tensors of which this rank holds
+    ``local`` rows: the ranks' counts summed over the model group, one
+    all-reduce of host integers on gloo (no wait on the device). Every
+    rank of the group calls it at the same op, as it calls the exchanges.
+    Counted in :data:`ROW_SUMS`."""
+    t0 = time.perf_counter()
+    buf = torch.tensor(local, dtype=torch.int64)
+    mesh._all_reduce_(buf, ax.rows_group or ax.group)
+    ROW_SUMS[0] += 1
+    ROW_SUMS[1] += time.perf_counter() - t0
+    return tuple(int(v) for v in buf)
+
+
+def my_rows(total: int, ax: Axis) -> Tuple[int, int]:
+    """This rank's rows ``[start, stop)`` of a tensor of ``total`` rows."""
+    b = bounds(total, ax.size)
+    return b[ax.index], b[ax.index + 1]
+
+
+def share(h: int, rows) -> int:
+    """This rank's share of ``rows(T)`` output rows, where ``T`` is the
+    global row count of a tensor of which it holds ``h`` rows: what a
+    model asks a resize for where the global size is not a sum of the
+    shards' (``rows(T) = T // 4``). ``rows(h)`` while nothing is sharded."""
+    ax = axis()
+    if ax is None:
+        rep = replicated_axis()
+        if rep is None:
+            return rows(h)
+        lo, hi = my_rows(rows(h), rep)
+        return hi - lo
+    lo, hi = my_rows(rows(global_rows(ax, h)[0]), ax)
+    return hi - lo
+
+
+def nonempty(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(``x``, its rows), or for an empty shard ``x`` with one zero row
+    appended (still in the graph) and 0: a kernel that refuses an empty
+    input runs on one row, of which the caller keeps none."""
+    if x.shape[2]:
+        return x, x.shape[2]
+    n, c, _, w = x.shape
+    return _like(torch.cat([x, x.new_zeros((n, c, 1, w))], dim=2), x), 0
+
+
 @dataclasses.dataclass(frozen=True)
 class _Plan:
     """How the rank at ``index`` assembles its window of global rows:
@@ -226,40 +276,42 @@ class _Plan:
     writes: Tuple[Tuple[int, int, int], ...]
 
 
-def _ranges(lo: int, hi: int, j: int, h: int, total: int):
-    """Window ``[lo, hi)`` of rank ``j``: (rows above its own, its own,
-    rows below its own) within ``[0, total)``, each ``(start, stop)``."""
-    top = (max(lo, 0), min(hi, j * h, total))
-    own = (max(lo, j * h), min(hi, (j + 1) * h))
-    bottom = (max(lo, (j + 1) * h), min(hi, total))
+def _ranges(lo: int, hi: int, j: int, b: Tuple[int, ...]):
+    """Window ``[lo, hi)`` of rank ``j`` over shards ``b``
+    (:func:`bounds`): (rows above its own, its own, rows below its own)
+    within ``[0, total)``, each ``(start, stop)``."""
+    total = b[-1]
+    top = (max(lo, 0), min(hi, b[j], total))
+    own = (max(lo, b[j]), min(hi, b[j + 1]))
+    bottom = (max(lo, b[j + 1]), min(hi, total))
     return [(a, max(a, b)) for a, b in (top, own, bottom)]
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan(h: int, size: int, index: int,
+def _plan(total: int, size: int, index: int,
           windows: Tuple[Tuple[int, int], ...]) -> _Plan:
-    total = h * size
+    b = bounds(total, size)
     need = []       # the global rows each rank fetches, in window order
     for j, (lo, hi) in enumerate(windows):
-        top, _, bottom = _ranges(lo, hi, j, h, total)
+        top, _, bottom = _ranges(lo, hi, j, b)
         need.append(list(range(*top)) + list(range(*bottom)))
     slot = max(len(n) for n in need)
     writes: List[Tuple[int, int, int]] = []
     for j, rows in enumerate(need):
         for k, r in enumerate(rows):
-            if r // h != index:
+            if not b[index] <= r < b[index + 1]:
                 continue
-            start, at = r - index * h, j * slot + k
+            start, at = r - b[index], j * slot + k
             if writes and writes[-1][0] + writes[-1][2] == start \
                     and writes[-1][1] + writes[-1][2] == at:
                 writes[-1] = (writes[-1][0], writes[-1][1], writes[-1][2] + 1)
             else:
                 writes.append((start, at, 1))
     lo, hi = windows[index]
-    top, own, bottom = _ranges(lo, hi, index, h, total)
+    top, own, bottom = _ranges(lo, hi, index, b)
     ntop = top[1] - top[0]
     pieces = [("fill", max(0, min(hi, 0) - lo)), ("fetched", 0, ntop),
-              ("own", own[0] - index * h, own[1] - own[0]),
+              ("own", own[0] - b[index], own[1] - own[0]),
               ("fetched", ntop, bottom[1] - bottom[0]),
               ("fill", max(0, hi - max(lo, total)))]
     return _Plan(tuple(p for p in pieces if p[-1] > 0), slot,
@@ -317,10 +369,11 @@ class _FetchRows(torch.autograd.Function):
         return gx.to(device=g.device, dtype=g.dtype), None, None
 
 
-def _window(x: torch.Tensor, windows, ax: Axis, fill: float, fetch):
+def _window(x: torch.Tensor, windows, ax: Axis, fill: float, fetch,
+            total: int):
     windows = tuple((int(a), int(b)) for a, b in windows)
     h = x.shape[2]
-    plan = _plan(h, ax.size, ax.index, windows)
+    plan = _plan(total, ax.size, ax.index, windows)
     if plan.pieces == (("own", 0, h),) and plan.slot == 0:
         return x
     n, c, _, w = x.shape
@@ -338,20 +391,26 @@ def _window(x: torch.Tensor, windows, ax: Axis, fill: float, fetch):
             parts.append(x.narrow(2, p[1], p[2]))
         else:
             parts.append(fetched.narrow(2, p[1], p[2]))
+    if not parts:       # an empty window, no exchange
+        return x.narrow(2, 0, 0)
     return _like(parts[0] if len(parts) == 1 else torch.cat(parts, dim=2),
                  x)
 
 
 def fetch_window(x: torch.Tensor, windows: Sequence[Tuple[int, int]],
-                 ax: Axis, fill: float = 0.0) -> torch.Tensor:
-    """Global rows ``[lo, hi) = windows[ax.index]`` of the tensor whose
-    rows ``[index*h, (index+1)*h)`` are ``x`` (NCHW), ``fill`` outside
-    ``[0, S*h)``, in ``x``'s memory format; ``windows`` holds every
+                 ax: Axis, fill: float = 0.0,
+                 total: Optional[int] = None) -> torch.Tensor:
+    """Global rows ``[lo, hi) = windows[ax.index]`` of the tensor of
+    ``total`` rows (:func:`global_rows` when None) whose shard
+    (:func:`bounds`) this rank holds as ``x`` (NCHW), ``fill`` outside
+    ``[0, total)``, in ``x``'s memory format; ``windows`` holds every
     rank's window (each rank computes all of them, so all agree on the
     exchange). Rows come from any rank of the group, not only the
     adjacent ones, and their gradients go back to their owners. ``x``
     itself when the window is exactly its rows (no copy, no exchange)."""
-    return _window(x, windows, ax, fill, _FetchRows.apply)
+    if total is None:
+        total = global_rows(ax, x.shape[2])[0]
+    return _window(x, windows, ax, fill, _FetchRows.apply, total)
 
 
 def whole(x: torch.Tensor) -> torch.Tensor:
@@ -362,58 +421,86 @@ def whole(x: torch.Tensor) -> torch.Tensor:
     ax = axis()
     if ax is None:
         return x
-    return fetch_window(x, [(0, x.shape[2] * ax.size)] * ax.size, ax)
+    total = global_rows(ax, x.shape[2])[0]
+    return fetch_window(x, [(0, total)] * ax.size, ax, total=total)
 
 
 def gather_window(x: torch.Tensor, windows: Sequence[Tuple[int, int]],
-                  ax: Axis, fill: float = 0.0) -> torch.Tensor:
+                  ax: Axis, total: int, fill: float = 0.0) -> torch.Tensor:
     """:func:`fetch_window` without autograd (inside a Function)."""
-    return _window(x, windows, ax, fill, _exchange)
+    return _window(x, windows, ax, fill, _exchange, total)
 
 
 # ----------------------------------------------------------------- geometry
-def _split(total: int, ax: Axis, what: str) -> int:
-    """The rows a shard of ``total`` output rows holds; raises where the
-    shards cannot hold whole, equal rows."""
-    if total % ax.size:
-        raise ValueError(
-            f"spatial: {what} gives {total} output rows, which "
-            f"spatial={ax.size} shards cannot split into whole, equal rows; "
-            f"choose an input height whose stages divide by {ax.size}")
-    return total // ax.size
+@dataclasses.dataclass(frozen=True)
+class Stencil:
+    """A windowed op along H over the model axis: every rank's input
+    window (``windows``, global rows), the input's global rows
+    (``total``), this rank's output rows (``rows``) and where they start
+    in the op's output over its window (``start``). A rank whose output
+    shard is empty has the window of one output row, of which it keeps
+    none."""
+    windows: Tuple[Tuple[int, int], ...]
+    total: int
+    rows: int
+    start: int = 0
+
+
+def _out_rows(total_out: int, ax: Axis, what: str):
+    """(the output rows ``[lo, hi)`` each rank computes: its shard, or
+    for an empty shard the one row at ``lo``; the output's
+    :func:`bounds`)."""
+    if total_out < 1:
+        raise ValueError(f"spatial: {what} gives {total_out} output rows")
+    b = bounds(total_out, ax.size)
+    return [(b[j], max(b[j + 1], b[j] + 1)) for j in range(ax.size)], b
 
 
 def stencil_windows(h: int, ax: Axis, k: int, s: int, p: int, d: int = 1
-                    ) -> Tuple[Tuple[Tuple[int, int], ...], int]:
-    """(every rank's input window, the output rows a rank) of a
-    convolution or pool along H over ``S`` shards of ``h`` rows: kernel
-    ``k``, stride ``s``, padding ``p``, dilation ``d``, floor output
-    size. Output row ``o`` reads rows ``o*s - p + d*i``, ``i < k``."""
-    total = (h * ax.size + 2 * p - d * (k - 1) - 1) // s + 1
-    ho = _split(total, ax, f"a window of {k} rows (stride {s}, padding "
-                           f"{p}, dilation {d}) over {h * ax.size} rows")
-    return tuple((j * ho * s - p, (j * ho + ho - 1) * s - p + d * (k - 1) + 1)
-                 for j in range(ax.size)), ho
+                    ) -> Stencil:
+    """The :class:`Stencil` of a convolution or pool along H over the
+    model axis, whose input this rank holds ``h`` rows of (its global
+    rows from :func:`global_rows`); see :func:`stencil`."""
+    return stencil(global_rows(ax, h)[0], ax, k, s, p, d)
+
+
+def stencil(total: int, ax: Axis, k: int, s: int, p: int, d: int = 1
+            ) -> Stencil:
+    """The :class:`Stencil` of a convolution or pool along H over the
+    model axis, of an input of ``total`` rows: kernel ``k``, stride ``s``,
+    padding ``p``, dilation ``d``, floor output size. Output row ``o``
+    reads rows ``o*s - p + d*i``, ``i < k``."""
+    out, b = _out_rows((total + 2 * p - d * (k - 1) - 1) // s + 1, ax,
+                       f"a window of {k} rows (stride {s}, padding {p}, "
+                       f"dilation {d}) over {total} rows")
+    return Stencil(tuple((lo * s - p, (hi - 1) * s - p + d * (k - 1) + 1)
+                         for lo, hi in out), total,
+                   b[ax.index + 1] - b[ax.index])
 
 
 def transpose_windows(h: int, ax: Axis, k: int, s: int, p: int, op: int
-                      ) -> Tuple[Tuple[Tuple[int, int], ...], int, int]:
-    """(every rank's input window, the output rows a rank, where this
-    rank's rows start in the full transposed conv of its window) for a
-    transposed conv along H: output row ``o`` sums input rows ``i`` with
-    ``o = i*s - p + t``, ``t < k``."""
+                      ) -> Stencil:
+    """:func:`transpose_stencil` of an input of which this rank holds
+    ``h`` rows (its global rows from :func:`global_rows`)."""
+    return transpose_stencil(global_rows(ax, h)[0], ax, k, s, p, op)
+
+
+def transpose_stencil(total: int, ax: Axis, k: int, s: int, p: int,
+                      op: int) -> Stencil:
+    """The :class:`Stencil` of a transposed conv along H of an input of
+    ``total`` rows: output row ``o`` sums input rows ``i`` with ``o = i*s
+    - p + t``, ``t < k``; ``start`` is where this rank's rows start in
+    the full transposed conv of its window."""
     if k < s:
         raise ValueError(f"spatial: a transposed conv with kernel {k} < "
                          f"stride {s} leaves output rows no input reads")
-    total = (h * ax.size - 1) * s - 2 * p + k + op
-    ho = _split(total, ax, f"a transposed conv (kernel {k}, stride {s}) "
-                           f"over {h * ax.size} rows")
-    wins = []
-    for j in range(ax.size):
-        o_lo, o_hi = j * ho, (j + 1) * ho
-        wins.append((-((k - 1 - o_lo - p) // s), (o_hi - 1 + p) // s + 1))
-    lo = wins[ax.index][0]
-    return tuple(wins), ho, ax.index * ho + p - lo * s
+    out, b = _out_rows((total - 1) * s - 2 * p + k + op, ax,
+                       f"a transposed conv (kernel {k}, stride {s}) over "
+                       f"{total} rows")
+    wins = tuple((-((k - 1 - lo - p) // s), (hi - 1 + p) // s + 1)
+                 for lo, hi in out)
+    return Stencil(wins, total, b[ax.index + 1] - b[ax.index],
+                   b[ax.index] + p - wins[ax.index][0] * s)
 
 
 def _source_rows(o: np.ndarray, scale: float, total_in: int):
@@ -426,51 +513,65 @@ def _source_rows(o: np.ndarray, scale: float, total_in: int):
 
 @dataclasses.dataclass(frozen=True)
 class ResizeRows:
-    """The rows a bilinear resize of ``S`` shards of ``h_in`` rows to
-    ``S`` shards of ``h_out`` exchanges. Forward: every rank's input
-    window ``windows`` (its start a multiple of ``q``, the ratio being
-    ``p/q`` in lowest terms, so the window's own half-pixel grid is the
-    global one shifted by whole rows) and where this rank's output rows
-    start in the window's resize (``start``). Backward: every rank's
-    output rows whose gradient reaches its input rows (``grad_windows``),
-    the input window those read (``grad_in``, aligned alike), where those
-    output rows start in its resize (``grad_start``) and where this
-    rank's own rows start in it (``own``)."""
+    """The rows a bilinear resize of a tensor of ``total_in`` rows to
+    ``total_out`` rows, both split by :func:`bounds`, exchanges. Forward:
+    every rank's input window ``windows`` (its start a multiple of ``q``,
+    the ratio being ``p/q`` in lowest terms, so the window's own
+    half-pixel grid is the global one shifted by whole rows) and where
+    this rank's output rows start in the window's resize (``start``; an
+    empty output shard resizes the window of one row and keeps none).
+    Backward: every rank's output rows whose gradient reaches its input
+    rows (``grad_windows``, empty where no output row reads its rows,
+    as for an empty input shard or between the taps of a downscale), the
+    input
+    window those read (``grad_in``, aligned alike), where those output
+    rows start in its resize (``grad_start``) and where this rank's own
+    rows start in it (``own``)."""
     windows: Tuple[Tuple[int, int], ...]
     start: int
+    rows: int
     grad_windows: Tuple[Tuple[int, int], ...]
     grad_in: Tuple[int, int]
     grad_start: int
     own: int
     ratio: float
+    total_in: int
+    total_out: int
 
 
 @functools.lru_cache(maxsize=256)
-def resize_rows(h_in: int, h_out: int, size: int, index: int) -> ResizeRows:
+def resize_rows(total_in: int, total_out: int, size: int,
+                index: int) -> ResizeRows:
     from fractions import Fraction
-    total_in, total_out = h_in * size, h_out * size
     r = Fraction(total_out, total_in)
     p, q = r.numerator, r.denominator
     scale = total_in / total_out
     i0, i1 = _source_rows(np.arange(total_out, dtype=np.float64), scale,
                           total_in)
+    bi, bo = bounds(total_in, size), bounds(total_out, size)
     wins, gwins, gins = [], [], []
     for j in range(size):
-        o = slice(j * h_out, (j + 1) * h_out)
-        lo = int(i0[o].min()) // q * q
-        wins.append((lo, max(int(i1[o].max()) + 1, (j + 1) * h_in)))
-        mine = np.nonzero(((i0 >= j * h_in) & (i0 < (j + 1) * h_in))
-                          | ((i1 >= j * h_in) & (i1 < (j + 1) * h_in)))[0]
+        oa, ob = bo[j], max(bo[j + 1], bo[j] + 1)
+        lo = int(i0[oa:ob].min()) // q * q
+        hi = max(int(i1[oa:ob].max()) + 1, -(-ob * q // p), bi[j + 1])
+        wins.append((lo, min(hi, total_in)))
+        mine = np.nonzero(((i0 >= bi[j]) & (i0 < bi[j + 1]))
+                          | ((i1 >= bi[j]) & (i1 < bi[j + 1])))[0]
+        if not len(mine):   # no output row reads this shard (or it is empty)
+            gwins.append((bo[j], bo[j]))
+            gins.append((bi[j], bi[j]))
+            continue
         oa, ob = int(mine.min()), int(mine.max()) + 1
-        glo = min(int(i0[oa:ob].min()), j * h_in) // q * q
-        ghi = max(int(i1[oa:ob].max()) + 1, -(-ob * q // p), (j + 1) * h_in)
+        glo = min(int(i0[oa:ob].min()), bi[j]) // q * q
+        ghi = max(int(i1[oa:ob].max()) + 1, -(-ob * q // p), bi[j + 1])
         gwins.append((oa, ob))
         gins.append((glo, min(ghi, total_in)))
     lo = wins[index][0]
     glo = gins[index][0]
-    out = ResizeRows(tuple(wins), index * h_out - lo * p // q, tuple(gwins),
-                     gins[index], gwins[index][0] - glo * p // q,
-                     index * h_in - glo, float(r))
+    out = ResizeRows(tuple(wins), bo[index] - lo * p // q,
+                     bo[index + 1] - bo[index], tuple(gwins), gins[index],
+                     gwins[index][0] - glo * p // q, bi[index] - glo,
+                     float(r), total_in, total_out)
     if out.start < 0 or out.grad_start < 0 or out.own < 0:
         raise AssertionError(f"resize rows {out}")
     return out

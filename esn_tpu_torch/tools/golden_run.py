@@ -25,15 +25,18 @@ between its median and f32's over ``SEEDS`` to ``BF16_GAP``.
 The port's results on the CPU (f32, one torch thread a run) are pinned in
 ``golden_torch.json``.
 
-    python -m esn_tpu_torch.tools.golden_run [--device cpu|cuda]
+    python -m esn_tpu_torch.tools.golden_run [--device cuda|cpu]
         [--dtype float32|bfloat16] [--configs enet,...] [--seeds 1,2,3]
         [--plant lr0|mirrored_labels] [--processes] [--write] [--out PATH]
 
-``--processes`` runs each seed in a process of its own (one torch thread
-each, all started together). ``--plant`` trains with a fault planted, to
+It runs on the card (``--device cuda``, the default; with no card it
+raises, as ``cli.train`` does) unless asked for the CPU with ``--device
+cpu``. ``--processes`` runs each seed in a CPU process of its own (one
+torch thread each, all started together). ``--plant`` trains with a fault planted, to
 show that the bound can fail: ``lr0`` a learning rate of 0,
 ``mirrored_labels`` the train labels mirrored left to right and their
-images not. ``--write`` re-pins ``golden_torch.json`` (CPU, float32). On
+images not. ``--device cpu --write`` re-pins ``golden_torch.json`` (CPU,
+float32). On
 the card float32 runs with TF32 off. Exits non-zero when a config breaks
 its bound.
 """
@@ -194,6 +197,7 @@ def run_seeds(name: str, data_root: str, savedir: str,
     os.makedirs(savedir, exist_ok=True)
     procs = [subprocess.Popen(
         [sys.executable, "-m", "esn_tpu_torch.tools.golden_run",
+         "--device", "cpu",
          "--configs", name, "--seeds", str(s), "--data_root", data_root,
          "--savedir", os.path.join(savedir, f"s{s}"), "--threads", "1",
          "--dtype", dtype or "float32", "--out", out]
@@ -279,7 +283,8 @@ def load_spread() -> Dict:
 
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="cuda (the default) or cpu")
     parser.add_argument("--dtype", default=None,
                         choices=("float32", "bfloat16"))
     parser.add_argument("--configs", default=",".join(CONFIGS))
@@ -304,6 +309,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 or args.plant):
             parser.error("--write pins the CPU's float32 runs")
         args.processes = True
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; run on the CPU with --device cpu")
     if args.threads:
         torch.set_num_threads(args.threads)
     results = {}

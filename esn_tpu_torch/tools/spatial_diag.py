@@ -18,12 +18,20 @@ gates of ``chip_smoke.py``'s ``spatial`` phase.
   against one process and the f64 step) stand beside the phase's gate
   (``chip_smoke.SP_GATES``), with the bounds each breaks.
 
+``--uneven`` reads the same at the ``spatial_uneven`` phase's models and
+size (``chip_smoke.SPU_MODELS``: Fast-SCNN-19 and LEDNet-19 at CamVid's
+720x960, whose stages split into unequal shards) and gate
+(``chip_smoke.SPU_GATES``; a model without one is read only), with a
+third fault: ``t_miscount`` (BatchNorm counts ``h x S`` rows, as if every
+shard held ``T / S`` rows).
+
 Run from the repo root. Prints one JSON line a reading; ``--out`` also
 writes them all as one JSON file. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -32,12 +40,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 DTYPES = ("float32", "bfloat16")
 FAULTS = ("none", "zero_halo", "shifted_halo")
+UNEVEN_FAULTS = FAULTS + ("t_miscount",)
 
 
-def conv_windows(torch, F, arch, hw, dtype):
+def conv_windows(torch, F, arch, hw, dtype, ranks=None):
     """The convs of ``arch``'s forward whose outputs over the spatial
-    path's windows of rows differ from the whole tensor's (see the module
-    docstring), out of how many, and the largest share of elements."""
+    path's windows of rows (``ranks`` shards, ``chip_smoke.SP_RANKS``
+    when None) differ from the whole tensor's (see the module docstring),
+    out of how many, and the largest share of elements."""
     import chip_smoke as S
     from esn_tpu_torch.models import build_model
     from esn_tpu_torch.nn import layers, set_dropout_generator
@@ -51,6 +61,7 @@ def conv_windows(torch, F, arch, hw, dtype):
         a, b = max(lo, 0), min(hi, x.shape[2])
         out[:, :, a - lo:b - lo] = x[:, :, a:b]
         return out.contiguous(memory_format=torch.channels_last)
+    ranks = ranks or S.SP_RANKS
     model = build_model(arch, S.CLASSES, device="cuda",
                         generator=torch.Generator().manual_seed(0)).train()
     set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(1))
@@ -66,32 +77,34 @@ def conv_windows(torch, F, arch, hw, dtype):
         for h in hooks:
             h.remove()
         differ, worst = [], 0.0
-        ax = spatial.Axis(S.SP_RANKS, 0, None)
+        axes = [spatial.Axis(ranks, j, None) for j in range(ranks)]
         for i, (m, xin) in enumerate(seen):
             w = m.weight.to(dtype)
             b = None if m.bias is None else m.bias.to(dtype)
             k, (s, sw), (p, pw) = m.weight.shape[2], pair(m.stride), \
                 pair(m.padding)
-            h = xin.shape[2] // S.SP_RANKS
+            total = xin.shape[2]
             if isinstance(m, layers.ConvTranspose):
                 op = pair(m.output_padding)
                 y = F.conv_transpose2d(xin, w, b, m.stride, m.padding,
                                        m.output_padding)
-                wins, ho, _ = spatial.transpose_windows(h, ax, k, s, p, op[0])
+                sts = [spatial.transpose_stencil(total, ax, k, s, p, op[0])
+                       for ax in axes]
                 ys = torch.cat([F.conv_transpose2d(
-                    window(xin, lo, hi), w, b, (s, sw), (0, pw), (0, op[1])
-                ).narrow(2, j * ho + p - lo * s, ho)
-                    for j, (lo, hi) in enumerate(wins)], 2)
+                    window(xin, *st.windows[j]), w, b, (s, sw), (0, pw),
+                    (0, op[1])).narrow(2, st.start, st.rows)
+                    for j, st in enumerate(sts)], 2)
             else:
                 if k == 1 and s == 1 and p == 0:
                     continue
                 y = F.conv2d(xin, w, b, m.stride, m.padding, m.dilation,
                              m.groups)
-                wins, _ = spatial.stencil_windows(h, ax, k, s, p,
-                                                  pair(m.dilation)[0])
-                ys = torch.cat([F.conv2d(window(xin, lo, hi), w, b, m.stride,
-                                         (0, pw), m.dilation, m.groups)
-                                for lo, hi in wins], 2)
+                sts = [spatial.stencil(total, ax, k, s, p,
+                                       pair(m.dilation)[0]) for ax in axes]
+                ys = torch.cat([F.conv2d(
+                    window(xin, *st.windows[j]), w, b, m.stride, (0, pw),
+                    m.dilation, m.groups).narrow(2, 0, st.rows)
+                    for j, st in enumerate(sts)], 2)
             share = float((ys != y).float().mean())
             if share:
                 differ.append(f"{i}:{type(m).__name__}{tuple(m.weight.shape)}")
@@ -99,10 +112,60 @@ def conv_windows(torch, F, arch, hw, dtype):
     return {"convs": len(seen), "differ": differ, "largest_share": worst}
 
 
-def fault_rank_main():
+class _Miscount:
+    """``parallel.spatial`` as BatchNorm sees it under ``t_miscount``: its
+    ``global_rows`` answers ``h x S`` without a sum."""
+
+    def __init__(self, spatial):
+        self._spatial = spatial
+
+    def __getattr__(self, name):
+        return getattr(self._spatial, name)
+
+    @staticmethod
+    def global_rows(ax, *local):
+        return tuple(h * ax.size for h in local)
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """``fault`` planted in this process while inside: ``none``,
+    ``zero_halo`` (every row exchange gives zeros, as if each shard's
+    border were the image's), ``shifted_halo`` (each row an exchange
+    sends is the row above it) or ``t_miscount`` (BatchNorm counts ``h x
+    S`` rows, as if every shard held ``T / S`` rows)."""
+    import torch
+
+    from esn_tpu_torch.nn import layers
+    from esn_tpu_torch.parallel import spatial
+    real = spatial._exchange
+    exchange = {
+        "zero_halo": lambda x, plan, ax: torch.zeros_like(real(x, plan, ax)),
+        "shifted_halo": lambda x, plan, ax: real(torch.roll(x, 1, 2), plan,
+                                                 ax)}.get(fault, real)
+    if fault not in UNEVEN_FAULTS:
+        raise ValueError(f"fault {fault!r}: one of {UNEVEN_FAULTS}")
+    spatial._exchange = exchange
+    if fault == "t_miscount":
+        layers.spatial = _Miscount(spatial)
+    try:
+        yield
+    finally:
+        spatial._exchange = real
+        layers.spatial = spatial
+
+
+def _models(uneven):
+    import chip_smoke as S
+    return (S.SPU_MODELS, S.SPU_GATES, UNEVEN_FAULTS) if uneven \
+        else (S.SP_MODELS, S.SP_GATES, FAULTS)
+
+
+def fault_rank_main(uneven=False):
     """One rank of ``faults`` (with no group, the one-process run): for
-    each fault of FAULTS planted in the row exchange, the first steps of
-    every model of the phase in each dtype of DTYPES."""
+    each fault planted in every rank (the row exchange, or BatchNorm's
+    count), the first steps of every model of the phase in each dtype of
+    DTYPES."""
     import torch
     import torch.nn.functional as F
 
@@ -111,54 +174,47 @@ def fault_rank_main():
     if mesh.active():
         spatial.make_spatial_mesh(mesh.world().size // S.SP_RANKS,
                                   S.SP_RANKS)
+    models, _, faults = _models(uneven)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    real = spatial._exchange
-    planted = {
-        "none": real,
-        "zero_halo": lambda x, plan, ax: torch.zeros_like(real(x, plan, ax)),
-        "shifted_halo": lambda x, plan, ax: real(torch.roll(x, 1, 2), plan,
-                                                 ax)}
     out = {"rank": mesh.world().rank}
-    try:
-        for fault in FAULTS if mesh.active() else ("none",):
-            spatial._exchange = planted[fault]
+    for fault in faults if mesh.active() else ("none",):
+        with planted(fault):
             out[fault] = {arch: {d: S.sp_first_step(torch, F, arch, hw,
                                                     getattr(torch, d))
                                  for d in DTYPES}
-                          for arch, hw in S.SP_MODELS}
-            torch.cuda.empty_cache()
-    finally:
-        spatial._exchange = real
+                          for arch, hw in models}
+        torch.cuda.empty_cache()
     return out
 
 
-def faults(torch, F):
+def faults(torch, F, uneven=False):
     """Every rank's readings of every fault, model and dtype beside the
     phase's gate: ``{fault: {f"rank{r}_{arch}_{dtype}": row}}``."""
     import chip_smoke as S
     from esn_tpu_torch.parallel import launch
     from esn_tpu_torch.tools import spatial_diag     # by name, for spawn
+    models, gates, planted = _models(uneven)
     skip = {arch: S.zero_gradient_leaves(torch, F, arch)[1]
-            for arch, _ in S.SP_MODELS}
-    oracle = {arch: S.sp_oracle(torch, F, arch, hw)
-              for arch, hw in S.SP_MODELS}
-    one = launch.to_numpy(spatial_diag.fault_rank_main())["none"]
+            for arch, _ in models}
+    oracle = {arch: S.sp_oracle(torch, F, arch, hw) for arch, hw in models}
+    one = launch.to_numpy(spatial_diag.fault_rank_main(uneven))["none"]
     torch.cuda.empty_cache()
     ranks = launch.run_ranks(spatial_diag.fault_rank_main, S.SP_RANKS,
-                             device="cuda", timeout=S.DP_LIMIT, threads=None)
+                             uneven, device="cuda", timeout=S.DP_LIMIT,
+                             threads=None)
     rows = {}
-    for fault in FAULTS:
+    for fault in planted:
         for r in ranks:
-            for arch, _ in S.SP_MODELS:
+            for arch, _ in models:
                 for d in DTYPES:
                     got = S.sp_readings(r[fault][arch][d], one[arch][d],
                                         skip[arch], oracle[arch])
-                    gate = S.SP_GATES[arch][d]
+                    gate = None if gates[arch] is None else gates[arch][d]
                     rows.setdefault(fault, {})[
                         f"rank{r['rank']}_{arch}_{d}"] = {
                         **got, "bounds": gate,
-                        "broken": sorted(k for k, v in gate.items()
+                        "broken": sorted(k for k, v in (gate or {}).items()
                                          if not got[k] <= v)}
     return rows
 
@@ -167,6 +223,9 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="write the readings "
                         "as one JSON file")
+    parser.add_argument("--uneven", action="store_true",
+                        help="the spatial_uneven phase's models, size and "
+                             "gate, and the t_miscount fault")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -181,13 +240,14 @@ def main(argv: list[str]) -> int:
                          text=True, check=True, timeout=60).stdout.strip())
     print("torch", torch.__version__, "cuda", torch.version.cuda)
     torch.backends.cudnn.allow_tf32 = False
+    models = _models(args.uneven)[0]
     windows = {f"{arch}_{d}": conv_windows(torch, F, arch, hw,
                                            getattr(torch, d))
-               for arch, hw in S.SP_MODELS for d in DTYPES}
+               for arch, hw in models for d in DTYPES}
     torch.backends.cudnn.allow_tf32 = True
     for k, v in windows.items():
         print("windows", k, json.dumps(v), flush=True)
-    readings = faults(torch, F)
+    readings = faults(torch, F, args.uneven)
     for fault, rows in readings.items():
         for k, v in rows.items():
             print("fault", fault, k, json.dumps(v), flush=True)

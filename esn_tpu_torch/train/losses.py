@@ -22,8 +22,11 @@ sum to it and their gradients sum to its gradient: the normalisers
 (``Σw`` of CE, label smoothing, the K3 route, OHEM's kept pixels and
 focal) are summed over the ranks, OHEM's ``min_kept`` and threshold are
 those of the global batch (:func:`kth_smallest`), and the Lovász losses
-take their coefficients and classes present from the global batch. An
-f64 input keeps f64 throughout (f32 otherwise).
+take their coefficients and classes present from the global batch.
+Under spatial sharding a rank's pixels are its shard of the global rows,
+which need not be an equal piece: the global pixel count and the Lovász
+gather take every rank's own count (:func:`_rank_pixels`). An f64 input
+keeps f64 throughout (f32 otherwise).
 """
 from __future__ import annotations
 
@@ -66,6 +69,29 @@ def _pixel_weights(class_weights: Optional[torch.Tensor], safe: torch.Tensor,
     if class_weights is not None:
         w = w * class_weights.to(dtype)[safe]
     return w
+
+
+def _rank_pixels(logits: torch.Tensor) -> Tuple[int, ...]:
+    """The pixels each rank of the world holds of the global batch's NHWC
+    logits, of which this rank holds ``logits``: equal pieces, except
+    under spatial sharding, where rank ``r`` holds its model index's
+    shard of the global rows (``spatial.bounds``)."""
+    n, h, w, _ = logits.shape
+    world = mesh.world()
+    ax = spatial.axis()
+    if ax is None:
+        return (n * h * w,) * world.size
+    b = spatial.bounds(spatial.global_rows(ax, h)[0], ax.size)
+    return tuple(n * w * (b[r % ax.size + 1] - b[r % ax.size])
+                 for r in range(world.size))
+
+
+def _global_pixels(logits: torch.Tensor) -> int:
+    """The global batch's pixels (the one-process ``N*H*W``)."""
+    if not mesh.active():
+        n, h, w, _ = logits.shape
+        return n * h * w
+    return sum(_rank_pixels(logits))
 
 
 def _normalised(total: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -190,8 +216,7 @@ def ohem_cross_entropy(logits, labels, *, num_classes: int,
     """Online hard example mining CE (reference ProbOhemCrossEntropy2d):
     CE over the kept pixels of :func:`ohem_kept_mask`, at least
     ``min_kept`` (default ``B*H*W // 16`` of the global batch) of them."""
-    n, h, w, _ = logits.shape
-    total = n * h * w * mesh.world().size
+    total = _global_pixels(logits)
     if min_kept is None:
         min_kept = max(total // 16, 1)
     min_kept = int(min(min_kept, total))
@@ -288,14 +313,15 @@ def lovasz_softmax(logits, labels, *, num_classes: int,
                                        ignore_index)
     with torch.no_grad():
         if mesh.active():
+            counts = _rank_pixels(logits)
             all_labels = mesh.gather_rows(torch.where(
-                valid, labels.reshape(-1).long(), -1))
+                valid, labels.reshape(-1).long(), -1), counts)
             all_fg = _one_hot(all_labels, all_labels >= 0, num_classes,
                               fg.dtype)
-            w, n = mesh.world(), errors.shape[0]
+            at = sum(counts[:mesh.world().rank])
             coef = _lovasz_sort_coefficients(
-                mesh.gather_rows(errors.detach()), all_fg
-            )[w.rank * n:(w.rank + 1) * n]
+                mesh.gather_rows(errors.detach(), counts), all_fg
+            )[at:at + errors.shape[0]]
             present = all_fg.sum(0) > 0
         else:
             coef = _lovasz_sort_coefficients(errors, fg)

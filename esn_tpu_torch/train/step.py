@@ -161,7 +161,8 @@ def make_train_step(model: SegModel, loss_fn: Callable,
 
     Under spatial sharding (``parallel.spatial``; the world laid out as
     ``(data, model)``) the batch is this rank's batch rows' image rows
-    (``spatial.shard_batch_spatial``) and the forward and backward run
+    (``spatial.shard_batch_spatial``; equal shards or, where the rows do
+    not split evenly, shards a row apart) and the forward and backward run
     inside ``spatial.sharded()``: every op exchanges the rows it reads
     across shards, whole-height reductions are summed over the model
     group, and the sums over the world above are unchanged. Pair it with

@@ -36,7 +36,9 @@ Spatial sharding, the reference's ``(data, model)`` mesh
 ``n_data = W / S`` data ranks by ``S`` model ranks. Each rank loads and
 augments its data index's rows of every global batch at full height
 (augmentation runs outside the sharded context, so its resizes exchange
-nothing), keeps its model index's ``H / S`` image rows, and takes the
+nothing), keeps its model index's shard of image rows
+(``spatial.bounds``: equal where ``S`` divides the rows, one row apart,
+or empty, where a stage's rows do not split evenly), and takes the
 global-batch step with every op exchanging the rows it reads across the
 model group. As in the reference the step takes the model's full
 forward and the plain loss, not the fused resize-CE route. Evaluation
@@ -190,7 +192,6 @@ class Trainer:
             generator=torch.Generator().manual_seed(cfg.seed))
         if cfg.encoder_checkpoint:
             ckpt.load_encoder(cfg.encoder_checkpoint, self.model)
-        spatial.check_model(self.model, cfg.input_size, cfg.spatial)
         self.n_params = count_params(self.model)
 
         weights = torch.from_numpy(np.asarray(

@@ -67,4 +67,4 @@ def check_pin(name, runs):
             assert abs(got["miou"] - want["miou"]) <= LOOSE_MIOU_ATOL
         pytest.xfail(f"golden_torch.json pinned on torch {pinned_at}, "
                      f"running {here}: re-pin with `python -m "
-                     "esn_tpu_torch.tools.golden_run --write`")
+                     "esn_tpu_torch.tools.golden_run --device cpu --write`")

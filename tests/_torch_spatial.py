@@ -63,6 +63,13 @@ def _plain(fn):
     return lambda x, p: fn(x), lambda c: {}
 
 
+def _resize(x, num, den):
+    """A bilinear resize of x's sides by ``num / den`` (floor); the rows
+    as this rank's share of the global count (``spatial.share``)."""
+    rows = spatial.share(x.shape[2], lambda t: t * num // den)
+    return R.resize_bilinear(x, (rows, x.shape[3] * num // den))
+
+
 OPS = {
     **{f"conv_k{k}_s{s}": _conv(k, s) for k in (1, 3, 5, 7) for s in (1, 2)},
     **{f"conv_k3_d{d}": _conv(3, d=d) for d in (2, 4, 8, 16)},
@@ -82,16 +89,11 @@ OPS = {
     "avg_pool_2": _plain(lambda x: P.avg_pool2d(x, 2)),
     "index_pool_unpool": _plain(lambda x: P.max_unpool2d_2x2(
         *P.max_pool2d_with_indices_2x2(x))),
-    "resize_x2": _plain(lambda x: R.resize_bilinear(
-        x, (x.shape[2] * 2, x.shape[3] * 2))),
-    "resize_x4": _plain(lambda x: R.resize_bilinear(
-        x, (x.shape[2] * 4, x.shape[3] * 4))),
-    "resize_x8": _plain(lambda x: R.resize_bilinear(
-        x, (x.shape[2] * 8, x.shape[3] * 8))),
-    "resize_quarter": _plain(lambda x: R.resize_bilinear(
-        x, (x.shape[2] // 4, x.shape[3] // 4))),
-    "resize_half": _plain(lambda x: R.resize_bilinear(
-        x, (x.shape[2] // 2, x.shape[3] // 2))),
+    "resize_x2": _plain(lambda x: _resize(x, 2, 1)),
+    "resize_x4": _plain(lambda x: _resize(x, 4, 1)),
+    "resize_x8": _plain(lambda x: _resize(x, 8, 1)),
+    "resize_quarter": _plain(lambda x: _resize(x, 1, 4)),
+    "resize_half": _plain(lambda x: _resize(x, 1, 2)),
 }
 def whole_adaptive_pool(x, bins):
     """PPM's pool of a shard: the adaptive pool of the whole map
@@ -163,7 +165,8 @@ def upsample_case(name, x, cot, n_spatial):
     made the map would)."""
     w = layout(n_spatial)
     xr = _t(mesh.shard_batch({"x": x}, w=w)["x"]).requires_grad_()
-    rows, cols = cot.shape[2] // max(w.spatial, 1), cot.shape[3]
+    b = spatial.bounds(cot.shape[2], w.spatial)
+    rows, cols = b[w.model_index + 1] - b[w.model_index], cot.shape[3]
     with spatial.sharded(), spatial.replicated():
         y = R.resize_bilinear(xr, (rows, cols))
         c = _t(spatial.shard_batch_spatial({"c": cot}, w=w)["c"])
@@ -224,6 +227,24 @@ def regroup_case(n_spatial):
         total = spatial.group_sum(one, ax) if ax is not None else one
     return dict(same=mesh.model_group() is first, spatial=w.spatial,
                 total=total)
+
+
+def index_pool_guard_case(x, n_spatial):
+    """The 2x2 index pool on this rank's rows of ``x``: the message it
+    raises with (every rank of the group must raise)."""
+    w = layout(n_spatial)
+    xr = _t(spatial.shard_batch_spatial({"x": x}, w=w)["x"])
+    try:
+        with spatial.sharded():
+            P.max_pool2d_with_indices_2x2(xr)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def row_sums_case():
+    """The row-count sums this process has made (``spatial.ROW_SUMS``)."""
+    return spatial.ROW_SUMS[0]
 
 
 def many_case(calls):
@@ -374,14 +395,9 @@ def no_model_axis_case(images, labels, cw):
 
 
 def spatial_fault_case(fault, *args, **kwargs):
-    """``spatial_step_case`` with ``fault`` planted in this process:
-    ``zero_halo`` (every row exchange gives zeros, as if each shard's
-    border were the image's), ``none`` (nothing)."""
-    real = spatial._exchange
-    if fault == "zero_halo":
-        spatial._exchange = lambda x, plan, ax: torch.zeros_like(
-            real(x, plan, ax))
-    try:
+    """``spatial_step_case`` with ``fault`` planted in this process
+    (``esn_tpu_torch.tools.spatial_diag.planted``: ``none``,
+    ``zero_halo``, ``shifted_halo``, ``t_miscount``)."""
+    from esn_tpu_torch.tools.spatial_diag import planted
+    with planted(fault):
         return spatial_step_case(*args, **kwargs)
-    finally:
-        spatial._exchange = real

@@ -67,3 +67,14 @@ def test_bf16_gap_limits_cover_every_config():
     assert set(G.BF16_GAP) == set(G.CONFIGS)
     assert all(set(v) == {"miou", "tail_loss"} and min(v.values()) > 0
                for v in G.BF16_GAP.values())
+
+
+def test_the_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``--device`` defaults to cuda: with no card the tool raises and
+    names the CPU's flag, before it builds a fixture or trains."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"--device cpu"):
+        G.main(["--configs", "enet", "--seeds", "1"])
+    with pytest.raises(SystemExit):     # --write pins the CPU's runs only
+        G.main(["--write"])

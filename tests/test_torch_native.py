@@ -10,6 +10,7 @@ tool.
 """
 import os
 import struct
+import subprocess
 import zlib
 
 import numpy as np
@@ -462,12 +463,80 @@ def test_bilinear_is_the_reference_formula(kinds, hw):
 
 # --- the reference's native loader --------------------------------------------
 
+def _missing_headers(names=("png.h", "jpeglib.h")):
+    """The headers of ``names`` that the C++ toolchain cannot include."""
+    cxx = os.environ.get("CXX", "g++")
+    missing = []
+    for name in names:
+        try:
+            probe = subprocess.run([cxx, "-E", "-x", "c++", "-"],
+                                   input=f"#include <{name}>\n", text=True,
+                                   capture_output=True, timeout=60)
+            ok = probe.returncode == 0
+        except OSError:
+            ok = False
+        if not ok:
+            missing.append(name)
+    return missing
+
+
 @pytest.fixture(scope="module")
-def ref_native():
+def ref_native(tmp_path_factory):
+    """The reference's loader on a library built here, for this module alone.
+
+    The reference builds ``native/build`` lazily with no lock between
+    processes and latches a failure for the life of the process, so a
+    worker that collected ``tests/test_native_loader.py`` while another ran
+    the same ``make`` may hold a failure that is not the toolchain's. This
+    fixture builds ``native/esn_native.cc`` with its own Makefile into a
+    directory of its own, points the reference's module there and clears
+    the latch. It skips only where a header is missing; a build that fails
+    with both headers present fails the tests."""
+    missing = _missing_headers()
+    if missing:
+        pytest.skip("the toolchain lacks " + " and ".join(missing)
+                    + ", which the reference's native library needs")
+    return _load_reference_native(tmp_path_factory.mktemp("ref_native"))
+
+
+def _load_reference_native(out):
+    """The reference's native module, its library loaded: as it is, or
+    built from ``native/`` into ``out`` with the latch cleared."""
     from esn_tpu.data import native as ref
-    if not ref.available():
-        pytest.skip("the reference's native library does not build here")
+    with ref._lib_lock:
+        loaded = ref._lib is not None
+    if not loaded:
+        built = subprocess.run(["make", "-C", ref._NATIVE_DIR, f"BUILD={out}"],
+                               capture_output=True, text=True, timeout=300)
+        assert built.returncode == 0, built.stdout + built.stderr
+        with ref._lib_lock:
+            ref._LIB_PATH = str(out / "libesn_native.so")
+            ref._lib_failed = False
+            ref._build_attempted = False
+    assert ref.available(), "the reference's native library does not load"
     return ref
+
+
+def test_the_reference_loader_recovers_from_a_latched_failure(tmp_path,
+                                                              monkeypatch):
+    """A failure the reference latched (a concurrent ``make`` of another
+    process, its library half written) does not outlive the fixture's
+    build: with the latch set and the library path gone, the build into a
+    directory of its own loads and decodes."""
+    if _missing_headers():
+        pytest.skip("the toolchain lacks " + " and ".join(_missing_headers()))
+    from esn_tpu.data import native as ref
+    monkeypatch.setattr(ref, "_lib", None)
+    monkeypatch.setattr(ref, "_lib_failed", True)
+    monkeypatch.setattr(ref, "_build_attempted", True)
+    monkeypatch.setattr(ref, "_LIB_PATH", str(tmp_path / "gone.so"))
+    assert not ref.available()
+    got = _load_reference_native(tmp_path)
+    assert got._LIB_PATH == str(tmp_path / "libesn_native.so")
+    path = str(tmp_path / "a.png")
+    cv2.imwrite(path, np.arange(48, dtype=np.uint8).reshape(4, 4, 3))
+    np.testing.assert_array_equal(got.decode_bgr(path),
+                                  cv2.imread(path, cv2.IMREAD_COLOR))
 
 
 @pytest.mark.parametrize("kind", ["cv2_rgb8", "cv2_grey8", "enc_rgb8",
