@@ -3240,8 +3240,9 @@ def recorded_all_reduces():
     """Every ``torch.distributed.all_reduce`` inside, in order: (numel,
     dtype, host seconds of the call, its group: None for the world, a
     model group under spatial sharding, the tensor's device type: the
-    row counts of uneven shards are host integers). ``parallel.mesh`` looks the function
-    up at call time; a gloo all-reduce returns once the exchange is done,
+    row counts of uneven shards are host integers). ``parallel.mesh``
+    looks the function up at call time; a gloo all-reduce returns once
+    the exchange is done,
     so a call's seconds hold its own cost and any wait (for this rank's
     queued kernels, before gloo copies a card's tensor to the host, and
     for the peer)."""

@@ -58,7 +58,8 @@ class _ShardedResize(torch.autograd.Function):
         n, c, h, w = ctx.shape
         g = spatial.gather_window(g, rows.grad_windows, ax, rows.total_out)
         lo, hi = rows.grad_in
-        if lo == hi:    # no output row reads these rows: it joined the exchange
+        if lo == hi:
+            # no output row reads these rows; the exchange was joined
             return g.new_zeros((n, c, h, w)), None, None, None
         with torch.enable_grad():
             t = spatial._like(g.new_zeros((n, c, hi - lo, w)), g) \

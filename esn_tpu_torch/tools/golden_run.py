@@ -32,13 +32,12 @@ The port's results on the CPU (f32, one torch thread a run) are pinned in
 It runs on the card (``--device cuda``, the default; with no card it
 raises, as ``cli.train`` does) unless asked for the CPU with ``--device
 cpu``. ``--processes`` runs each seed in a CPU process of its own (one
-torch thread each, all started together). ``--plant`` trains with a fault planted, to
-show that the bound can fail: ``lr0`` a learning rate of 0,
-``mirrored_labels`` the train labels mirrored left to right and their
-images not. ``--device cpu --write`` re-pins ``golden_torch.json`` (CPU,
-float32). On
-the card float32 runs with TF32 off. Exits non-zero when a config breaks
-its bound.
+torch thread each, all started together). ``--plant`` trains with a
+fault planted, to show that the bound can fail: ``lr0`` a learning rate
+of 0, ``mirrored_labels`` the train labels mirrored left to right and
+their images not. ``--device cpu --write`` re-pins ``golden_torch.json``
+(CPU, float32). On the card float32 runs with TF32 off. Exits non-zero
+when a config breaks its bound.
 """
 from __future__ import annotations
 
