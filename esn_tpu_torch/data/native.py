@@ -1,12 +1,14 @@
 """The port's image decoder: ctypes bindings to ``native/esn_native.cc``
-(counterpart of ``esn_tpu/data/native.py``).
+and ``native/jpeg.cc`` (counterpart of ``esn_tpu/data/native.py``).
 
-PNG decode (an inflate and the row filters of its own, no libpng or zlib),
+PNG decode (an inflate and the row filters of its own, no libpng or zlib,
+Adam7 interlacing included), JPEG decode (baseline, extended and
+progressive Huffman, libjpeg's default decompression with no libjpeg),
 the reference's two uint8 resizes, and a threaded, bounded, in-order
 prefetch pipeline, in one C++ library built with the host C++ compiler
 (``$CXX``, else ``c++``) at first use. The library lands in
-``esn_tpu_torch/build/`` under a name keyed by a hash of the source and
-flags; nothing is built at import, and a failed build raises with the
+``esn_tpu_torch/build/`` under a name keyed by a hash of every source and
+the flags; nothing is built at import, and a failed build raises with the
 compiler's output. There is no cv2 fallback: what the decoder cannot read
 raises.
 
@@ -16,10 +18,7 @@ Decoding returns what ``cv2.imread`` returns: ``decode_bgr`` is
 bilinearly and the grey map by nearest neighbour, the reference's formulas,
 so decode + resize equals the reference's native path bit for bit.
 
-JPEG needs libjpeg: the first JPEG decoded builds ``native/esn_jpeg.cc``
-against it and registers its decoder with the main library; where
-``jpeglib.h`` is missing that raises, naming it. ctypes releases the GIL
-around every call, so threads decode in parallel.
+ctypes releases the GIL around every call, so threads decode in parallel.
 """
 from __future__ import annotations
 
@@ -45,17 +44,22 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra",
 
 _ERRORS = {
     -2: "not a PNG or JPEG file",
-    -3: "an Adam7-interlaced PNG: the port's decoder reads no interlacing",
     -4: "a PNG of an unsupported bit depth or colour type",
     -5: "corrupt PNG data (chunks, the zlib stream, its Adler-32 or a row "
         "filter)",
-    -6: "a JPEG, and no JPEG decoder is loaded",
-    -7: "libjpeg failed to decode it",
+    -7: "corrupt JPEG data (markers, tables or the entropy-coded data)",
     -8: "a decoded size that is not the one asked for",
     -9: "a colour PNG with a gAMA or sRGB chunk read as grey (libpng's "
         "gamma-corrected colour-to-grey is not reproduced)",
+    -10: "an arithmetic-coded JPEG (SOF9-11): the port decodes Huffman "
+         "coding only",
+    -11: "a lossless or hierarchical JPEG (SOF3, 5-7, 13-15)",
+    -12: "a JPEG of other than 8-bit samples (12-bit data)",
+    -13: "a JPEG of other than 1 component or 3 in YCbCr (CMYK, YCCK, "
+         "RGB)",
+    -14: "a JPEG with sampling factors other than luma 1-2 x 1-2 and 1x1 "
+         "chroma",
 }
-_NO_JPEG = -6
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int)
@@ -65,7 +69,6 @@ _SIGNATURES = {
     "esn_decode": ([_CP, _I32, _U8P, _I32, _I32], _I32),
     "esn_resize_bilinear": ([_U8P, _I32, _I32, _U8P, _I32, _I32, _I32], None),
     "esn_resize_nearest": ([_U8P, _I32, _I32, _U8P, _I32, _I32], None),
-    "esn_set_jpeg_decoder": ([_VP], None),
     "esn_pipe_create": ([_I32, ctypes.POINTER(_CP), ctypes.POINTER(_CP), _I32,
                          _I32, _I32], _VP),
     "esn_pipe_epoch": ([_VP, _I32P, _I32, _I32], None),
@@ -75,7 +78,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_jpeg: Optional[ctypes.CDLL] = None
+# the library's sources, compiled together; every file of native/ keys the
+# build
+SOURCES = ("esn_native.cc", "jpeg.cc")
 
 
 def _compiler() -> str:
@@ -86,28 +91,33 @@ def _compiler() -> str:
     return cxx
 
 
-def library_path(source: str = "esn_native.cc", libs: Tuple[str, ...] = ()
-                 ) -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS + libs).encode())
-    h.update((SRC_DIR / source).read_bytes())
-    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
+def library_path() -> Path:
+    """The library's file, named by a hash of the flags and of every file
+    in ``native/`` (sources and headers), so that an edit to any of them
+    rebuilds."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS + SOURCES).encode())
+    for path in sorted(SRC_DIR.iterdir()):
+        if path.suffix in (".cc", ".h"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return BUILD_DIR / f"libesn_native-{h.hexdigest()[:16]}.so"
 
 
-def build(source: str = "esn_native.cc", libs: Tuple[str, ...] = ()) -> Path:
-    """Compile ``native/<source>`` unless a build of it exists; the file is
-    written under a temporary name and renamed, so concurrent builds in
+def build() -> Path:
+    """Compile the library unless a build of its sources exists; the file
+    is written under a temporary name and renamed, so concurrent builds in
     several processes are safe."""
-    out = library_path(source, libs)
+    out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         so = str(Path(tmp) / out.name)
-        cmd = [_compiler(), *CXX_FLAGS, "-o", so, str(SRC_DIR / source),
-               *libs]
+        cmd = [_compiler(), *CXX_FLAGS, "-o", so,
+               *(str(SRC_DIR / source) for source in SOURCES)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"building {source} failed "
+            raise RuntimeError(f"building the decoder failed "
                                f"({proc.returncode}):\n{' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(so, out)
@@ -125,26 +135,6 @@ def library() -> ctypes.CDLL:
                 fn.argtypes, fn.restype = argtypes, restype
             _lib = lib
         return _lib
-
-
-def load_jpeg() -> None:
-    """Build the JPEG decoder against libjpeg and register it with the main
-    library; raises, naming libjpeg, where ``jpeglib.h`` is missing."""
-    global _jpeg
-    lib = library()
-    with _lock:
-        if _jpeg is not None:
-            return
-        try:
-            path = build("esn_jpeg.cc", ("-ljpeg",))
-        except RuntimeError as e:
-            raise RuntimeError(
-                "JPEG needs libjpeg (jpeglib.h and -ljpeg), which the port's "
-                f"JPEG decoder could not be built against:\n{e}") from None
-        jpeg = ctypes.CDLL(str(path))
-        lib.esn_set_jpeg_decoder(
-            ctypes.cast(jpeg.esn_jpeg_decode, ctypes.c_void_p))
-        _jpeg = jpeg
 
 
 def _raise(code: int, path: str):
@@ -178,9 +168,6 @@ def _decode(path: str, channels: int,
         hw = th, tw = (int(resize_hw[0]), int(resize_hw[1]))
     out = np.empty(hw + ((channels,) if channels == 3 else ()), np.uint8)
     rc = lib.esn_decode(os.fsencode(path), channels, _u8(out), th, tw)
-    if rc == _NO_JPEG:
-        load_jpeg()
-        rc = lib.esn_decode(os.fsencode(path), channels, _u8(out), th, tw)
     if rc < 0:
         _raise(rc, path)
     return out
@@ -223,9 +210,6 @@ def resize_nearest(label: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     return out
 
 
-_JPEG_EXT = (".jpg", ".jpeg", ".jpe", ".jfif")
-
-
 class NativePipeline:
     """Threaded decode and prefetch over a manifest, in the caller's order.
 
@@ -242,9 +226,6 @@ class NativePipeline:
             threads = max(1, min(8, os.cpu_count() or 1))
         self._lib = library()
         self._records = list(records)
-        if any(p and p.lower().endswith(_JPEG_EXT)
-               for r in self._records for p in r):
-            load_jpeg()
         self._hw = (int(target_hw[0]), int(target_hw[1]))
         self._threads = threads
         n = len(self._records)

@@ -11,13 +11,14 @@
 //     (scaled to 0..255), grey+alpha and RGBA (alpha dropped), 16-bit (the
 //     high byte) and colour read as grey (libpng's fixed-point weights,
 //     which cv2 asks for) follow libpng's transforms as cv2 sets them up.
-//     Adam7-interlaced files, and colour files with a gamma (a gAMA or
-//     sRGB chunk, which makes libpng's colour-to-grey weigh linear values)
-//     read as grey, are refused. Chunk CRCs and the other ancillary chunks
+//     Adam7-interlaced files decode pass by pass, each pass's sub-image
+//     unfiltered and converted, then scattered into the image. Colour
+//     files with a gamma (a gAMA or sRGB chunk, which makes libpng's
+//     colour-to-grey weigh linear values) read as grey are refused. Chunk CRCs and the other ancillary chunks
 //     (tRNS, ...) are not read: cv2's outputs drop alpha.
-//   - JPEG: the size from the SOF marker here; the pixels from a decoder
-//     registered at run time (esn_set_jpeg_decoder), a small library of
-//     its own linked against libjpeg where that is installed.
+//   - JPEG: the size from the SOF marker here; the pixels from the
+//     decoder of jpeg.cc, compiled into the same library (libjpeg's
+//     default decompression, formula for formula, with no libjpeg).
 //   - resizes, formula for formula the reference's: bilinear with
 //     half-pixel centres and +0.5f rounding (images), floor(dst * scale)
 //     nearest (labels).
@@ -41,17 +42,17 @@
 #include <thread>
 #include <vector>
 
+#include "jpeg.h"
+
 namespace {
 
 // Error codes, mapped to exceptions by data/native.py.
 enum : int {
   kErrOpen = -1,         // file missing or unreadable
   kErrFormat = -2,       // neither PNG nor JPEG
-  kErrInterlaced = -3,   // Adam7-interlaced PNG
   kErrUnsupported = -4,  // bit depth / colour type not in the PNG spec
   kErrCorrupt = -5,      // bad chunk, inflate or filter data
-  kErrNoJpeg = -6,       // JPEG without a registered decoder
-  kErrJpeg = -7,         // the JPEG decoder failed
+  // -7 and -10 to -14: the JPEG decoder's (jpeg.h)
   kErrSize = -8,         // a size argument out of range
   kErrGamma = -9,        // a colour PNG with a gamma read as grey
 };
@@ -536,12 +537,39 @@ void convert_row(const PngHeader& hd, const uint8_t* row,
   }
 }
 
+// Adam7's seven passes, (x0, y0, dx, dy) each; kWhole, the image itself
+const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
+                          {2, 0, 4, 4}, {0, 2, 2, 4}, {1, 0, 2, 2},
+                          {0, 1, 1, 2}};
+const int kWhole[4] = {0, 0, 1, 1};
+
+// A pass's sub-image: pixels (x0 + c dx, y0 + r dy) of the image, w x h of
+// them (0 x 0 for a pass that holds none, which has no bytes at all), each
+// row `stride` bytes after its filter byte.
+struct Pass {
+  int x0 = 0, y0 = 0, dx = 1, dy = 1, w = 0, h = 0;
+  size_t stride = 0;
+  size_t bytes() const { return static_cast<size_t>(h) * (stride + 1); }
+};
+
+Pass make_pass(const PngHeader& hd, const int (&p)[4], int bits) {
+  Pass ps;
+  ps.x0 = p[0];
+  ps.y0 = p[1];
+  ps.dx = p[2];
+  ps.dy = p[3];
+  ps.w = hd.w > ps.x0 ? (hd.w - ps.x0 + ps.dx - 1) / ps.dx : 0;
+  ps.h = hd.h > ps.y0 ? (hd.h - ps.y0 + ps.dy - 1) / ps.dy : 0;
+  if (ps.w == 0 || ps.h == 0) ps.w = ps.h = 0;
+  ps.stride = (static_cast<size_t>(ps.w) * bits + 7) / 8;
+  return ps;
+}
+
 int png_decode(const std::vector<uint8_t>& d, int out_ch,
                std::vector<uint8_t>& out, int* oh, int* ow) {
   PngHeader hd;
   int rc = png_header(d, &hd);
   if (rc) return rc;
-  if (hd.interlace) return kErrInterlaced;
   uint8_t palette[256][3] = {};  // entries past PLTE's read black, as libpng
   std::vector<uint8_t> z;
   bool have_palette = false, srgb = false;
@@ -578,20 +606,46 @@ int png_decode(const std::vector<uint8_t>& d, int out_ch,
       gamma_significant(file_gamma))))
     return kErrGamma;
   const int bits = hd.channels * hd.depth;
-  const size_t stride = (static_cast<size_t>(hd.w) * bits + 7) / 8;
   const int bpp = std::max(1, bits / 8);
-  std::vector<uint8_t> raw(static_cast<size_t>(hd.h) * (stride + 1));
+  // the passes' sub-images, one (the image) when not interlaced; each row
+  // a filter byte and `stride` bytes, each pass's first row filtered
+  // against zeros
+  const int n_passes = hd.interlace ? 7 : 1;
+  Pass passes[7];
+  size_t total = 0;
+  for (int i = 0; i < n_passes; ++i) {
+    passes[i] = make_pass(hd, hd.interlace ? kAdam7[i] : kWhole, bits);
+    total += passes[i].bytes();
+  }
+  std::vector<uint8_t> raw(total);
   if (inflate_zlib(z.data(), z.size(), raw.data(), raw.size()) < 0)
     return kErrCorrupt;
   out.resize(static_cast<size_t>(hd.h) * hd.w * out_ch);
-  std::vector<uint8_t> zeros(stride, 0);
-  const uint8_t* prev = zeros.data();
-  for (int y = 0; y < hd.h; ++y) {
-    uint8_t* line = raw.data() + static_cast<size_t>(y) * (stride + 1);
-    if (!unfilter(line + 1, prev, line[0], stride, bpp)) return kErrCorrupt;
-    convert_row(hd, line + 1, palette,
-                out.data() + static_cast<size_t>(y) * hd.w * out_ch, out_ch);
-    prev = line + 1;
+  size_t widest = 0;
+  for (int i = 0; i < n_passes; ++i) widest = std::max(widest, passes[i].stride);
+  std::vector<uint8_t> zeros(widest + 1, 0), px;
+  uint8_t* line = raw.data();
+  for (int i = 0; i < n_passes; ++i) {
+    const Pass& ps = passes[i];
+    PngHeader sub = hd;
+    sub.w = ps.w;
+    px.resize(static_cast<size_t>(ps.w) * out_ch);
+    const uint8_t* prev = zeros.data();
+    for (int r = 0; r < ps.h; ++r, line += ps.stride + 1) {
+      if (!unfilter(line + 1, prev, line[0], ps.stride, bpp))
+        return kErrCorrupt;
+      const int y = ps.y0 + r * ps.dy;
+      uint8_t* row = out.data() + static_cast<size_t>(y) * hd.w * out_ch;
+      if (ps.dx == 1) {
+        convert_row(sub, line + 1, palette, row, out_ch);
+      } else {  // scatter the pass's pixels into the row
+        convert_row(sub, line + 1, palette, px.data(), out_ch);
+        for (int c = 0; c < ps.w; ++c)
+          std::memcpy(row + static_cast<size_t>(ps.x0 + c * ps.dx) * out_ch,
+                      px.data() + static_cast<size_t>(c) * out_ch, out_ch);
+      }
+      prev = line + 1;
+    }
   }
   *oh = hd.h;
   *ow = hd.w;
@@ -599,12 +653,8 @@ int png_decode(const std::vector<uint8_t>& d, int out_ch,
 }
 
 // ---------------------------------------------------------------------------
-// JPEG: the size here, the pixels from the registered decoder
+// JPEG: the size from the frame header here, the pixels from jpeg.cc
 // ---------------------------------------------------------------------------
-
-using JpegDecoder = int (*)(const uint8_t* data, size_t n, int channels,
-                            int h, int w, uint8_t* out);
-std::atomic<JpegDecoder> g_jpeg{nullptr};
 
 int jpeg_dims(const std::vector<uint8_t>& d, int* h, int* w) {
   size_t p = 2;
@@ -630,12 +680,7 @@ int jpeg_dims(const std::vector<uint8_t>& d, int* h, int* w) {
 
 int jpeg_decode(const std::vector<uint8_t>& d, int out_ch,
                 std::vector<uint8_t>& out, int* oh, int* ow) {
-  const JpegDecoder dec = g_jpeg.load();
-  if (!dec) return kErrNoJpeg;
-  int rc = jpeg_dims(d, oh, ow);
-  if (rc) return rc;
-  out.resize(static_cast<size_t>(*oh) * *ow * out_ch);
-  return dec(d.data(), d.size(), out_ch, *oh, *ow, out.data()) ? kErrJpeg : 0;
+  return esn_jpeg::decode(d.data(), d.size(), out_ch, out, oh, ow);
 }
 
 int decode_file(const char* path, int out_ch, std::vector<uint8_t>& out,
@@ -847,8 +892,6 @@ void esn_resize_nearest(const uint8_t* src, int sh, int sw, uint8_t* dst,
                         int dh, int dw) {
   resize_nearest(src, sh, sw, dst, dh, dw);
 }
-
-void esn_set_jpeg_decoder(JpegDecoder fn) { g_jpeg.store(fn); }
 
 void* esn_pipe_create(int n, const char** imgs, const char** labs, int th,
                       int tw, int capacity) {

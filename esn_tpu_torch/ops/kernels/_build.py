@@ -111,6 +111,9 @@ SIGNATURES = {
     "esn_cgblock_pre_tiles": ([_I32] * 6, _I32),
     "esn_cgblock_pre_tune": ([_I32] * 4, None),
     "esn_cgblock_pre": ([_VP] * 13 + [_I32] * 7 + [_VP], _I32),
+    "esn_resize_bilinear_bwd": ([_VP, _VP] + [_I32] * 7 + [_VP, _I32, _VP],
+                                _I32),
+    "esn_adaptive_pool_bwd": ([_VP, _VP] + [_I32] * 8 + [_VP], _I32),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import spatial
+from . import kernels as K
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -92,7 +93,9 @@ def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntOr2) -> torch.Tensor:
     """torch-style adaptive average pool: bin i of n over a length L spans
-    ``[floor(i*L/n), ceil((i+1)*L/n))``, the reference's bin edges.
+    ``[floor(i*L/n), ceil((i+1)*L/n))``, the reference's bin edges. A
+    CUDA tensor's recorded gradient goes through ``kernels.AdaptiveAvgPool``,
+    whose backward is the kernel K6 (torch's adds with atomics).
 
     A shard raises: pool the whole map (``spatial.whole``) inside
     ``spatial.replicated()``, as PPM does."""
@@ -100,7 +103,10 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntOr2) -> torch.Tensor:
         raise ValueError(
             "adaptive_avg_pool2d: a shard's rows; pool spatial.whole(x) "
             "inside spatial.replicated() (the result is replicated)")
-    return F.adaptive_avg_pool2d(_wide(x), output_size).to(x.dtype)
+    wide = _wide(x)
+    if K.kernel_backward(wide):
+        return K.AdaptiveAvgPool.apply(wide, output_size).to(x.dtype)
+    return F.adaptive_avg_pool2d(wide, output_size).to(x.dtype)
 
 
 def max_pool2d(x: torch.Tensor, window: IntOr2,

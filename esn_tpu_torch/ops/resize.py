@@ -18,6 +18,11 @@ each input row's gradient sums the same terms in the same order as on
 the whole tensor. A replicated input (inside ``spatial.replicated``,
 PPM's pooled maps) needs no exchange: the whole resize, this rank's
 rows of it.
+
+Every resize here is ``F.interpolate``; where a CUDA tensor's gradient is
+recorded it goes through ``kernels.BilinearResize``, whose backward is
+the kernel K5 (torch's CUDA backward adds with atomics in no fixed
+order), the sharded backward's resize included.
 """
 from __future__ import annotations
 
@@ -28,6 +33,20 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import spatial
+from . import kernels as K
+
+
+def _bilinear(x: torch.Tensor, size=None, scale_factor=None) -> torch.Tensor:
+    """``F.interpolate`` (bilinear, half-pixel, no antialias) to ``size``
+    or by ``scale_factor`` (not recomputed); through K5's autograd route
+    where ``kernels.kernel_backward`` says so."""
+    if K.kernel_backward(x):
+        return K.BilinearResize.apply(x, size, scale_factor)
+    return F.interpolate(x, size=size, scale_factor=scale_factor,
+                         mode="bilinear", align_corners=False,
+                         antialias=False,
+                         recompute_scale_factor=False
+                         if scale_factor is not None else None)
 
 
 def _interpolate(x: torch.Tensor, ratio: float, w_out: int) -> torch.Tensor:
@@ -35,9 +54,7 @@ def _interpolate(x: torch.Tensor, ratio: float, w_out: int) -> torch.Tensor:
     and to ``w_out`` columns: torch takes the scales as ``1 / ratio``,
     ``W / w_out``, which for the power-of-two ratios of the models are
     what ``size`` gives on the whole tensor."""
-    y = F.interpolate(x, scale_factor=(ratio, w_out / x.shape[3]),
-                      mode="bilinear", align_corners=False, antialias=False,
-                      recompute_scale_factor=False)
+    y = _bilinear(x, scale_factor=(ratio, w_out / x.shape[3]))
     if y.shape[3] != w_out:
         raise ValueError(f"spatial: a resize of {x.shape[3]} columns to "
                          f"{w_out} is not a whole scale factor")
@@ -80,8 +97,7 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     if rep is not None:
         total = spatial.global_rows(rep, size[0])[0]
         lo, hi = spatial.my_rows(total, rep)
-        full = F.interpolate(x, size=(total, size[1]), mode="bilinear",
-                             align_corners=False, antialias=False)
+        full = _bilinear(x, size=(total, size[1]))
         return full.narrow(2, lo, hi - lo)
     ax = spatial.axis()
     if ax is not None:
@@ -92,8 +108,7 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         return _ShardedResize.apply(x, rows, size[1], ax)
     if tuple(size) == tuple(x.shape[2:]):
         return x
-    return F.interpolate(x, size=tuple(size), mode="bilinear",
-                         align_corners=False, antialias=False)
+    return _bilinear(x, size=tuple(size))
 
 
 def resize_nearest_cv2(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -36,8 +36,9 @@ torch thread each, all started together). ``--plant`` trains with a
 fault planted, to show that the bound can fail: ``lr0`` a learning rate
 of 0, ``mirrored_labels`` the train labels mirrored left to right and
 their images not. ``--device cpu --write`` re-pins ``golden_torch.json``
-(CPU, float32). On the card float32 runs with TF32 off. Exits non-zero
-when a config breaks its bound.
+(CPU, float32). On the card float32 runs with TF32 off. ``--out`` also
+records the kernel launches of the process's runs (``launches``). Exits
+non-zero when a config breaks its bound.
 """
 from __future__ import annotations
 
@@ -301,6 +302,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
     import torch
+
+    from ..ops import kernels as K
     names = [n for n in args.configs.split(",") if n]
     seeds = [int(s) for s in args.seeds.split(",") if s]
     if args.write:
@@ -330,7 +333,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                "plant": args.plant,
                "fixture": {"src_hw": list(SRC_HW), "train_n": TRAIN_N,
                            "val_n": VAL_N, "rng_seed": FIXTURE_SEED},
-               "results": results, "bound_failures": failed}
+               "results": results, "bound_failures": failed,
+               "launches": dict(K.LAUNCHES)}
     if args.write:
         with open(PIN_PATH, "w") as f:
             json.dump(payload, f, indent=1)

@@ -1,7 +1,7 @@
 """Device-time profile of a model's train step on one CUDA card.
 
     python3 -m esn_tpu_torch.tools.profile_train [MODEL] [--loss LOSS]
-        [--optim OPTIM] [--hw H,W]
+        [--optim OPTIM] [--hw H,W] [--cudnn-deterministic]
 
 MODEL is a registered model name (default ``fastscnn``). LOSS is
 ``ce`` (weighted CE: through ``logits_lowres`` and the fused resize-CE
@@ -15,8 +15,10 @@ train.py's optimizers (default ``adam``). Run from the repo root. Uses
 model's size in ``chip_smoke.MODEL_INPUT``, seeded
 smooth images and learnable labels, class weights from their histogram,
 poly lr; ``--hw`` sets another input size, e.g. CGNet's config-4
-768,1536) and profiles 5 train steps with the kernel, then 5 with
-the plain versions (skipped where the step launches no kernel: the two
+768,1536; ``--cudnn-deterministic`` sets
+``torch.backends.cudnn.deterministic``, as chip_smoke's strict resume
+check does, to read its cost) and profiles 5 train steps with the
+kernel, then 5 with the plain versions (skipped where the step launches no kernel: the two
 would be the same), each after one untraced warm-up step. For each it
 prints the host-clock ms per step with the profiler on and, from 5 more
 steps, with it off (synchronised), the summed device time of the CUDA
@@ -47,6 +49,7 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--optim", default="adam", choices=[
         "sgd", "adam", "adamw", "radam", "ranger"])
     parser.add_argument("--hw", default=None, help="H,W input size")
+    parser.add_argument("--cudnn-deterministic", action="store_true")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -63,6 +66,8 @@ def main(argv: list[str]) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     print("torch", torch.__version__, "cuda", torch.version.cuda)
+    torch.backends.cudnn.deterministic = args.cudnn_deterministic
+    print("cudnn.deterministic", args.cudnn_deterministic)
     classes, hw = S.MODEL_INPUT.get(args.model, (S.CLASSES, S.IMAGE_HW))
     if args.hw:
         hw = tuple(int(v) for v in args.hw.split(","))

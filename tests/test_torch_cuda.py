@@ -127,6 +127,83 @@ def test_dsconv_wrapper_raises_on_cuda(cuda):
         K.fused_dsconv(*_dsconv_args(1, 1, 8, 8, 8, 12, torch.float32, cuda))
 
 
+# K5 and K6, the fixed-order backward of the bilinear resize and of the
+# adaptive pool, against their plain versions (f32 within 1e-5 of the
+# largest |gradient|, bf16 within one bf16 step) and torch's own backward
+# (f32), NCHW and channels_last; two launches bit for bit.
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("kind, g_shape, in_hw", [
+    ("resize", (2, 5, 32, 48), (4, 6)),         # x8
+    ("resize", (2, 5, 29, 11), (13, 17)),       # odd, both ways
+    ("resize", (2, 3, 23, 30), (1, 1)),         # PPM's bin 1 to CamVid's
+    ("resize", (2, 3, 22, 30), (90, 120)),      # a downscale
+    ("pool", (2, 5, 6, 6), (23, 30)),
+    ("pool", (2, 5, 1, 1), (32, 64)),
+    ("pool", (2, 5, 2, 3), (13, 17)),
+])
+def test_backward_kernels_match_plain(cuda, kind, g_shape, in_hw, dtype,
+                                      channels_last):
+    g = torch.from_numpy(np.random.RandomState(4).randn(*g_shape)).to(
+        cuda, dtype)
+    if channels_last:
+        g = g.contiguous(memory_format=torch.channels_last)
+    kernel, plain = ((K.resize_bilinear_bwd, K.resize_bilinear_bwd_ref)
+                     if kind == "resize"
+                     else (K.adaptive_pool_bwd, K.adaptive_pool_bwd_ref))
+    name = ("resize_bilinear_bwd" if kind == "resize"
+            else "adaptive_pool_bwd")
+    before = K.LAUNCHES[name]
+    got, again, want = kernel(g, in_hw), kernel(g, in_hw), plain(g, in_hw)
+    assert torch.equal(got, again)
+    assert got.dtype == dtype and got.shape == g_shape[:2] + in_hw
+    fmt = (torch.channels_last if channels_last and not g.is_contiguous()
+           else torch.contiguous_format)
+    assert got.is_contiguous(memory_format=fmt)
+    assert want.is_contiguous(memory_format=fmt)
+    if dtype == torch.bfloat16:
+        assert K.bf16_step_gap(got, want)[1] == 0
+    else:
+        tol = (1e-12 if dtype == torch.float64 else 1e-5) * max(
+            1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    if dtype == torch.float32 and kind == "resize":
+        lib = torch.ops.aten.upsample_bilinear2d_backward(
+            g, list(g_shape[2:]), list(g_shape[:2] + in_hw), False, None,
+            None)
+        assert float((got - lib).abs().max()) <= 1e-5 * max(
+            1.0, float(lib.abs().max()))
+    assert K.LAUNCHES[name] == before + 2
+
+
+def test_backward_kernels_route_a_train_step(cuda):
+    """resize_bilinear and adaptive_avg_pool2d on a CUDA tensor that needs
+    a gradient record K5's and K6's Functions; two backward passes give
+    the same bits."""
+    from esn_tpu_torch.ops import pooling as P
+    from esn_tpu_torch.ops import resize as R
+    x = torch.randn(2, 8, 32, 64, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    grads = []
+    for _ in range(2):
+        t = x.detach().clone().requires_grad_()
+        y = R.resize_bilinear(P.adaptive_avg_pool2d(t, 3), (32, 64))
+        z = R.resize_bilinear(t, (128, 256))
+        assert type(y.grad_fn).__name__ == "BilinearResizeBackward"
+        (y.square().sum() + z.square().sum()).backward()
+        grads.append(t.grad)
+    assert torch.equal(*grads)
+
+
+def test_backward_wrappers_raise_on_cuda(cuda):
+    g = torch.zeros(1, 2, 4, 4, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="dtype"):
+        K.resize_bilinear_bwd(g, (2, 2))
+    with pytest.raises(TypeError, match="dtype"):
+        K.adaptive_pool_bwd(g, (8, 8))
+
+
 # The band tiling at its edges (bands of 8 low-res rows, tiles of ~256/r
 # low-res columns), and C above 20, where logits are read from shared
 # memory rather than registers.
@@ -390,7 +467,8 @@ def test_fastscnn_train_step_on_cuda_matches_cpu(cuda):
     (_, want, none), (_, got, launched) = runs
     assert none == {k: 0 for k in none}
     assert launched == {"dsconv": 0, "resize_argmax": 0,
-                        "resize_ce_fwd": 1, "resize_ce_bwd": 1, "cgblock": 0}
+                        "resize_ce_fwd": 1, "resize_ce_bwd": 1, "cgblock": 0,
+                        "resize_bilinear_bwd": 5, "adaptive_pool_bwd": 4}
     assert abs(got - want) <= 1e-5 * abs(want)
     excess = {}
     for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
@@ -537,7 +615,8 @@ def test_cgnet_predict_on_cuda_matches_cpu(cuda):
     torch.cuda.synchronize()
     launched = {k: K.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"dsconv": 0, "resize_argmax": 1, "resize_ce_fwd": 0,
-                        "resize_ce_bwd": 0, "cgblock": 22}
+                        "resize_ce_bwd": 0, "cgblock": 22,
+                        "resize_bilinear_bwd": 0, "adaptive_pool_bwd": 0}
     assert got.shape == want.shape and got.dtype == torch.int32
     assert (got.cpu() != want).float().mean() <= 1e-4
 
@@ -684,7 +763,13 @@ def test_ce_ohem_train_step_on_cuda_matches_cpu(cuda, arch, hw, grad_rel):
             schedule=build_schedule("poly", lr, 100), fwd_method=None)
         losses.append(float(step({"image": images.to(dev),
                                   "label": labels.to(dev)})["loss"]))
-    assert K.LAUNCHES == before
+    # no K1-K4 (the loss takes the full logits); K5 and K6 for each
+    # upsample and adaptive pool back-propagated through on the card
+    k5, k6 = {"enet": (0, 0), "fastscnn": (6, 4)}[arch]
+    assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
+        "dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
+        "resize_ce_bwd": 0, "cgblock": 0, "resize_bilinear_bwd": k5,
+        "adaptive_pool_bwd": k6}
     want, got = losses
     assert abs(got - want) <= 1e-5 * abs(want)
     excess = {}
@@ -930,9 +1015,11 @@ def test_remat_step_on_cuda_matches_the_step_without(cuda, loss_name):
     without (dropout on, the same seed): the loss and the BN running
     statistics bit for bit (the first forward is the same, the recompute
     moves no statistic), the gradients of all parameters together within
-    4x the gap of a second step without remat plus 1e-6 (the backward of
-    bilinear upsampling and adaptive pooling adds with atomics); K3 once
-    forward and once backward with the weighted-CE loss either way."""
+    4x the gap of a second step without remat plus 1e-6 (K5 and K6 sum the
+    upsamples' and pools' backward in one order, but cuDNN's f32 weight
+    gradients differ run to run with its deterministic flag off); K3 once
+    forward and once backward with the weighted-CE loss either way, K5 5
+    (6 on the full logits) and K6 4 times."""
     import copy
     from functools import partial
     from esn_tpu_torch.train import losses as L
@@ -969,7 +1056,9 @@ def test_remat_step_on_cuda_matches_the_step_without(cuda, loss_name):
     k3 = 1 if loss_name == "ce" else 0
     assert launched_r == launched == {"dsconv": 0, "resize_argmax": 0,
                                       "resize_ce_fwd": k3,
-                                      "resize_ce_bwd": k3, "cgblock": 0}
+                                      "resize_ce_bwd": k3, "cgblock": 0,
+                                      "resize_bilinear_bwd": 6 - k3,
+                                      "adaptive_pool_bwd": 4}
     gap = float((g_r - g).norm() / g.norm())
     noise = float((g_again - g).norm() / g.norm())
     assert gap <= 4 * noise + 1e-6, (gap, noise)
