@@ -10,7 +10,9 @@ source as it is and, for each phase, a copy with that phase taken out
 ``esn_tpu_torch/build/phases/``), and times each build at the main path's
 shapes (K3 at z (8,128,256,19) r=8, K1 bf16 and f32 at y (8,128,256,19)
 r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and head.ds1, K4 bf16 at
-CGNet's stage2 and stage3) with CUDA events, in turns (all builds, then
+CGNet's stage2 and stage3, K5 and K6 at Fast-SCNN's config-5 train step:
+PPM's four upsamples, the fusion's x4 and the x8 full-resolution tail,
+PPM's four pools) with CUDA events, in turns (all builds, then
 all again in reverse order). A phase's cost is read as the full time less
 the time without it; phases that overlap do not add up. The copies
 compute wrong results and are used for nothing else. K4 is also timed
@@ -18,8 +20,12 @@ under other plans than its planner's (``CGBLOCK_PLANS``: strip width, rows
 a step, x buffers, rows a unit), which compute the same result. Each edit
 must occur exactly once in its source (``edit``), so an edit of a kernel
 that moves or repeats a phase makes this script fail rather than time
-something else. Exits
-non-zero without a CUDA device.
+something else. K5 and K6 are timed through their Python wrappers with
+each build loaded in turn as the kernel library, and PPM's forward and
+backward at config 5 is read under ``torch.profiler`` (the device time of
+each kernel, K5's and K6's among them). Names given on the command line
+(``resize_bilinear_bwd adaptive_pool_bwd ppm`` ...) run only those
+kernels. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,6 +36,16 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / "esn_tpu_torch" / "build" / "phases"
+
+# the 32-bit unravel that the K5/K6 "index" phases put in place of the
+# 64-bit one
+UNRAVEL32 = ("    const esn::Element e = [&] {\n"
+             "      int i = (int)idx;\n"
+             "      esn::Element r;\n"
+             "      if (cl) { r.ch = i % c; i /= c; r.x = i % w; i /= w; r.y = i % h; r.b = i / h; }\n"
+             "      else { r.x = i % w; i /= w; r.y = i % h; i /= h; r.ch = i % c; r.b = i / c; }\n"
+             "      return r;\n"
+             "    }();\n")
 
 # kernel -> (its source, {phase: [(text in the source, its replacement)]})
 PHASES = {
@@ -94,6 +110,37 @@ PHASES = {
         "stores": [("      if (a.jvec) {  // both", "      if (a.jvec && jl[0] != 123.25f) {\n"
                     "      } else if (a.jvec) {  // both")],
     }),
+    # K5 and K6 as PR 17 designed them (a thread per input element)
+    "resize_bilinear_bwd": ("resize_bilinear_bwd.cu", {
+        # the 64-bit unravel of the element's index done in 32 bits
+        "index": [("    const esn::Element e = esn::unravel(idx, c, h, w, cl);\n",
+                   UNRAVEL32)],
+        # the inverse map's estimate kept, its corrections dropped
+        "search": [("    while (d > 0 && first_tap(d - 1) >= t) --d;\n"
+                    "    while (d < n_out && first_tap(d) < t) ++d;\n", "")],
+        # each term's taps (a multiply-add, a clamp, a conversion, compares)
+        "taps": [("    taps(d, i0, i1, l0, l1);\n"
+                  "    return (i0 == i ? l0 : (A)0) + (i1 == i ? l1 : (A)0);",
+                  "    i0 = (int)((A)d * scale);\n    return (A)0.5;")],
+        "loads": [("row += ww * esn::load_acc(g + esn::offset(e.b, e.ch, d, q, c, ho, wo, cl));",
+                   "row += ww * (A)(d ^ q);")],
+        "store": [("    esn::store_acc(gx + idx, acc);",
+                   "    if (acc == (A)123.25) esn::store_acc(gx + idx, acc);")],
+    }),
+    "adaptive_pool_bwd": ("adaptive_pool_bwd.cu", {
+        "index": [("    const esn::Element e = esn::unravel(idx, c, h, w, cl);\n",
+                   UNRAVEL32)],
+        # the bins' edges in 32-bit arithmetic
+        "bins": [("  return (int)(((int64_t)a * len) / n);", "  return a * len / n;"),
+                 ("  return (int)(((int64_t)(a + 1) * len + n - 1) / n);",
+                  "  return ((a + 1) * len + n - 1) / n;"),
+                 ("  int a = (int)(((int64_t)i * n) / len);", "  int a = i * n / len;")],
+        "divisions": [("cl)) / (A)kh / (A)kw;", "cl));")],
+        "loads": [("esn::load_acc(g + esn::offset(e.b, e.ch, a, b, c, oh, ow, cl)) / (A)kh / (A)kw",
+                   "(A)(a + b) / (A)kh / (A)kw")],
+        "store": [("    esn::store_acc(gx + idx, acc);",
+                   "    if (acc == (A)123.25) esn::store_acc(gx + idx, acc);")],
+    }),
 }
 
 # K4's shapes in CGNet predict at batch 8, and the plans timed beside the
@@ -116,8 +163,9 @@ def edit(text: str, edits, what: str) -> str:
     return text
 
 
-def build_all():
-    """{(kernel, phase or "full"): loaded library}; one full build a source."""
+def build_all(kernels=None):
+    """{(kernel, phase or "full"): loaded library} for ``kernels`` (all of
+    ``PHASES`` if None); one full build a source."""
     from esn_tpu_torch.ops.kernels import _build
     OUT.mkdir(parents=True, exist_ok=True)
     jobs, texts = {}, {}
@@ -131,6 +179,8 @@ def build_all():
                                            stderr=subprocess.STDOUT, text=True))
     builds = {}
     for kernel, (src, phases) in PHASES.items():
+        if kernels is not None and kernel not in kernels:
+            continue
         if src not in texts:
             texts[src] = (_build.SRC_DIR / src).read_text()
             start(Path(src).stem, texts[src])
@@ -176,17 +226,23 @@ def report(label: str, times: dict) -> None:
             print(f"  without {phase:12s} {t:.4f} ms   (phase ~{full - t:+.4f} ms)")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
     from esn_tpu_torch.ops.kernels import _build
+    names = set(argv) or set(PHASES) | {"ppm"}
+    unknown = names - set(PHASES) - {"ppm"}
+    if unknown:
+        print(f"kernel_phases: unknown {sorted(unknown)}; known: "
+              f"{sorted(PHASES)} and ppm", file=sys.stderr)
+        return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
-    libs = build_all()
+    libs = build_all(names)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -198,6 +254,13 @@ def main() -> int:
 
     def of(kernel):
         return {phase: lib for (k, phase), lib in libs.items() if k == kernel}
+
+    bwd_phases(torch, libs, names, gen)
+    if "ppm" in names:
+        ppm_profile(torch)
+    if not names & {"resize_ce_fwd", "resize_ce_bwd", "resize_argmax",
+                    "dsconv", "cgblock"}:
+        return 0
 
     # K3 forward and backward at the train step's shape
     b, h, w, c, r = 8, 128, 256, 19, 8
@@ -296,10 +359,89 @@ def main() -> int:
     return 0
 
 
+# K5's and K6's shapes in Fast-SCNN's config-5 train step (batch 8,
+# 1024x2048): (label, kind, output-gradient shape, input (H, W), dtype)
+BWD_SHAPES = (
+    *((f"ppm upsample {b}", "resize", (8, 32, 32, 64), (b, b), "bfloat16")
+      for b in (1, 2, 3, 6)),
+    ("fusion x4", "resize", (8, 128, 128, 256), (32, 64), "bfloat16"),
+    ("tail x8", "resize", (8, 19, 1024, 2048), (128, 256), "float32"),
+    *((f"ppm pool {b}", "pool", (8, 128, b, b), (32, 64), "float32")
+      for b in (1, 2, 3, 6)))
+
+
+def bwd_phases(torch, libs, names, gen) -> None:
+    """K5 and K6 at BWD_SHAPES (channels_last), each build of their
+    sources loaded in turn as the library the wrappers call."""
+    from esn_tpu_torch.ops import kernels as K
+    from esn_tpu_torch.ops.kernels import _build
+    kinds = {"resize": "resize_bilinear_bwd", "pool": "adaptive_pool_bwd"}
+    for label, kind, g_shape, in_hw, dtype in BWD_SHAPES:
+        kernel = kinds[kind]
+        if kernel not in names:
+            continue
+        g = torch.randn(g_shape, generator=gen, device="cuda").to(
+            getattr(torch, dtype)).contiguous(memory_format=torch.channels_last)
+        fn = getattr(K, kernel)
+        calls = {}
+        for (k, phase), lib in libs.items():
+            if k != kernel:
+                continue
+            for name, (argtypes, restype) in _build.SIGNATURES.items():
+                if hasattr(lib, name):
+                    entry = getattr(lib, name)
+                    entry.argtypes, entry.restype = argtypes, restype
+
+            def call(lib=lib):
+                _build._LIB = lib
+                fn(g, in_hw)
+            calls[phase] = call
+        report(f"{kernel} {dtype} {label} g {g_shape} -> {in_hw}",
+               in_turns(torch, calls))
+    _build._LIB = None
+
+
+def ppm_profile(torch) -> None:
+    """PPM (Fast-SCNN's: 128 channels, bins 1, 2, 3, 6) forward and
+    backward at config 5's 1/32 map, (8, 128, 32, 64) bf16 channels_last,
+    under ``torch.profiler``: the device time of each kernel a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from esn_tpu_torch.models.blocks import PyramidPooling
+    torch.manual_seed(0)
+    ppm = PyramidPooling(128).cuda().train()
+    x = torch.randn((8, 128, 32, 64), device="cuda").to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last).requires_grad_()
+
+    def step():
+        y = ppm(x)
+        y.backward(torch.ones_like(y))
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        if dev > 0:
+            rows.append((dev / steps / 1e3, ev.count // steps, ev.key))
+    rows.sort(reverse=True)
+    print(f"ppm forward+backward (8,128,32,64) bf16 channels_last: device "
+          f"ms a step by kernel ({steps} steps), total "
+          f"{sum(r[0] for r in rows):.4f} ms")
+    for ms, count, key in rows[:30]:
+        print(f"  {ms:9.4f} ms  x{count:<3d} {key[:100]}")
+
+
 def _check(err: int) -> None:
     if err != 0:
         raise RuntimeError(f"launch failed: CUDA error {err}")
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
