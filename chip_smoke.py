@@ -1253,13 +1253,14 @@ def resize_ce_phase(torch, K):
 
 
 def bwd_case(K, torch, gen, kind, g_shape, in_hw, dtype, timed=False,
-             channels_last=True):
+             channels_last=True, scales=None):
     """K5 (``kind`` "resize") or K6 ("pool") on an output gradient of
-    ``g_shape`` for an input of ``in_hw``: against its plain version (f32
-    within BWD_F32_REL of the largest |gradient|, bf16 within one bf16
-    step), against torch's own CUDA backward (the library call, f32 within
-    the same bound), two launches bit for bit; timed: the times of the
-    kernel, the plain version and the library call (CUDA events), and the
+    ``g_shape`` for an input of ``in_hw`` (K5 by the scale factors
+    ``scales`` if given): against its plain version (f32 within
+    BWD_F32_REL of the largest |gradient|, bf16 within one bf16 step),
+    against torch's own CUDA backward (the library call, f32 within the
+    same bound), two launches bit for bit; timed: the times of the kernel,
+    the plain version and the library call (CUDA events), and the
     bound."""
     n, c, ho, wo = g_shape
     h, w = in_hw
@@ -1270,14 +1271,15 @@ def bwd_case(K, torch, gen, kind, g_shape, in_hw, dtype, timed=False,
            else torch.contiguous_format)
     if kind == "resize":
         def run():
-            return K.resize_bilinear_bwd(g, in_hw)
+            return K.resize_bilinear_bwd(g, in_hw, scales)
 
         def plain():
-            return K.resize_bilinear_bwd_ref(g, in_hw)
+            return K.resize_bilinear_bwd_ref(g, in_hw, scales)
 
         def library():
             return torch.ops.aten.upsample_bilinear2d_backward(
-                g, [ho, wo], [n, c, h, w], False, None, None)
+                g, [ho, wo], [n, c, h, w], False,
+                *(scales if scales is not None else (None, None)))
         f32_ops = 4 * g.numel() + 4 * n * c * ho * w
     else:
         x = torch.empty((n, c, h, w), dtype=dtype, device="cuda",
@@ -1302,7 +1304,7 @@ def bwd_case(K, torch, gen, kind, g_shape, in_hw, dtype, timed=False,
     err = float((got.float() - ref.float()).abs().max())
     lib_err = float((got.float() - lib.float()).abs().max())
     row = {"kind": kind, "g_shape": list(g_shape), "in_hw": list(in_hw),
-           "dtype": str(dtype).split(".")[-1],
+           "scales": scales, "dtype": str(dtype).split(".")[-1],
            "channels_last": fmt == torch.channels_last,
            "max_abs_err": err, "library_max_abs_err": lib_err,
            "bit_identical": bool(torch.equal(got, again))}
@@ -1332,6 +1334,39 @@ def resize_map_equal(K, torch, F, n_in, n_out):
     g = torch.eye(n_out, device="cuda").reshape(n_out, 1, n_out, 1)
     bwd = K.resize_bilinear_bwd(g, (n_in, 1)).reshape(n_out, n_in)
     return bool(torch.equal(fwd, bwd.t()))
+
+
+def bwd_routes_equal(K, torch, gen, g_shape, in_hw, scales, dtype):
+    """K5's streaming and fan-in routes on the same g give the same bits
+    (each element's order depends on its terms alone)."""
+    RB = sys.modules["esn_tpu_torch.ops.kernels.resize_bilinear_bwd"]
+    g = torch.randn(g_shape, generator=gen, device="cuda").to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    out = []
+    for route in (RB.STREAM, RB.FANIN):
+        gx = torch.empty(g_shape[:2] + tuple(in_hw), dtype=dtype,
+                         device="cuda", memory_format=torch.channels_last)
+        RB._launch(g, gx, RB._call(tuple(g_shape), tuple(in_hw), dtype,
+                                   True, scales, g.get_device(), route))
+        out.append(gx)
+    return bool(torch.equal(*out))
+
+
+def bwd_window_equal(K, torch, gen, ratio, dtype):
+    """K5 on a window of input rows [lo, hi) by the whole tensor's scale
+    factors, on the output-gradient rows that the window's resize makes
+    (as ops/resize.py's sharded backward forms it), gives the whole
+    tensor's bits on every row whose run lies inside the window."""
+    n, c, h, w, lo, hi = 2, 16, 64, 64, 21, 31
+    scales = (float(ratio), float(ratio))
+    g = torch.randn((n, c, h * ratio, w * ratio), generator=gen,
+                    device="cuda").to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    win = g[:, :, lo * ratio:hi * ratio].contiguous(
+        memory_format=torch.channels_last)
+    whole = K.resize_bilinear_bwd(g, (h, w), scales)
+    part = K.resize_bilinear_bwd(win, (hi - lo, w), scales)
+    return bool(torch.equal(part[:, :, 1:-1], whole[:, :, lo + 1:hi - 1]))
 
 
 # K5's and K6's shapes: Fast-SCNN-19's train step at config 5 (b8,
@@ -1383,6 +1418,38 @@ def bwd_phase(torch, F, K):
         rows.append({**bwd_case(K, torch, gen, "pool", (2, 5, 2, 3),
                                 (13, 17), dtype, channels_last=False),
                      "layer": "odd", "main": False})
+    # K5's route edges (untimed): fan-in runs longer than its 32 lanes;
+    # the streaming threshold (2^16 input elements) from below and above;
+    # streaming bands cut at odd sizes with 19 f32 channels (pixels of 76
+    # bytes, rows off 16-byte boundaries); the ratio route streaming; a
+    # downscale streaming
+    for layer, g_shape, in_hw, scales, dtype in (
+            ("edge fan-in run 70", (2, 3, 70, 40), (1, 1), None,
+             torch.bfloat16),
+            ("edge fan-in 64512 inputs", (2, 8, 126, 128), (63, 64), None,
+             torch.float32),
+            ("edge streaming 65536 inputs", (2, 8, 128, 128), (64, 64),
+             None, torch.float32),
+            ("edge odd bands c19", (2, 19, 296, 360), (37, 45), None,
+             torch.float32),
+            ("edge ratio streaming", (2, 40, 132, 96), (33, 48), (4.0, 2.0),
+             torch.bfloat16),
+            ("edge downscale streaming", (2, 64, 22, 30), (90, 120), None,
+             torch.float32)):
+        rows.append({**bwd_case(K, torch, gen, "resize", g_shape, in_hw,
+                                dtype, scales=scales),
+                     "layer": layer, "main": False})
+    routes = {f"{g_shape}->{in_hw} {str(dtype).split('.')[-1]}":
+              bwd_routes_equal(K, torch, gen, g_shape, in_hw, scales, dtype)
+              for g_shape, in_hw, scales, dtype in (
+                  ((BATCH, 32, 32, 64), (1, 1), None, torch.bfloat16),
+                  ((BATCH, 32, 32, 64), (6, 6), None, torch.bfloat16),
+                  ((2, 128, 128, 256), (32, 64), None, torch.bfloat16),
+                  ((1, CLASSES, 256, 512), (32, 64), None, torch.float32),
+                  ((2, 64, 22, 30), (90, 120), None, torch.float32))}
+    windows = {f"x{r} {str(dtype).split('.')[-1]}":
+               bwd_window_equal(K, torch, gen, r, dtype)
+               for r in (2, 4, 8) for dtype in (torch.bfloat16, torch.float32)}
     axes = sorted({(b, n) for n in (32, 64, 23, 30) for b in PPM_BINS}
                   | {(32, 128), (64, 256), (23, 90), (30, 120),
                      (128, 1024), (256, 2048), (13, 29), (17, 11)})
@@ -1392,13 +1459,19 @@ def bwd_phase(torch, F, K):
         print("kernel", json.dumps(row))
     print("resize_bilinear_bwd: the forward's map, transposed bit for bit",
           json.dumps(maps))
+    print("resize_bilinear_bwd: the two routes, bit for bit", json.dumps(routes))
+    print("resize_bilinear_bwd: a window of rows against the whole, bit for "
+          "bit", json.dumps(windows))
     check(all(r["within_tol"] for r in rows),
           f"K5/K6 outside tolerance: {[r for r in rows if not r['within_tol']]}")
     check(all(r["bit_identical"] for r in rows),
           "K5/K6: two launches differ")
     check(all(maps.values()), f"K5 is not the forward's map transposed: "
           f"{maps}")
-    return {"rows": rows, "maps": maps}
+    check(all(routes.values()), f"K5's routes differ: {routes}")
+    check(all(windows.values()), f"K5 on a window differs from the whole: "
+          f"{windows}")
+    return {"rows": rows, "maps": maps, "routes": routes, "windows": windows}
 
 
 def smooth_images(torch, F, gen, n, hw):

@@ -1,12 +1,18 @@
 // Shared pieces of the two fixed-order backward kernels,
-// resize_bilinear_bwd.cu and adaptive_pool_bwd.cu.
+// resize_bilinear_bwd.cu (K5) and adaptive_pool_bwd.cu (K6).
 //
-// Both compute an input gradient in gather form: one thread per element of
-// the input gradient, which sums the output-gradient terms that read its
-// element in an order fixed by the loops, in f32 (f64 for an f64 tensor),
-// and stores once. No float atomics, so two launches on the same inputs
-// give the same bits. Both take NCHW or NHWC (channels_last) memory; the
+// Both compute an input gradient in gather form: each element of the
+// input gradient sums the output-gradient terms that read its element in
+// an order fixed by the shapes, in f32 (f64 for an f64 tensor), and is
+// stored once. No float atomics, so two launches on the same inputs give
+// the same bits. Both take NCHW or NHWC (channels_last) memory; the
 // gradient they write has the memory format of the gradient they read.
+//
+// Both see a tensor as lines of pixels: in NHWC a pixel holds the c
+// values of its channels, one image is a plane; in NCHW a pixel holds one
+// value, one (image, channel) is a plane. Element (plane p, row y, column
+// x, value v) of a plane of rows x cols pixels of `vals` values lies at
+// ((p rows + y) cols + x) vals + v either way.
 #pragma once
 
 #include "common.cuh"
@@ -31,45 +37,30 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* p, float v) {
 }
 __device__ __forceinline__ void store_acc(double* p, double v) { *p = v; }
 
-// the offset of element (b, ch, y, x) of an (n, c, h, w) tensor, NCHW or
-// (cl) NHWC in memory
-__device__ __forceinline__ int64_t offset(int b, int ch, int y, int x, int c, int h,
-                                          int w, bool cl) {
-  return cl ? (((int64_t)b * h + y) * w + x) * c + ch
-            : (((int64_t)b * c + ch) * h + y) * w + x;
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
 }
 
-// (b, ch, y, x) of the element at `idx` in memory order
-struct Element {
-  int b, ch, y, x;
-};
-__device__ __forceinline__ Element unravel(int64_t idx, int c, int h, int w, bool cl) {
-  Element e;
-  if (cl) {
-    e.ch = (int)(idx % c);
-    idx /= c;
-    e.x = (int)(idx % w);
-    idx /= w;
-    e.y = (int)(idx % h);
-    e.b = (int)(idx / h);
-  } else {
-    e.x = (int)(idx % w);
-    idx /= w;
-    e.y = (int)(idx % h);
-    idx /= h;
-    e.ch = (int)(idx % c);
-    e.b = (int)(idx / c);
+// the offset of pixel (p, y, x), value 0, of planes of rows x cols pixels
+// of `vals` values
+__device__ __forceinline__ int64_t pixel_offset(int p, int y, int x, int rows, int cols,
+                                                int vals) {
+  return (((int64_t)p * rows + y) * cols + x) * vals;
+}
+
+// Let a kernel take `bytes` of dynamic shared memory (above 48 KB it must
+// ask); once per kernel and size.
+template <typename K>
+inline int allow_smem(K kernel, int bytes, int& allowed) {
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024 && bytes > allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed = bytes;
   }
-  return e;
-}
-
-constexpr int kGatherThreads = 256;
-
-// blocks of a grid-stride loop over `total` elements: at most 32 a
-// streaming multiprocessor of an H100 (132 of them)
-inline int gather_blocks(int64_t total) {
-  const int64_t blocks = (total + kGatherThreads - 1) / kGatherThreads;
-  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);
+  return 0;
 }
 
 }  // namespace esn

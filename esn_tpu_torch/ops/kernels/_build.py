@@ -111,9 +111,8 @@ SIGNATURES = {
     "esn_cgblock_pre_tiles": ([_I32] * 6, _I32),
     "esn_cgblock_pre_tune": ([_I32] * 4, None),
     "esn_cgblock_pre": ([_VP] * 13 + [_I32] * 7 + [_VP], _I32),
-    "esn_resize_bilinear_bwd": ([_VP, _VP] + [_I32] * 7 + [_VP, _I32, _VP],
-                                _I32),
-    "esn_adaptive_pool_bwd": ([_VP, _VP] + [_I32] * 8 + [_VP], _I32),
+    "esn_resize_bilinear_bwd": ([_VP] * 4, _I32),
+    "esn_adaptive_pool_bwd": ([_VP] * 4, _I32),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -129,6 +128,16 @@ def library() -> ctypes.CDLL:
             fn.argtypes, fn.restype = argtypes, restype
         _LIB = lib
     return _LIB
+
+
+def stream(index: int) -> int:
+    """The raw current CUDA stream of card ``index`` (a launch's last
+    argument), by the cheapest call this torch has."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -10,11 +10,17 @@ f64), rounded once to g's dtype. ``ops.pooling`` sends every
 differentiated adaptive pool of a CUDA tensor through it; a CPU tensor
 keeps torch's own backward. :func:`adaptive_pool_bwd_ref` is the plain
 version.
+
+The kernel reads the bins from tables built here (:func:`pool_tables`:
+the first bin and the count of bins that hold each index, and each bin's
+size), kept on the card once per shape, and follows a plan made here from
+the shapes alone (:func:`pool_plan`); neither moves the order of a sum.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +35,88 @@ def pool_bins(length: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
     ``[floor(a L / n), ceil((a + 1) L / n))``."""
     a = np.arange(n, dtype=np.int64)
     return (a * length) // n, -((-(a + 1) * length) // n)
+
+
+def pool_tables(length: int, n: int) -> np.ndarray:
+    """What the kernel reads of one axis (int32): the first bin that holds
+    each of the ``length`` indices, the count of bins that hold it (they
+    follow the first), and each bin's size."""
+    start, end = pool_bins(length, n)
+    holds = _membership(length, n) > 0
+    return np.concatenate([holds.argmax(axis=0), holds.sum(axis=0),
+                           end - start]).astype(np.int32)
+
+
+class PoolPlan(NamedTuple):
+    """What :func:`pool_plan` hands the kernel, in this order: a block
+    owns one image's input row, ``xb`` columns and ``cb`` channels;
+    ``vec`` channels a thread (16 bytes, channels_last) or 1; ``nbb``, the
+    most bins of columns a block holds; ``smem`` bytes of bin values."""
+    xb: int
+    cb: int
+    vec: int
+    nbb: int
+    smem: int
+
+
+SMEM_BUDGET = 48 * 1024
+
+
+def pool_plan(c: int, w: int, channels_last: bool, itemsize: int,
+              acc_itemsize: int, tables_h: np.ndarray, tables_w: np.ndarray,
+              h: int) -> PoolPlan:
+    """The kernel's tiling, from the shapes and tables alone: all columns
+    and channels of a row where their bin values fit SMEM_BUDGET, else
+    fewer channels, then fewer columns."""
+    na = int(tables_h[h:2 * h].max())
+    first, count = tables_w[:w], tables_w[w:2 * w]
+    per = 16 // itemsize
+    vec = per if channels_last and c % per == 0 else 1
+
+    def nbb(xb):
+        xa = np.arange(0, w, xb)
+        xe = np.minimum(xa + xb, w) - 1
+        return int((first[xe] + count[xe] - first[xa]).max())
+
+    xb, cb = w, c
+    while na * nbb(xb) * cb * acc_itemsize > SMEM_BUDGET:
+        if cb > vec:
+            cb = max(vec, cb // 2 // vec * vec)
+        elif xb > 1:
+            xb = (xb + 1) // 2
+        else:
+            raise ValueError("adaptive_pool_bwd: a bin's values do not fit "
+                             "a block's shared memory")
+    return PoolPlan(xb, cb, vec, nbb(xb), na * nbb(xb) * cb * acc_itemsize)
+
+
+_tables = functools.lru_cache(maxsize=64)(pool_tables)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(length: int, n: int, device: str) -> torch.Tensor:
+    """:func:`pool_tables` on the card, copied there once per shape."""
+    return torch.from_numpy(_tables(length, n)).to(device)
+
+
+@functools.lru_cache(maxsize=256)
+def _desc(n, c, h, w, oh, ow, channels_last, dtype, device: int) -> tuple:
+    """The descriptor the C function reads for one shape on card
+    ``device`` (int64: dtype code, n, c, h, w, oh, ow, channels_last, the
+    two tables' pointers, the plan's ints), its address, the tables it
+    points into, kept alive here, and gx's strides."""
+    plan = pool_plan(c, w, channels_last,
+                     torch.empty((), dtype=dtype).element_size(),
+                     torch.empty((), dtype=_acc(dtype)).element_size(),
+                     _tables(h, oh), _tables(w, ow), h)
+    th = _device_tables(h, oh, f"cuda:{device}")
+    tw = _device_tables(w, ow, f"cuda:{device}")
+    fields = (_DTYPE_CODES[dtype], n, c, h, w, oh, ow, int(channels_last),
+              th.data_ptr(), tw.data_ptr(), *plan)
+    desc = (ctypes.c_int64 * len(fields))(*fields)
+    strides = (c * h * w, 1, w * c, c) if channels_last else (
+        c * h * w, h * w, w, 1)
+    return desc, ctypes.addressof(desc), (th, tw), strides
 
 
 def _membership(length: int, n: int) -> np.ndarray:
@@ -65,28 +153,30 @@ def adaptive_pool_bwd(g: torch.Tensor, in_hw: Tuple[int, int]
     if g.ndim != 4 or len(in_hw) != 2:
         raise ValueError(f"adaptive_pool_bwd: g {tuple(g.shape)}, in_hw "
                          f"{tuple(in_hw)}")
-    if g.device.type == "cpu":
+    if g.is_cpu:
         return adaptive_pool_bwd_ref(g, in_hw)
-    if g.device.type != "cuda":
+    if not g.is_cuda:
         raise ValueError(f"adaptive_pool_bwd: no kernel for device "
                          f"{g.device}")
     if g.dtype not in _DTYPE_CODES:
         raise TypeError(f"adaptive_pool_bwd: dtype {g.dtype} not supported "
                         f"(float32, bfloat16, float64)")
-    if not (g.is_contiguous() or _channels_last(g)):
+    cl = _channels_last(g)
+    if not (cl or g.is_contiguous()):
         g = g.contiguous()
     n, c, oh, ow = g.shape
     h, w = int(in_hw[0]), int(in_hw[1])
-    gx = torch.empty((n, c, h, w), dtype=g.dtype, device=g.device,
-                     memory_format=_format(g))
-    if gx.numel() == 0:
-        return gx
-    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if n * c * h * w == 0:
+        return torch.empty((n, c, h, w), dtype=g.dtype, device=g.device,
+                           memory_format=torch.channels_last if cl
+                           else torch.contiguous_format)
+    device = g.get_device()
+    _, address, _, strides = _desc(n, c, h, w, oh, ow, cl, g.dtype, device)
+    gx = g.new_empty_strided((n, c, h, w), strides)
     err = _build.library().esn_adaptive_pool_bwd(
-        ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(gx.data_ptr()),
-        _DTYPE_CODES[g.dtype], n, c, h, w, oh, ow, int(_channels_last(g)),
-        ctypes.c_void_p(stream))
-    _build.check(err, "adaptive_pool_bwd")
+        g.data_ptr(), gx.data_ptr(), address, _build.stream(device))
+    if err:
+        _build.check(err, "adaptive_pool_bwd")
     LAUNCHES["adaptive_pool_bwd"] += 1
     return gx
 

@@ -32,20 +32,11 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / "esn_tpu_torch" / "build" / "phases"
-
-# the 32-bit unravel that the K5/K6 "index" phases put in place of the
-# 64-bit one
-UNRAVEL32 = ("    const esn::Element e = [&] {\n"
-             "      int i = (int)idx;\n"
-             "      esn::Element r;\n"
-             "      if (cl) { r.ch = i % c; i /= c; r.x = i % w; i /= w; r.y = i % h; r.b = i / h; }\n"
-             "      else { r.x = i % w; i /= w; r.y = i % h; i /= h; r.ch = i % c; r.b = i / c; }\n"
-             "      return r;\n"
-             "    }();\n")
 
 # kernel -> (its source, {phase: [(text in the source, its replacement)]})
 PHASES = {
@@ -110,36 +101,39 @@ PHASES = {
         "stores": [("      if (a.jvec) {  // both", "      if (a.jvec && jl[0] != 123.25f) {\n"
                     "      } else if (a.jvec) {  // both")],
     }),
-    # K5 and K6 as PR 17 designed them (a thread per input element)
+    # K5 and K6 (the gather design of PR 17 read "index", "search", "taps",
+    # "loads", "store"; PERF.md keeps those readings)
     "resize_bilinear_bwd": ("resize_bilinear_bwd.cu", {
-        # the 64-bit unravel of the element's index done in 32 bits
-        "index": [("    const esn::Element e = esn::unravel(idx, c, h, w, cl);\n",
-                   UNRAVEL32)],
-        # the inverse map's estimate kept, its corrections dropped
-        "search": [("    while (d > 0 && first_tap(d - 1) >= t) --d;\n"
-                    "    while (d < n_out && first_tap(d) < t) ++d;\n", "")],
-        # each term's taps (a multiply-add, a clamp, a conversion, compares)
-        "taps": [("    taps(d, i0, i1, l0, l1);\n"
-                  "    return (i0 == i ? l0 : (A)0) + (i1 == i ? l1 : (A)0);",
-                  "    i0 = (int)((A)d * scale);\n    return (A)0.5;")],
-        "loads": [("row += ww * esn::load_acc(g + esn::offset(e.b, e.ch, d, q, c, ho, wo, cl));",
-                   "row += ww * (A)(d ^ q);")],
-        "store": [("    esn::store_acc(gx + idx, acc);",
-                   "    if (acc == (A)123.25) esn::store_acc(gx + idx, acc);")],
+        # streaming: no read of g from device memory (the stages zero-filled)
+        "staging": [("cp_async16_upto(dst + 16 * k, src + 16 * k, left < 16 ? (int)left : 16);",
+                     "cp_async16_upto(dst + 16 * k, src + 16 * k, 0);")],
+        # streaming: the row sums from shared memory (one read kept)
+        "rows": [("        for (int t = 0; t < len[m]; ++t)\n"
+                  "          r = esn::fma_rn(wj[t], esn::load_acc(src + t * vals), r);",
+                  "        r = wj[0] * esn::load_acc(src);")],
+        # streaming: the fold of row sums into the two open input rows
+        "fold": [("        if (use0) acc0[m] = esn::fma_rn(wh0, r, acc0[m]);\n"
+                  "        if (use1) acc1[m] = esn::fma_rn(wh1, r, acc1[m]);",
+                  "        acc0[m] += r;")],
+        "store": [("      if (it < items) esn::store_acc(gx + out0 + y * out_row + it, acc0[m]);",
+                   "      if (it < items && acc0[m] == (A)123.25)\n"
+                   "        esn::store_acc(gx + out0 + y * out_row + it, acc0[m]);")],
+        # fan-in: the lanes' reads of g (from L2 or device memory)
+        "fanin_loads": [("r = esn::fma_rn(ww[t], esn::load_acc(s + t * vals), r);",
+                         "r = esn::fma_rn(ww[t], (A)t, r);")],
+        # fan-in: lane 0's fold of the row sums, with each row's weight
+        "fanin_fold": [("acc = esn::fma_rn(ah.weight(d0 + m0 + k, y), rows[l * pl.lanes + k], acc);",
+                        "acc += rows[l * pl.lanes + k];")],
     }),
     "adaptive_pool_bwd": ("adaptive_pool_bwd.cu", {
-        "index": [("    const esn::Element e = esn::unravel(idx, c, h, w, cl);\n",
-                   UNRAVEL32)],
-        # the bins' edges in 32-bit arithmetic
-        "bins": [("  return (int)(((int64_t)a * len) / n);", "  return a * len / n;"),
-                 ("  return (int)(((int64_t)(a + 1) * len + n - 1) / n);",
-                  "  return ((a + 1) * len + n - 1) / n;"),
-                 ("  int a = (int)(((int64_t)i * n) / len);", "  int a = i * n / len;")],
-        "divisions": [("cl)) / (A)kh / (A)kw;", "cl));")],
-        "loads": [("esn::load_acc(g + esn::offset(e.b, e.ch, a, b, c, oh, ow, cl)) / (A)kh / (A)kw",
-                   "(A)(a + b) / (A)kh / (A)kw")],
-        "store": [("    esn::store_acc(gx + idx, acc);",
-                   "    if (acc == (A)123.25) esn::store_acc(gx + idx, acc);")],
+        # the two divisions of each bin value
+        "divisions": [("    v[k] = esn::load_acc(g + at) / (A)bh.size(a0 + a) / (A)bw.size(b0 + b);",
+                       "    v[k] = esn::load_acc(g + at);")],
+        "loads": [("    v[k] = esn::load_acc(g + at) / (A)bh.size(a0 + a) / (A)bw.size(b0 + b);",
+                   "    v[k] = (A)at / (A)bh.size(a0 + a) / (A)bw.size(b0 + b);")],
+        # the channels_last 16-byte stores
+        "store": [("        store16(gx + out0 + xl * c + ch, acc);",
+                   "        if (acc[0] == (A)123.25) store16(gx + out0 + xl * c + ch, acc);")],
     }),
 }
 
@@ -398,6 +392,17 @@ def bwd_phases(torch, libs, names, gen) -> None:
             calls[phase] = call
         report(f"{kernel} {dtype} {label} g {g_shape} -> {in_hw}",
                in_turns(torch, calls))
+        # the wrapper's own time a call on the host: launches queued
+        # without a wait, so a loop of launches runs at the larger of
+        # this and the kernel's time
+        calls["full"]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            calls["full"]()
+        host = (time.perf_counter() - t0) / 100 * 1e3
+        torch.cuda.synchronize()
+        print(f"  host a call          {host:.4f} ms")
     _build._LIB = None
 
 
@@ -426,13 +431,16 @@ def ppm_profile(torch) -> None:
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
+        # the kernels' own rows (an op's row repeats its kernels' time)
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         dev = getattr(ev, "self_device_time_total",
                       getattr(ev, "self_cuda_time_total", 0))
         if dev > 0:
             rows.append((dev / steps / 1e3, ev.count // steps, ev.key))
     rows.sort(reverse=True)
     print(f"ppm forward+backward (8,128,32,64) bf16 channels_last: device "
-          f"ms a step by kernel ({steps} steps), total "
+          f"ms a step by kernel ({steps} steps), all kernels "
           f"{sum(r[0] for r in rows):.4f} ms")
     for ms, count, key in rows[:30]:
         print(f"  {ms:9.4f} ms  x{count:<3d} {key[:100]}")

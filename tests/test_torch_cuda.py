@@ -9,6 +9,8 @@ there:
 
 The same checks at the main path's full shapes are ``chip_smoke.py``.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -130,32 +132,54 @@ def test_dsconv_wrapper_raises_on_cuda(cuda):
 # K5 and K6, the fixed-order backward of the bilinear resize and of the
 # adaptive pool, against their plain versions (f32 within 1e-5 of the
 # largest |gradient|, bf16 within one bf16 step) and torch's own backward
-# (f32), NCHW and channels_last; two launches bit for bit.
+# (f32), NCHW and channels_last; two launches bit for bit. K5's cases
+# reach both of its routes and their edges: the fan-in route (fewer than
+# 2^16 input elements) and the streaming route just above and below that
+# threshold, runs longer than the fan-in's 32 lanes, PPM's bin 1 to
+# config 5's and CamVid's maps, streaming bands cut at odd sizes, the
+# ratio route (scale factors), downscales on both routes, and 19
+# channels of f32 (76-byte pixels, so rows that start off a 16-byte
+# boundary).
 @pytest.mark.parametrize("channels_last", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64])
-@pytest.mark.parametrize("kind, g_shape, in_hw", [
-    ("resize", (2, 5, 32, 48), (4, 6)),         # x8
-    ("resize", (2, 5, 29, 11), (13, 17)),       # odd, both ways
-    ("resize", (2, 3, 23, 30), (1, 1)),         # PPM's bin 1 to CamVid's
-    ("resize", (2, 3, 22, 30), (90, 120)),      # a downscale
-    ("pool", (2, 5, 6, 6), (23, 30)),
-    ("pool", (2, 5, 1, 1), (32, 64)),
-    ("pool", (2, 5, 2, 3), (13, 17)),
+@pytest.mark.parametrize("kind, g_shape, in_hw, scales", [
+    ("resize", (2, 5, 32, 48), (4, 6), None),          # x8, fan-in
+    ("resize", (2, 5, 29, 11), (13, 17), None),        # odd, both ways
+    ("resize", (2, 3, 23, 30), (1, 1), None),          # PPM's bin 1 to CamVid's
+    ("resize", (2, 3, 32, 64), (1, 1), None),          # and to config 5's
+    ("resize", (2, 3, 70, 40), (1, 1), None),          # a run of 70 rows
+    ("resize", (2, 3, 22, 30), (90, 120), None),       # a downscale, fan-in
+    ("resize", (2, 64, 22, 30), (90, 120), None),      # a downscale, streaming
+    ("resize", (2, 8, 126, 128), (63, 64), None),      # 64512 inputs: fan-in
+    ("resize", (2, 8, 128, 128), (64, 64), None),      # 65536: streaming
+    ("resize", (2, 40, 296, 360), (37, 45), None),     # odd bands, x8
+    ("resize", (4, 19, 256, 512), (32, 64), None),     # 19 channels, x8
+    ("resize", (2, 5, 32, 40), (4, 5), (8.0, 8.0)),    # the ratio route
+    ("resize", (2, 3, 15, 10), (5, 7), (3.0, 1.5)),    # odd ratios
+    ("resize", (2, 40, 132, 96), (33, 48), (4.0, 2.0)),  # ratio, streaming
+    ("pool", (2, 5, 6, 6), (23, 30), None),
+    ("pool", (2, 5, 1, 1), (32, 64), None),
+    ("pool", (2, 5, 2, 3), (13, 17), None),
+    ("pool", (2, 19, 6, 6), (32, 64), None),           # 19 channels
+    ("pool", (2, 128, 3, 3), (23, 30), None),          # PPM's, 16-byte stores
 ])
-def test_backward_kernels_match_plain(cuda, kind, g_shape, in_hw, dtype,
-                                      channels_last):
+def test_backward_kernels_match_plain(cuda, kind, g_shape, in_hw, scales,
+                                      dtype, channels_last):
     g = torch.from_numpy(np.random.RandomState(4).randn(*g_shape)).to(
         cuda, dtype)
     if channels_last:
         g = g.contiguous(memory_format=torch.channels_last)
-    kernel, plain = ((K.resize_bilinear_bwd, K.resize_bilinear_bwd_ref)
-                     if kind == "resize"
-                     else (K.adaptive_pool_bwd, K.adaptive_pool_bwd_ref))
-    name = ("resize_bilinear_bwd" if kind == "resize"
-            else "adaptive_pool_bwd")
+    if kind == "resize":
+        kernel = lambda t: K.resize_bilinear_bwd(t, in_hw, scales)  # noqa: E731
+        plain = lambda t: K.resize_bilinear_bwd_ref(t, in_hw, scales)  # noqa: E731
+        name = "resize_bilinear_bwd"
+    else:
+        kernel = lambda t: K.adaptive_pool_bwd(t, in_hw)  # noqa: E731
+        plain = lambda t: K.adaptive_pool_bwd_ref(t, in_hw)  # noqa: E731
+        name = "adaptive_pool_bwd"
     before = K.LAUNCHES[name]
-    got, again, want = kernel(g, in_hw), kernel(g, in_hw), plain(g, in_hw)
+    got, again, want = kernel(g), kernel(g), plain(g)
     assert torch.equal(got, again)
     assert got.dtype == dtype and got.shape == g_shape[:2] + in_hw
     fmt = (torch.channels_last if channels_last and not g.is_contiguous()
@@ -169,12 +193,109 @@ def test_backward_kernels_match_plain(cuda, kind, g_shape, in_hw, dtype,
             1.0, float(want.abs().max()))
         assert float((got - want).abs().max()) <= tol
     if dtype == torch.float32 and kind == "resize":
+        sh, sw = scales if scales is not None else (None, None)
         lib = torch.ops.aten.upsample_bilinear2d_backward(
-            g, list(g_shape[2:]), list(g_shape[:2] + in_hw), False, None,
-            None)
+            g, list(g_shape[2:]), list(g_shape[:2] + in_hw), False, sh, sw)
         assert float((got - lib).abs().max()) <= 1e-5 * max(
             1.0, float(lib.abs().max()))
     assert K.LAUNCHES[name] == before + 2
+
+
+RB = importlib.import_module("esn_tpu_torch.ops.kernels.resize_bilinear_bwd")
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("g_shape, in_hw, scales", [
+    ((2, 5, 32, 48), (4, 6), None),
+    ((2, 3, 32, 64), (1, 1), None),
+    ((2, 3, 32, 64), (6, 6), None),
+    ((2, 8, 128, 128), (64, 64), None),
+    ((2, 19, 96, 64), (12, 8), (8.0, 8.0)),
+    ((2, 64, 22, 30), (90, 120), None),
+    ((2, 3, 29, 11), (13, 17), None),
+])
+def test_backward_resize_routes_give_the_same_bits(cuda, g_shape, in_hw,
+                                                   scales, dtype,
+                                                   channels_last):
+    """K5's two routes sum each element's terms in one order, so the
+    plan's choice moves no bit: the streaming and the fan-in route on the
+    same g are equal."""
+    g = torch.from_numpy(np.random.RandomState(7).randn(*g_shape)).to(
+        cuda, dtype)
+    if channels_last:
+        g = g.contiguous(memory_format=torch.channels_last)
+    cl = RB._channels_last(g)
+    out = [torch.empty(g_shape[:2] + in_hw, dtype=dtype, device=cuda,
+                       memory_format=torch.channels_last if cl
+                       else torch.contiguous_format) for _ in range(2)]
+    for gx, route in zip(out, (RB.STREAM, RB.FANIN)):
+        call = RB._call(tuple(g.shape), in_hw, dtype, cl, scales, g.get_device(),
+                        route)
+        assert call.plan.route == route
+        RB._launch(g, gx, call)
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ratio", [2, 4, 8])
+def test_backward_resize_window_equals_the_whole(cuda, ratio, dtype,
+                                                 channels_last):
+    """K5 on a window of rows, as ``ops/resize.py``'s sharded backward
+    forms it (input rows [lo, hi) resized by the global scale factors,
+    the output-gradient rows [lo r, hi r) that the window's resize
+    makes), equals the whole tensor's K5 bit for bit on every row whose
+    run lies inside the window (all but its first and last), though the
+    whole tensor streams and the window takes the fan-in route."""
+    n, c, h, w, lo, hi = 2, 16, 64, 64, 21, 31
+    scales = (float(ratio), float(ratio))
+    g = torch.from_numpy(np.random.RandomState(ratio).randn(
+        n, c, h * ratio, w * ratio)).to(cuda, dtype)
+    if channels_last:
+        g = g.contiguous(memory_format=torch.channels_last)
+    win = g[:, :, lo * ratio:hi * ratio]
+    win = win.contiguous(memory_format=torch.channels_last if channels_last
+                         else torch.contiguous_format)
+    cl = RB._channels_last(g)
+    assert RB._call(tuple(g.shape), (h, w), dtype, cl, scales,
+                    g.get_device()).plan.route == RB.STREAM
+    assert RB._call(tuple(win.shape), (hi - lo, w), dtype, cl, scales,
+                    g.get_device()).plan.route == RB.FANIN
+    whole = K.resize_bilinear_bwd(g, (h, w), scales)
+    part = K.resize_bilinear_bwd(win, (hi - lo, w), scales)
+    assert torch.equal(part[:, :, 1:-1], whole[:, :, lo + 1:hi - 1])
+
+
+def test_backward_resize_offsets_past_2_31(cuda):
+    """K5 on a bf16 g of more than 2^31 elements (4.3 GB, channels_last,
+    x8): the first and the last input rows against the plain version on
+    the output-gradient rows that read them, within one bf16 step."""
+    n, c, ho, wo = 1, 16, 8192, 16400
+    assert n * c * ho * wo > 2 ** 31
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.randn((n, ho, wo, c), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    h, w, r = ho // 8, wo // 8, 8
+    got = K.resize_bilinear_bwd(g, (h, w), (8.0, 8.0))
+    torch.cuda.synchronize()
+    top = K.resize_bilinear_bwd_ref(g[:, :, :5 * r], (5, w), (8.0, 8.0))
+    bottom = K.resize_bilinear_bwd_ref(g[:, :, (h - 5) * r:], (5, w),
+                                       (8.0, 8.0))
+    assert K.bf16_step_gap(got[:, :, :4], top[:, :, :4])[1] == 0
+    assert K.bf16_step_gap(got[:, :, h - 4:], bottom[:, :, 1:])[1] == 0
+
+
+def test_backward_pool_repeats_at_ppm_shapes(cuda):
+    """K6 at PPM's four pools of config 5 (f32, channels_last): two
+    launches give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for b in (1, 2, 3, 6):
+        g = torch.randn((8, 128, b, b), generator=gen, device=cuda
+                        ).contiguous(memory_format=torch.channels_last)
+        assert torch.equal(K.adaptive_pool_bwd(g, (32, 64)),
+                           K.adaptive_pool_bwd(g, (32, 64)))
 
 
 def test_backward_kernels_route_a_train_step(cuda):
