@@ -1459,7 +1459,8 @@ def bwd_phase(torch, F, K):
         print("kernel", json.dumps(row))
     print("resize_bilinear_bwd: the forward's map, transposed bit for bit",
           json.dumps(maps))
-    print("resize_bilinear_bwd: the two routes, bit for bit", json.dumps(routes))
+    print("resize_bilinear_bwd: the two routes, bit for bit",
+          json.dumps(routes))
     print("resize_bilinear_bwd: a window of rows against the whole, bit for "
           "bit", json.dumps(windows))
     check(all(r["within_tol"] for r in rows),

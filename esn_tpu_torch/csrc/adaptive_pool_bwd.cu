@@ -15,17 +15,14 @@
 // as torch's backward takes them. Each input element sums the v of the
 // bins that hold it, rows of bins outer and columns inner, each ascending,
 // in f32 (f64 for an f64 tensor), from 0, and rounds once. That order is
-// a function of the element's bins alone, and it is the order of the
-// first design (a thread an element, the bins searched and v divided for
-// every term), so the bits are the same.
+// a function of the element's bins alone: no tile or grid size enters it.
 //
 // What bounds it on an H100: it reads g once and writes gx once; PPM's
 // bins are at most 6 x 6, so gx is nearly all of it (Fast-SCNN's 1/32 map
 // at config 5: (8, 128, 32, 64) f32, 8.4 MB, ~2.5 us at 3.35 TB/s), and
 // the arithmetic (an add a term) is small. So bytes, and at these sizes
-// a launch's own few microseconds. The first design was bound instead by
-// the instructions it issued an element: a 64-bit unravel, 64-bit
-// divisions in the bin searches, and two f32 divisions a term.
+// a launch's own few microseconds; a loop of such launches from Python
+// runs at the wrapper's host time a call, which is larger.
 //
 // Design: a block owns one image's input row y, a band of xb columns and
 // cb channels. Its threads first divide each bin value it needs once into

@@ -101,8 +101,7 @@ PHASES = {
         "stores": [("      if (a.jvec) {  // both", "      if (a.jvec && jl[0] != 123.25f) {\n"
                     "      } else if (a.jvec) {  // both")],
     }),
-    # K5 and K6 (the gather design of PR 17 read "index", "search", "taps",
-    # "loads", "store"; PERF.md keeps those readings)
+    # K5 and K6, the backward of the bilinear resize and of the adaptive pool
     "resize_bilinear_bwd": ("resize_bilinear_bwd.cu", {
         # streaming: no read of g from device memory (the stages zero-filled)
         "staging": [("cp_async16_upto(dst + 16 * k, src + 16 * k, left < 16 ? (int)left : 16);",

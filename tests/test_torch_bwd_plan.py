@@ -404,5 +404,6 @@ def test_emulated_pool_matches_plain(case, dtype):
     g = np.random.RandomState(b).randn(2, 3, b, b).astype(acc)
     got = emulate_pool(g, (h, w), dtype)
     want = K.adaptive_pool_bwd_ref(torch.from_numpy(g), (h, w)).numpy()
-    tol = (1e-6 if dtype == F32 else 1e-14) * max(1.0, float(np.abs(want).max()))
+    tol = (1e-6 if dtype == F32 else 1e-14) * max(
+        1.0, float(np.abs(want).max()))
     assert float(np.abs(got - want).max()) <= tol

@@ -146,7 +146,7 @@ def test_dsconv_wrapper_raises_on_cuda(cuda):
 @pytest.mark.parametrize("kind, g_shape, in_hw, scales", [
     ("resize", (2, 5, 32, 48), (4, 6), None),          # x8, fan-in
     ("resize", (2, 5, 29, 11), (13, 17), None),        # odd, both ways
-    ("resize", (2, 3, 23, 30), (1, 1), None),          # PPM's bin 1 to CamVid's
+    ("resize", (2, 3, 23, 30), (1, 1), None),          # PPM's bin 1 to CamVid
     ("resize", (2, 3, 32, 64), (1, 1), None),          # and to config 5's
     ("resize", (2, 3, 70, 40), (1, 1), None),          # a run of 70 rows
     ("resize", (2, 3, 22, 30), (90, 120), None),       # a downscale, fan-in
@@ -171,15 +171,15 @@ def test_backward_kernels_match_plain(cuda, kind, g_shape, in_hw, scales,
     if channels_last:
         g = g.contiguous(memory_format=torch.channels_last)
     if kind == "resize":
-        kernel = lambda t: K.resize_bilinear_bwd(t, in_hw, scales)  # noqa: E731
-        plain = lambda t: K.resize_bilinear_bwd_ref(t, in_hw, scales)  # noqa: E731
+        args = (in_hw, scales)
+        kernel, plain = K.resize_bilinear_bwd, K.resize_bilinear_bwd_ref
         name = "resize_bilinear_bwd"
     else:
-        kernel = lambda t: K.adaptive_pool_bwd(t, in_hw)  # noqa: E731
-        plain = lambda t: K.adaptive_pool_bwd_ref(t, in_hw)  # noqa: E731
+        args = (in_hw,)
+        kernel, plain = K.adaptive_pool_bwd, K.adaptive_pool_bwd_ref
         name = "adaptive_pool_bwd"
     before = K.LAUNCHES[name]
-    got, again, want = kernel(g), kernel(g), plain(g)
+    got, again, want = kernel(g, *args), kernel(g, *args), plain(g, *args)
     assert torch.equal(got, again)
     assert got.dtype == dtype and got.shape == g_shape[:2] + in_hw
     fmt = (torch.channels_last if channels_last and not g.is_contiguous()
@@ -231,8 +231,8 @@ def test_backward_resize_routes_give_the_same_bits(cuda, g_shape, in_hw,
                        memory_format=torch.channels_last if cl
                        else torch.contiguous_format) for _ in range(2)]
     for gx, route in zip(out, (RB.STREAM, RB.FANIN)):
-        call = RB._call(tuple(g.shape), in_hw, dtype, cl, scales, g.get_device(),
-                        route)
+        call = RB._call(tuple(g.shape), in_hw, dtype, cl, scales,
+                        g.get_device(), route)
         assert call.plan.route == route
         RB._launch(g, gx, call)
     assert torch.equal(out[0], out[1])
