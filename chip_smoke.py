@@ -10,7 +10,12 @@ the port's fixed-order backward of the bilinear resize and of the
 adaptive pool, at PPM's maps, Fast-SCNN's x4 fusion and x8 tail at
 config 5 and CamVid's 720x960, in f32 and bf16, also against torch's own
 backward, two launches bit for bit, and K5 the transpose of the
-forward's map bit for bit), then drives these paths through the port's
+forward's map bit for bit; K7, the subpixel class argmax, at the heads
+of ENet (config 5), ERFNet, ESNet, ESPNet, FSSNet and SQNet (config 3)
+and LinkNet (config 2) and at an odd size, in bf16 and f32, within its
+gap rule, two launches bit for bit, planted ties to the first class,
+beside the two-call route it replaces; K1 also at r = 2, FPENet's x2
+head at config 3 and 5), then drives these paths through the port's
 entry points, each with the launch counts from zero (every train step
 launches K5 and K6 once for each upsample and adaptive pool it
 back-propagates through, BWD_STEP):
@@ -36,10 +41,12 @@ back-propagates through, BWD_STEP):
   odd size with ``output_size``: bit for bit the CPU's result;
 - ENet-19 at full width and depth, batch 8, 3x1024x2048, bf16, through
   ``build_model("enet")``, ``make_predict_step``, ``make_train_step`` and
-  ``make_eval_step``. No kernel lies on its path (every launch count
-  stays 0), so the card is held against the CPU: the f32 predict of a
-  slice, and one f32 train step on a small slice (loss, per-leaf
-  gradients). Train: five steps with the config-5 loss (class-weighted CE
+  ``make_eval_step``. Its predict and eval launch K7 once (the fused
+  subpixel head, img/s and peak memory timed in turns with the argmax of
+  its full logits), its train step no kernel of K1-K4, so the card is
+  also held against the CPU: the f32 predict of a slice, and one f32
+  train step on a small slice (loss, per-leaf gradients). Train: five
+  steps with the config-5 loss (class-weighted CE
   + OHEM on the full-resolution logits), a falling loss, moving BN
   statistics, finite gradients on every leaf, ms/step, peak memory.
   Eval: labels made from the model's own prediction with a band of
@@ -79,11 +86,15 @@ back-propagates through, BWD_STEP):
   ESPNet that the next phase drives as ERFNet's below;
 - ESPNet-19, ERFNet-19, ESNet-19, FPENet-19, FSSNet-19, SQNet-19 and
   UNet-19 (3x512x1024), SegNet-11 and LinkNet-11 (config 2, 3x352x480:
-  both need sides that are multiples of 32), b8 bf16: no
-  kernel lies on their paths (every count 0), so each is held against
-  the CPU as ENet is (the f32 predict of a 2-image slice, SegNet's
-  outside the fields of its flipped pool windows; one f32 train step of
-  a slice), five weighted-CE steps, ms/step, peak memory, img/s;
+  both need sides that are multiples of 32), b8 bf16: a predict launches
+  the model's fused head (K7 once for ESPNet, ERFNet, ESNet, FSSNet, SQNet
+  and LinkNet, K1 once at r = 2 for FPENet, nothing for SegNet and UNet;
+  ZOO_PREDICT_LAUNCHES; img/s and peak memory of a head timed in turns
+  with the argmax of the full logits), a train step no kernel of K1-K4;
+  each is held against the CPU as ENet is (the f32 predict of a 2-image
+  slice, SegNet's outside the fields of its flipped pool windows; one f32
+  train step of a slice), five weighted-CE steps, ms/step, peak memory,
+  img/s;
 - the rest of the training surface on Fast-SCNN-19 at config 5 (b8 bf16
   3x1024x2048): ``radam`` and ``ranger``, 12 weighted-CE steps each
   (``resize_ce`` 1 + 1 a step; RAdam's rho >= 5 at step 6, Lookahead's
@@ -166,12 +177,13 @@ back-propagates through, BWD_STEP):
   trainings (ENet, Fast-SCNN, ENet with OHEM, ERFNet on a CamVid-like
   96x128 fixture) through ``tools/golden_run.py``: the fixture's PNGs
   read through ``ManifestDataset`` and the decoder, each config trained
-  by the port's Trainer at seeds 1-3 in f32 (TF32 off) and in bf16, a
+  by the port's Trainer at seeds 1-3 in f32 (TF32 off, cuDNN
+  deterministic: each run repeats, as bf16's do) and in bf16, a
   majority of each config's runs held to the reference's spread over
   seeds (``golden_spread.json``: ranges and an mIoU floor), the medians
   of bf16 against f32's; Fast-SCNN launches K3 once forward and once
   backward a step (48 steps a run) and K2 4 times and K1 once in each
-  validation, ENet and ERFNet none.
+  validation, ENet and ERFNet K7 once in each validation.
 
 Each phase prints its seconds. Exits non-zero on any failure, and when
 no CUDA device is present. The last line of standard output is one JSON
@@ -192,7 +204,12 @@ at its own shape. ``bound_ms`` is computed from this run's shapes and
 labels (see ``bound``); ``library_ms`` is null for K1-K4, since no single
 PyTorch call computes any of the four functions, and for K5 and K6 the
 time of torch's own CUDA backward (``upsample_bilinear2d_backward``,
-``_adaptive_avg_pool2d_backward``) at the same shapes. ``max_abs_err``:
+``_adaptive_avg_pool2d_backward``) at the same shapes. For
+``subpixel_argmax`` (K7) the numbers are those of ENet's head at config
+5 in bf16 (one launch a predict), ``library_ms`` the two-call route
+``F.conv_transpose2d`` then ``torch.argmax`` (no single call computes
+it), ``max_abs_err`` the largest gap between the exact logits of the
+classes that the kernel and the plain version chose. ``max_abs_err``:
 for K5 and K6 the largest difference from their plain versions at those
 shapes; for ``resize_argmax`` the largest gap between the f32 upsampled logits of
 the classes that the kernel and the plain version chose (every K1 case
@@ -393,6 +410,13 @@ MODEL_INPUT = {"edanet": (CLASSES, CONFIG3_HW),
 # most) against the card's (read on an H100; its f32 predict of 2 images
 # found 16 windows whose index differs between the devices).
 ZOO_MISMATCH_MAX = 1e-3
+# the kernels a zoo model's predict launches: its fused head, K7 for the
+# seven whose last layer is a stride-2 transposed conv, K1 at r = 2 for
+# FPENet; SegNet and UNet none
+ZOO_PREDICT_LAUNCHES = {
+    **{arch: {"subpixel_argmax": 1} for arch in (
+        "erfnet", "linknet", "espnet", "esnet", "fssnet", "sqnet")},
+    "fpenet": {"resize_argmax": 1}, "segnet": {}, "unet": {}}
 #
 # LEDNet (a resize tail: K1 a predict, K3 a train step, held as EDANet is
 # and its f32 predict against the CPU as ESPNetv2's) and ESNet (a conv
@@ -571,7 +595,9 @@ BWD_F32_REL = 1e-5
 # 2); K2 18 per (output pixel, input channel) for the depthwise taps and
 # 2 Cin per (output pixel, output channel) for the pointwise product; K4
 # 2 C per (pixel, reduced channel) for the reduce and 36 per (pixel,
-# reduced channel) for the two stencils.
+# reduced channel) for the two stencils; K7 2 per multiply-add of the
+# taps that lie inside the input (a product: at the tensor cores' rate in
+# bf16) and 3 per (output pixel, class) (the bias, a compare and select).
 HBM_BPS, F32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
 # K3's forward also has an SFU floor, beside its bound: one exp a (valid
 # pixel, class) and one log a valid pixel at SFU_PER_CLOCK results a clock
@@ -912,6 +938,100 @@ def resize_argmax_case(K, torch, F, gen, shape, r, dtype):
     return row
 
 
+# K7 (subpixel_argmax) at the heads of the seven models whose last layer
+# is a stride-2 transposed conv, b8 at each one's size here: (models,
+# x (N, H, W, I) under the head, classes, kernel, padding, bias)
+K7_HEADS = [("enet", (BATCH, 512, 1024, 16), 19, 3, 1, False),
+            ("erfnet, esnet", (BATCH, 256, 512, 16), 19, 2, 0, True),
+            ("espnet", (BATCH, 256, 512, 19), 19, 2, 0, False),
+            ("fssnet", (BATCH, 256, 512, 16), 19, 3, 1, True),
+            ("sqnet", (BATCH, 256, 512, 32), 19, 2, 0, True),
+            ("linknet", (BATCH, 176, 240, 32), 11, 2, 0, True),
+            ("odd", (2, 37, 53, 19), 11, 3, 1, True)]
+# K1 at r = 2: FPENet's x2 head at config 3 and config 5
+K1_R2 = [("fpenet config-3 head", (BATCH, 256, 512, CLASSES)),
+         ("fpenet config-5 head", (BATCH, 512, 1024, CLASSES))]
+
+
+def subpixel_argmax_case(K, torch, F, gen, models, shape, cout, k, p, bias,
+                         dtype):
+    """K7 against its plain version at one head: where the maps differ,
+    the exact logits of the two classes within the gap rule
+    (``gap_rule``); two launches bit for bit; the time of the kernel, of
+    the plain version and of the two-call route the port took before
+    (``F.conv_transpose2d`` then ``argmax``: no single PyTorch call
+    computes the function), and the bound."""
+    import importlib        # kernels.subpixel_argmax is the wrapper
+    SA = importlib.import_module(
+        "esn_tpu_torch.ops.kernels.subpixel_argmax")
+    cin = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    w = torch.randn((cin, cout, k, k), generator=gen,
+                    device="cuda") / math.sqrt(cin * k)
+    b = (torch.randn((cout,), generator=gen, device="cuda") * 0.1
+         if bias else None)
+    kw = dict(stride=(2, 2), padding=(p, p))
+    got = K.subpixel_argmax(x, w, b, **kw)
+    again = K.subpixel_argmax(x, w, b, **kw)
+    ref = K.subpixel_argmax_ref(x, w, b, **kw)
+    torch.cuda.synchronize()
+    n, h, wd, _ = shape
+    check(got.shape == (n, 2 * h, 2 * wd) and got.dtype == torch.int32,
+          f"subpixel_argmax {shape}: {tuple(got.shape)} {got.dtype}")
+    diff = got != ref
+    rule = SA.gap_rule(dtype, w, (2, 2), (p, p))
+    gap = rel = torch.zeros(1, device="cuda", dtype=torch.float64)
+    if bool(diff.any()):
+        gap, mag = SA.argmax_gap(x, w, b, got, ref, **kw)
+        gap, rel = gap[diff], (gap / mag)[diff]
+        del mag
+    xc = x.permute(0, 3, 1, 2)           # NCHW view, channels_last memory
+
+    def two_call():
+        z = F.conv_transpose2d(xc, w.to(dtype), None if b is None
+                               else b.to(dtype), stride=2, padding=p,
+                               output_padding=2 + 2 * p - k)
+        return torch.argmax(z, dim=1)
+    taps = SA.phase_taps(k, k, (2, 2), (p, p))
+    macs = n * cin * cout * sum(max(h - abs(dy), 0) * max(wd - abs(dx), 0)
+                                for phase in taps for dy, dx, _ in phase)
+    bound_ms, bound_by = bound(
+        x.numel() * x.element_size() + got.numel() * 4,
+        3 * got.numel() * cout, 2 * macs,
+        BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    row = {"models": models, "shape": list(shape), "classes": cout,
+           "kernel": k, "padding": p, "bias": bias,
+           "dtype": str(dtype).split(".")[-1],
+           "mismatch_rate": float(diff.float().mean()),
+           "max_gap_rel": float(rel.max()), "gap_rule": rule,
+           "max_abs_err": float(gap.max()),
+           "within_tol": bool((rel <= rule).all()),
+           "bit_identical": bool(torch.equal(got, again)),
+           "macs": macs, "bound_ms": bound_ms, "bound_by": bound_by,
+           "ms": cuda_ms(lambda: K.subpixel_argmax(x, w, b, **kw)),
+           "plain_ms": cuda_ms(lambda: K.subpixel_argmax_ref(x, w, b, **kw)),
+           "library_ms": cuda_ms(two_call),
+           "library_call": "F.conv_transpose2d then torch.argmax (two calls)"}
+    return row
+
+
+def subpixel_ties(K, torch, gen, dtype):
+    """K7 on planted exact ties: classes 3 and 7 with the same weights and
+    bias (100 above the rest) tie at every pixel, and zero features tie
+    every class without a bias; the first class must win everywhere."""
+    x = torch.randn((2, 64, 128, 16), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((16, 19, 3, 3), generator=gen, device="cuda") / 7
+    w[:, 7] = w[:, 3]
+    b = torch.zeros(19, device="cuda")
+    b[[3, 7]] = 100.0
+    kw = dict(stride=(2, 2), padding=(1, 1))
+    tied = K.subpixel_argmax(x, w, b, **kw)
+    zero = K.subpixel_argmax(torch.zeros_like(x), w, None, **kw)
+    return {"dtype": str(dtype).split(".")[-1],
+            "tied_3_7_first": bool((tied == 3).all()),
+            "zero_features_first": bool((zero == 0).all())}
+
+
 def kernel_phase(torch, F, K):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -956,15 +1076,32 @@ def kernel_phase(torch, F, K):
             row = resize_argmax_case(K, torch, F, gen, shape, r, dtype)
             row["layer"] = "odd"
             argmax_rows.append(row)
-    for row in dsconv_rows + argmax_rows:
+        # r = 2: FPENet's fused x2 head
+        for layer, shape in K1_R2:
+            row = resize_argmax_case(K, torch, F, gen, shape, 2, dtype)
+            row["layer"] = layer
+            argmax_rows.append(row)
+    subpixel_rows, ties = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for head in K7_HEADS:
+            subpixel_rows.append(subpixel_argmax_case(K, torch, F, gen, *head,
+                                                      dtype))
+            torch.cuda.empty_cache()
+        ties.append(subpixel_ties(K, torch, gen, dtype))
+    for row in dsconv_rows + argmax_rows + subpixel_rows + ties:
         print("kernel", json.dumps(row))
-    bad = [r for r in dsconv_rows + argmax_rows if not r["within_tol"]]
+    bad = [r for r in dsconv_rows + argmax_rows + subpixel_rows
+           if not r["within_tol"]]
     check(not bad, f"kernel outside tolerance: {bad}")
     check(all(r["bit_identical"] for r in dsconv_rows),
           "fused_dsconv: two launches differ")
     check(all(r["bit_identical"] for r in argmax_rows),
           "resize_argmax: two launches differ")
-    return dsconv_rows, argmax_rows
+    check(all(r["bit_identical"] for r in subpixel_rows),
+          "subpixel_argmax: two launches differ")
+    check(all(t["tied_3_7_first"] and t["zero_features_first"] for t in ties),
+          f"subpixel_argmax: a planted tie went to a later class: {ties}")
+    return dsconv_rows, argmax_rows, subpixel_rows, ties
 
 
 # The weight gradient of a bf16 depthwise conv in channels_last memory
@@ -1521,7 +1658,8 @@ def plain_versions(K):
              "resize_ce_sums": K.resize_ce_sums_ref,
              "fused_cgblock_pre": K.cgblock_pre_ref,
              "resize_bilinear_bwd": K.resize_bilinear_bwd_ref,
-             "adaptive_pool_bwd": K.adaptive_pool_bwd_ref}
+             "adaptive_pool_bwd": K.adaptive_pool_bwd_ref,
+             "subpixel_argmax": K.subpixel_argmax_ref}
     saved = {name: getattr(K, name) for name in names}
     for name, plain in names.items():
         setattr(K, name, plain)
@@ -1963,11 +2101,48 @@ def pool_phase(torch):
     return rows
 
 
+def head_vs_full_logits(torch, model, predict, images, iters=5):
+    """A model's predict (its fused head) timed in turns with the argmax
+    of its full logits, ``argmax_lastdim(model(x))`` (the forward called
+    here directly; the port has no switch), bf16, each with its peak
+    memory; and how often the two maps differ (near-ties of bf16
+    rounding: the head argmaxes f32 phase logits)."""
+    from esn_tpu_torch.ops.classify import argmax_lastdim
+
+    @torch.inference_mode()
+    def full(imgs):
+        x = imgs.to(dtype=torch.bfloat16, memory_format=torch.channels_last)
+        return argmax_lastdim(model(x).permute(0, 2, 3, 1))
+    runs = {"head": predict, "full_logits": full}
+    times, peaks = {k: [] for k in runs}, {k: 0.0 for k in runs}
+    for which in ("full_logits", "head", "head", "full_logits"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[which].append(timed_predict(torch, runs[which], images, iters))
+        peaks[which] = max(peaks[which],
+                           torch.cuda.max_memory_allocated() / 1e9)
+    ms = {k: 1e3 * sum(v) / len(v) for k, v in times.items()}
+    n = images.shape[0]
+    row = {"img_per_s": {k: n / (v / 1e3) for k, v in ms.items()},
+           "ms_per_batch": ms, "peak_gb": peaks,
+           "mismatch_rate": float((predict(images) != full(images))
+                                  .float().mean())}
+    print(f"{type(model).__name__} predict bf16 b{n}: the fused head "
+          f"{row['img_per_s']['head']:.2f} img/s, peak "
+          f"{peaks['head']:.2f} GB; the full logits "
+          f"{row['img_per_s']['full_logits']:.2f} img/s, peak "
+          f"{peaks['full_logits']:.2f} GB; maps differ at "
+          f"{row['mismatch_rate']:.2e}")
+    return row
+
+
 def enet_predict_phase(torch, F, K, build_model, BatchNorm,
                        make_predict_step):
-    """ENet-19 predict at bf16 b8 3x1024x2048: output, launch counts (all
-    0), img/s; the f32 predict of a 2-image slice on the card against the
-    CPU. Returns the model too (the eval phase scores it)."""
+    """ENet-19 predict at bf16 b8 3x1024x2048: output, launch counts (K7
+    once: its fused subpixel head), img/s and peak memory timed in turns
+    with the argmax of its full logits; the f32 predict of a 2-image
+    slice on the card against the CPU (K7's plain version). Returns the
+    model too (the eval phase scores it)."""
     model = seeded_model(torch, F, build_model, BatchNorm, seed=0, arch="enet")
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = smooth_images(torch, F, gen, BATCH, IMAGE_HW)
@@ -1979,8 +2154,9 @@ def enet_predict_phase(torch, F, K, build_model, BatchNorm,
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     print("enet predict launches", json.dumps(launches),
-          "(no kernel lies on ENet's path)")
-    check(not any(launches.values()), f"enet predict launched {launches}")
+          "(K7, the fused subpixel head)")
+    check(launches_equal(launches, {"subpixel_argmax": 1}),
+          f"enet predict launched {launches}")
     check(tuple(pred.shape) == (BATCH, *IMAGE_HW) and pred.dtype == torch.int32,
           f"enet predict output {tuple(pred.shape)} {pred.dtype}")
     lo, hi = int(pred.min()), int(pred.max())
@@ -2046,16 +2222,13 @@ def enet_predict_phase(torch, F, K, build_model, BatchNorm,
           and compared["logit_max_abs_diff_elsewhere"] <= tol and near_ties,
           f"enet predict on the card disagrees with the CPU: {compared}")
 
-    torch.cuda.reset_peak_memory_stats()
-    sec = timed_predict(torch, predict, images, iters=5)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"enet predict bf16 b{BATCH} {IMAGE_HW[1]}x{IMAGE_HW[0]}: "
-          f"{BATCH / sec:.2f} img/s ({1e3 * sec:.3f} ms/batch); peak "
-          f"{peak_gb:.2f} GB")
+    head = head_vs_full_logits(torch, model, predict, images)
     return model, images, {
         "launches": launches, "classes_seen": n_classes, "compared": compared,
-        "img_per_s": BATCH / sec, "ms_per_batch": 1e3 * sec,
-        "peak_gb": peak_gb, "batch": BATCH}
+        "img_per_s": head["img_per_s"]["head"],
+        "ms_per_batch": head["ms_per_batch"]["head"],
+        "peak_gb": head["peak_gb"]["head"], "head_vs_full_logits": head,
+        "batch": BATCH}
 
 
 def compare_step_with_cpu(torch, model, opt, batch, cw, name="enet",
@@ -2172,8 +2345,9 @@ def enet_train_phase(torch, F, K, BatchNorm):
 
 
 def enet_eval_phase(torch, K, build_model, model, images):
-    """``make_eval_step`` on the predict phase's ENet: labels made from
-    its own prediction, with a band of ignored rows, and ``valid`` =
+    """``make_eval_step`` on the predict phase's ENet (K7 once a batch):
+    labels made from its own prediction, with a band of ignored rows, and
+    ``valid`` =
     EVAL_VALID of 8 give a diagonal confusion matrix over the non-ignored
     pixels of the first rows and mIoU 1 over the present classes. Then an
     eval step built before a train step and called after it: eval mode,
@@ -2191,7 +2365,8 @@ def enet_eval_phase(torch, K, build_model, model, images):
     pred, cm = evaluate({"image": images, "label": labels,
                          "valid": EVAL_VALID})
     torch.cuda.synchronize()
-    check(not any(K.LAUNCHES.values()), f"enet eval launched {K.LAUNCHES}")
+    check(launches_equal(dict(K.LAUNCHES), {"subpixel_argmax": 1}),
+          f"enet eval launched {K.LAUNCHES}")
     check(bool(torch.equal(pred, pred0)), "two eval steps differ")
     counted = int((labels[:EVAL_VALID] != IGNORE).sum())
     iou, miou = iou_from_confusion(cm)
@@ -2389,10 +2564,13 @@ def zoo_conv_phase(torch, F, K, BatchNorm, build_model, make_predict_step,
     ``prepare(model)``, where given, runs on each model
     once it is built: ESPNet's encoder graft) at full width and depth, b8
     bf16, through ``build_model``,
-    ``make_predict_step`` and ``make_train_step``. No kernel lies on its
-    path, so the card is held against the CPU, as ENet is: predict (every
-    launch count 0, the f32 predict of a 2-image slice against the CPU,
-    img/s), one f32 train step of a slice against the CPU (loss, per-leaf
+    ``make_predict_step`` and ``make_train_step``. Its predict launches
+    its fused head (ZOO_PREDICT_LAUNCHES: K7 or K1) and its train step no
+    kernel of K1-K4, so the card is held against the CPU, as ENet is:
+    predict (the launch counts, the f32 predict of a 2-image slice against
+    the CPU, img/s and peak memory, with a head timed in turns with the
+    argmax of the full logits), one f32 train step of a slice against the
+    CPU (loss, per-leaf
     gradients), five steps with class-weighted CE on the full logits (a
     falling loss, moving BN statistics, finite gradients on every leaf),
     ms/step and peak memory."""
@@ -2409,9 +2587,11 @@ def zoo_conv_phase(torch, F, K, BatchNorm, build_model, make_predict_step,
     pred = predict(images)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
+    want = ZOO_PREDICT_LAUNCHES[arch]
     print(f"{arch} predict launches", json.dumps(launches),
-          "(no kernel lies on its path)")
-    check(not any(launches.values()), f"{arch} predict launched {launches}")
+          f"(its head: {json.dumps(want)})")
+    check(launches_equal(launches, want),
+          f"{arch} predict launched {launches}, want {want}")
     check(tuple(pred.shape) == (BATCH, *hw) and pred.dtype == torch.int32,
           f"{arch} predict output {tuple(pred.shape)} {pred.dtype}")
     lo, hi = int(pred.min()), int(pred.max())
@@ -2419,14 +2599,20 @@ def zoo_conv_phase(torch, F, K, BatchNorm, build_model, make_predict_step,
     compared = zoo_predict_vs_cpu(
         torch, F, model, images[:2].contiguous(
             memory_format=torch.channels_last), arch)
-    torch.cuda.reset_peak_memory_stats()
-    sec = timed_predict(torch, predict, images, iters=5)
-    predict_peak = torch.cuda.max_memory_allocated() / 1e9
+    if want:
+        head = head_vs_full_logits(torch, model, predict, images)
+        sec, predict_peak = (head["ms_per_batch"]["head"] / 1e3,
+                             head["peak_gb"]["head"])
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        sec, head = timed_predict(torch, predict, images, iters=5), None
+        predict_peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"{arch} predict bf16 b{BATCH} {hw[1]}x{hw[0]}: {BATCH / sec:.2f} "
           f"img/s ({1e3 * sec:.3f} ms/batch); peak {predict_peak:.2f} GB")
     result = {"predict": {"launches": launches, "compared": compared,
                           "img_per_s": BATCH / sec, "ms_per_batch": 1e3 * sec,
-                          "peak_gb": predict_peak}, "prepared": prepared}
+                          "peak_gb": predict_peak,
+                          "head_vs_full_logits": head}, "prepared": prepared}
     del model, predict, images, pred
     torch.cuda.empty_cache()
 
@@ -4698,7 +4884,9 @@ def decode_phase(torch):
 # of 4); ENet and ERFNet launch none.
 GOLDEN_LAUNCHES = {
     "fastscnn": {"dsconv": 4, "resize_argmax": 1, "resize_ce_fwd": 48,
-                 "resize_ce_bwd": 48, **bwd_launches("fastscnn", 48)}}
+                 "resize_ce_bwd": 48, **bwd_launches("fastscnn", 48)},
+    **{name: {"subpixel_argmax": 1} for name in ("enet", "enet_ohem",
+                                                   "erfnet")}}
 
 
 def golden_phase(torch, K):
@@ -4833,7 +5021,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         return out
 
-    dsconv_rows, argmax_rows = phase("kernels", kernel_phase, torch, F, K)
+    dsconv_rows, argmax_rows, subpixel_rows, ties = phase(
+        "kernels", kernel_phase, torch, F, K)
     ce_rows = phase("resize_ce", resize_ce_phase, torch, K)
     cg_rows = phase("cgblock", cgblock_phase, torch, K)
     bwd = phase("resize_pool_bwd", bwd_phase, torch, F, K)
@@ -4931,7 +5120,8 @@ def main() -> int:
                                                      donor))}
     donor_dir.cleanup()
     # ERFNet, ESNet, FPENet, FSSNet, SQNet and UNet (config 3), SegNet and
-    # LinkNet (config 2): no kernel
+    # LinkNet (config 2): K7 a predict (ERFNet, ESNet, FSSNet, SQNet,
+    # LinkNet), K1 at r = 2 (FPENet), none (SegNet, UNet)
     for arch in ("erfnet", "segnet", "linknet", "esnet", "fpenet", "fssnet",
                  "sqnet", "unet"):
         zoo[arch] = phase(arch, zoo_conv_phase, torch, F, K, BatchNorm,
@@ -5013,6 +5203,9 @@ def main() -> int:
                if r["dtype"] == "bfloat16" and r.get("model") == "fastscnn"]
     tail = next(r for r in argmax_rows
                 if r["dtype"] == "bfloat16" and r["layer"] == "predict tail")
+    # K7 at ENet's head, config 5, bf16: the path's largest launch
+    k7 = next(r for r in subpixel_rows
+              if r["dtype"] == "bfloat16" and r["models"] == "enet")
     cg_main = [r for r in cg_rows if r["dtype"] == "bfloat16"
                and r["layer"] in {m[0] for m in CGBLOCK_MAIN}]
     # K5's and K6's launches of one weighted-CE step at config 5, bf16
@@ -5028,7 +5221,8 @@ def main() -> int:
 
     # library_ms: no single PyTorch call computes any of the four (K1 is
     # interpolate then argmax, K3 interpolate then cross_entropy, K2 and
-    # K4 chains of convolutions)
+    # K4 chains of convolutions); for K7 the two-call route
+    # (conv_transpose2d then argmax), since no single call computes it
     kernels = [
         {"name": "fused_dsconv", "route": "cuda",
          "source": "esn_tpu_torch/csrc/dsconv.cu",
@@ -5078,6 +5272,13 @@ def main() -> int:
           for name, kind, replaces in (
               ("resize_bilinear_bwd", "resize", "esn_tpu/ops/resize.py:16"),
               ("adaptive_pool_bwd", "pool", "esn_tpu/ops/pooling.py:122"))),
+        {"name": "subpixel_argmax", "route": "cuda",
+         "source": "esn_tpu_torch/csrc/subpixel_argmax.cu",
+         "replaces": "esn_tpu/ops/classify.py:130",
+         "launches": total["subpixel_argmax"],
+         "max_abs_err": k7["max_abs_err"], "ms": k7["ms"],
+         "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"],
+         "bound_by": k7["bound_by"], "library_ms": k7["library_ms"]},
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -5085,6 +5286,7 @@ def main() -> int:
         {"nvidia_smi": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_seconds": info.seconds,
          "dsconv": dsconv_rows, "resize_argmax": argmax_rows,
+         "subpixel_argmax": subpixel_rows, "subpixel_argmax_ties": ties,
          "resize_ce_sums": ce_rows, "fused_cgblock_pre": cg_rows,
          "resize_pool_bwd": bwd,
          "depthwise_bf16": dw_rows,

@@ -10,6 +10,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..nn.layers import IntOr2, _pair
+from ..ops import classify as CL
 from ..ops import kernels as K
 from ..ops import pooling as P
 from ..ops import resize as R
@@ -276,3 +277,23 @@ class UpsamplerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.post(self.deconv(x))
+
+
+def subpixel_predict_tail(layer: enn.ConvTranspose,
+                          y: torch.Tensor) -> torch.Tensor:
+    """Finish a model whose last layer is the transposed conv ``layer``
+    with the fused prediction head (counterpart of the reference's
+    ``blocks.subpixel_predict_tail``): the class argmax per subpixel
+    phase, the int32 indices put in place (``ops.classify.subpixel_argmax``:
+    K7 on the card, its plain version on the CPU), so the
+    full-resolution logits never exist. y: the layer's NCHW input. A
+    geometry the decomposition does not cover
+    (``ConvTranspose.subpixel_eligible``: the output not ``s`` times the
+    input) takes the argmax of the layer's full output, where the
+    reference does too; that is the reference's geometry rule, not a
+    fallback for a failed kernel."""
+    if layer.subpixel_eligible():
+        return CL.subpixel_argmax(y.permute(0, 2, 3, 1), layer.weight,
+                                  layer.bias, stride=_pair(layer.stride),
+                                  padding=_pair(layer.padding))
+    return CL.argmax_lastdim(layer(y).permute(0, 2, 3, 1))

@@ -15,9 +15,10 @@ Architecture (the paper's Table 1):
 The encoder's max-pool positions reach the decoder as values: a
 downsampling bottleneck returns ``(out, indices)`` and the matching
 upsampling bottleneck takes the indices (``ops.pooling``). The
-reference's space-to-depth stem, lane-folded bottlenecks and fused
-subpixel prediction head are TPU layout work and have no counterpart:
-``predict`` is the argmax of the full-resolution logits.
+reference's space-to-depth stem and lane-folded bottlenecks are TPU
+layout work and have no counterpart. ``predict`` is the reference's fused
+subpixel head on ``fullconv`` (``blocks.subpixel_predict_tail``: K7 on
+the card), which never builds the full-resolution logits.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..ops import pooling as P
+from .blocks import subpixel_predict_tail
 from .registry import register
 
 
@@ -194,3 +196,8 @@ class ENet(enn.SegModel):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fullconv(self.features(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused subpixel head on ``fullconv``
+        (``blocks.subpixel_predict_tail``): no full-resolution logits."""
+        return subpixel_predict_tail(self.fullconv, self.features(x))

@@ -8,8 +8,9 @@ The reference runs the repeated blocks as ``lax.scan`` bodies
 (``nn.ScanChain``), whose variables lay out as a ``Sequential``'s
 (children "0".."n-1"): here they are plain ``nn.Sequential``s. Its
 lane-folded and space-to-depth paths are TPU layout work and have no
-counterpart. ``predict`` is the argmax of the full-resolution logits (the
-reference's fused subpixel head gives the same map up to near-ties).
+counterpart. ``predict`` is the reference's fused subpixel head on
+``head`` (``blocks.subpixel_predict_tail``: K7 on the card), which never
+builds the full-resolution logits.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from .. import nn as enn
-from .blocks import DownsamplerConcat, NonBottleneck1d, UpsamplerBlock
+from .blocks import (DownsamplerConcat, NonBottleneck1d, UpsamplerBlock,
+                     subpixel_predict_tail)
 from .registry import register
 
 
@@ -51,3 +53,8 @@ class ERFNet(enn.SegModel):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused subpixel head on ``head``
+        (``blocks.subpixel_predict_tail``): no full-resolution logits."""
+        return subpixel_predict_tail(self.head, self.features(x))

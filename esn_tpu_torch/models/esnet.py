@@ -7,9 +7,10 @@ Decoder: up(128->64), 2x FCU(64, k5); up(64->16), 2x FCU(16, k3); a 2x2
 stride-2 transposed conv -> classes. An FCU is ERFNet's non-bottleneck
 unit at kernel k.
 
-``predict`` is the argmax of the full-resolution logits (the reference's
-fused subpixel head gives the same map up to near-ties); its scanned
-chains are ``nn.Sequential`` (the same variable paths).
+``predict`` is the reference's fused subpixel head on ``head``
+(``blocks.subpixel_predict_tail``: K7 on the card), which never builds
+the full-resolution logits; its scanned chains are ``nn.Sequential``
+(the same variable paths).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from .. import nn as enn
-from .blocks import DownsamplerConcat, NonBottleneck1d, UpsamplerBlock
+from .blocks import (DownsamplerConcat, NonBottleneck1d, UpsamplerBlock,
+                     subpixel_predict_tail)
 from .registry import register
 
 
@@ -80,3 +82,8 @@ class ESNet(enn.SegModel):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused subpixel head on ``head``
+        (``blocks.subpixel_predict_tail``): no full-resolution logits."""
+        return subpixel_predict_tail(self.head, self.features(x))

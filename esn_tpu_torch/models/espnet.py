@@ -16,9 +16,9 @@ its matrix unit and are not ported: this is its plain fusion, which those
 rewrites equal up to f32 association. Its virtual-concat features are
 ``torch.cat`` here (exact in f32; in bf16 the reference rounds once per
 piece), its scanned module chains ``Sequential`` (the same variable
-paths). ESPNet's ``predict`` is the argmax of the full-resolution logits
-(the reference's fused subpixel head gives the same map up to
-near-ties).
+paths). ESPNet's ``predict`` is the reference's fused subpixel head on
+``up1`` (``blocks.subpixel_predict_tail``: K7 on the card), which never
+builds the full-resolution logits.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..ops import resize as R
-from .blocks import BNAct, ConvBNAct, InputInjection
+from .blocks import BNAct, ConvBNAct, InputInjection, subpixel_predict_tail
 from .registry import register
 
 BN_EPS = 1e-3
@@ -141,3 +141,8 @@ class ESPNet(enn.SegModel):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.up1(self.features(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused subpixel head on ``up1``
+        (``blocks.subpixel_predict_tail``): no full-resolution logits."""
+        return subpixel_predict_tail(self.up1, self.features(x))

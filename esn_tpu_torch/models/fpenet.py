@@ -8,12 +8,16 @@ output added into the next group's input (an in-block feature pyramid)
 1/4 and 1/8; decoder: two MEU (mutual embedding upsample) stages back to
 1/2, a 1x1 head, then an f32 bilinear x2 upsample. ``LOGITS_TAIL`` is
 ``"resize"`` but the model has no ``logits_lowres`` (its head sits at
-1/2, above a decoder), so predict is the argmax of the full logits and the
-CE-family losses run on them.
+1/2, above a decoder), so the CE-family losses run on the full logits.
+``predict`` is the reference's fused x2 head
+(``ops.classify.resize2x_head_argmax``: the head at 1/2, then the
+``resize_argmax`` kernel at r = 2), which never builds the
+full-resolution logits; an odd input side takes the argmax of the full
+logits, as in the reference.
 
-The reference's lane-folded and group-major FPE paths and its fused x2
-head + argmax are TPU layout work and are not ported; its scanned stages
-are ``nn.Sequential`` (the same variable paths).
+The reference's lane-folded and group-major FPE paths and the W-folded
+layout of its x2 head are TPU layout work and are not ported; its
+scanned stages are ``nn.Sequential`` (the same variable paths).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..nn.layers import _at_least_f32
+from ..ops import classify as CL
 from ..ops import pooling as P
 from ..ops import resize as R
 from .blocks import ConvBNAct, SEGate
@@ -118,3 +123,11 @@ class FPENet(enn.SegModel):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.head(self.features(x))
         return R.resize_bilinear(y.float(), tuple(x.shape[2:])).to(y.dtype)
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused x2 head (``ops.classify.resize2x_head_argmax``) where
+        H and W are even, else the argmax of the full logits."""
+        if x.shape[2] % 2 or x.shape[3] % 2:
+            return super().predict(x)
+        return CL.resize2x_head_argmax(self.features(x).permute(0, 2, 3, 1),
+                                       self.head)

@@ -4,9 +4,10 @@ counterpart of ``esn_tpu/models/fssnet.py``.
 An ENet-like stem, factorized bottlenecks at 1/4, dilated bottlenecks at
 1/8 (d = 2, 5, 9, twice), a transposed-conv decoder with additive encoder
 skips, and a 3x3 stride-2 transposed-conv head. BN eps 1e-5, PReLU
-everywhere. ``predict`` is the argmax of the full-resolution logits (the
-reference's fused subpixel head gives the same map up to near-ties); its
-scanned chains are ``nn.Sequential`` (the same variable paths).
+everywhere. ``predict`` is the reference's fused subpixel head on
+``head`` (``blocks.subpixel_predict_tail``: K7 on the card), which never
+builds the full-resolution logits; its scanned chains are
+``nn.Sequential`` (the same variable paths).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..ops import pooling as P
-from .blocks import ConvBNAct
+from .blocks import ConvBNAct, subpixel_predict_tail
 from .registry import register
 
 
@@ -152,3 +153,8 @@ class FSSNet(enn.SegModel):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused subpixel head on ``head``
+        (``blocks.subpixel_predict_tail``): no full-resolution logits."""
+        return subpixel_predict_tail(self.head, self.features(x))

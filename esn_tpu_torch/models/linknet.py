@@ -6,8 +6,9 @@ two basic blocks) and 1x1 -> 3x3 s2 transposed conv -> 1x1 decoders with
 additive skips, then a 3x3 s2 transposed conv, a 3x3 conv and a 2x2 s2
 transposed conv -> classes. The skips add tensors of equal size only when
 H and W are multiples of 32 (CamVid's 360x480 runs at 352x480), as in the
-reference. ``predict`` is the argmax of the full-resolution logits (the
-reference's fused subpixel head gives the same map up to near-ties).
+reference. ``predict`` is the reference's fused subpixel head on ``head``
+(``blocks.subpixel_predict_tail``: K7 on the card), which never builds
+the full-resolution logits.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..ops import pooling as P
-from .blocks import ConvBNAct
+from .blocks import ConvBNAct, subpixel_predict_tail
 from .registry import register
 
 
@@ -94,3 +95,8 @@ class LinkNet(enn.SegModel):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused subpixel head on ``head``
+        (``blocks.subpixel_predict_tail``): no full-resolution logits."""
+        return subpixel_predict_tail(self.head, self.features(x))

@@ -6,8 +6,9 @@ four parallel dilated 3x3 convs (d = 1, 2, 4, 8) summed at 1/16, three
 bypass-refinement stages (a 2x2 stride-2 transposed conv of the deep
 path, a 3x3 of the encoder's skip, concat, 3x3 fuse) and a 2x2 stride-2
 transposed-conv head. No BN: biased convs, then ReLU. ``predict`` is the
-argmax of the full-resolution logits (the reference's fused subpixel
-head gives the same map up to near-ties).
+reference's fused subpixel head on ``head``
+(``blocks.subpixel_predict_tail``: K7 on the card), which never builds
+the full-resolution logits.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from .. import nn as enn
 from ..ops import pooling as P
+from .blocks import subpixel_predict_tail
 from .registry import register
 
 
@@ -101,3 +103,8 @@ class SQNet(enn.SegModel):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused subpixel head on ``head``
+        (``blocks.subpixel_predict_tail``): no full-resolution logits."""
+        return subpixel_predict_tail(self.head, self.features(x))

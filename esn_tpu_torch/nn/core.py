@@ -44,7 +44,13 @@ class SegModel(nn.Module):
         (``LOGITS_TAIL = "resize"``) expose the pre-resize logits as
         ``logits_lowres``; predict then runs the fused upsample + argmax
         (``ops.classify.resize_tail_argmax``), so full-resolution class
-        logits never exist.
+        logits never exist. The reference's other fused heads are
+        algorithms, not TPU layout, and the port has them too: the seven
+        models that end in a transposed conv override ``predict`` with
+        ``models.blocks.subpixel_predict_tail`` (the class argmax per
+        subpixel phase) and FPENet with
+        ``ops.classify.resize2x_head_argmax``. The rest take the argmax of
+        the full logits here.
         """
         from ..ops.classify import argmax_lastdim, resize_tail_argmax
         if self.LOGITS_TAIL == "resize" and hasattr(self, "logits_lowres"):

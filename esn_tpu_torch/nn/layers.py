@@ -92,6 +92,16 @@ class ConvTranspose(nn.Module):
             _copy_(self.bias, init.bias_for_fan_in(kh * kw * self.in_ch)(
                 generator, self.bias.shape))
 
+    def subpixel_eligible(self) -> bool:
+        """Whether the subpixel decomposition computes this layer: a
+        stride above 1, ``k >= s`` and ``k + output_padding - 2p == s``
+        per axis (the output is ``s`` times the input), the reference's
+        rule."""
+        (sh, sw), (ph, pw) = _pair(self.stride), _pair(self.padding)
+        (oph, opw), (kh, kw) = _pair(self.output_padding), self.kernel
+        return ((sh > 1 or sw > 1) and kh >= sh and kw >= sw
+                and kh + oph - 2 * ph == sh and kw + opw - 2 * pw == sw)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return C.conv2d_transpose(x, self.weight, stride=self.stride,
                                   padding=self.padding,

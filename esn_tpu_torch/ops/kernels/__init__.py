@@ -6,7 +6,9 @@ the kernel or raises. ``_build`` compiles ``esn_tpu_torch/csrc/*.cu`` at
 first launch. K1-K4 are the counterparts of the reference's Pallas
 kernels; K5 and K6 are the port's own, the backward of the bilinear
 resize and of the adaptive pool in a fixed order (torch's CUDA backward
-adds with atomics), so that a step on the card repeats bit for bit.
+adds with atomics), so that a step on the card repeats bit for bit. K7
+is the class argmax of a final transposed conv by subpixel phases (the
+prediction head of seven models), which XLA computed on the TPU.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made in this
 process: a run can show that its path went through the kernels.
@@ -17,7 +19,7 @@ import torch
 
 LAUNCHES = {"dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
             "resize_ce_bwd": 0, "cgblock": 0, "resize_bilinear_bwd": 0,
-            "adaptive_pool_bwd": 0}
+            "adaptive_pool_bwd": 0, "subpixel_argmax": 0}
 
 
 def reset_launches() -> None:
@@ -57,3 +59,5 @@ from .resize_bilinear_bwd import (BilinearResize,  # noqa: E402,F401
                                   resize_bilinear_bwd,
                                   resize_bilinear_bwd_ref)
 from .resize_ce import resize_ce_sums, resize_ce_sums_ref  # noqa: E402,F401
+from .subpixel_argmax import (subpixel_argmax,  # noqa: E402,F401
+                              subpixel_argmax_ref)

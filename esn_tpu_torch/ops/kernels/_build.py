@@ -113,6 +113,7 @@ SIGNATURES = {
     "esn_cgblock_pre": ([_VP] * 13 + [_I32] * 7 + [_VP], _I32),
     "esn_resize_bilinear_bwd": ([_VP] * 4, _I32),
     "esn_adaptive_pool_bwd": ([_VP] * 4, _I32),
+    "esn_subpixel_argmax": ([_VP] * 4 + [_I32, _VP, _VP], _I32),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -36,7 +36,8 @@ torch thread each, all started together). ``--plant`` trains with a
 fault planted, to show that the bound can fail: ``lr0`` a learning rate
 of 0, ``mirrored_labels`` the train labels mirrored left to right and
 their images not. ``--device cpu --write`` re-pins ``golden_torch.json``
-(CPU, float32). On the card float32 runs with TF32 off. ``--out`` also
+(CPU, float32). On the card float32 runs with TF32 off and cuDNN
+deterministic, so that it repeats as bf16 does. ``--out`` also
 records the kernel launches of the process's runs (``launches``). Exits
 non-zero when a config breaks its bound.
 """
@@ -149,7 +150,8 @@ def run_one(name: str, data_root: str, savedir: str, *, device: str = "cpu",
     """Train config ``name`` with the port's Trainer: the loss of each
     epoch, the final mIoU and the per-class IoU, and the seconds taken.
     ``dtype`` None is float32 on the CPU and bfloat16 on the card; on
-    the card float32 runs with TF32 off. ``plant`` one of ``PLANTS``;
+    the card float32 runs with TF32 off and cuDNN deterministic (a run
+    repeats bit for bit). ``plant`` one of ``PLANTS``;
     ``overrides`` change config fields (``seed``)."""
     import torch
     from ..train.trainer import TrainConfig, Trainer
@@ -159,10 +161,14 @@ def run_one(name: str, data_root: str, savedir: str, *, device: str = "cpu",
         overrides["lr"] = 0.0
     cfg = TrainConfig(data_root=data_root, savedir=savedir, device=device,
                       compute_dtype=dtype, **dict(CONFIGS[name], **overrides))
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's f32 weight gradients otherwise differ run to run, and an f32
+    # run on the card would be another draw in every process
+    torch.backends.cudnn.deterministic = dtype == "float32"
     try:
         t0 = time.perf_counter()
         tr = Trainer(cfg)
@@ -173,7 +179,8 @@ def run_one(name: str, data_root: str, savedir: str, *, device: str = "cpu",
         seconds = time.perf_counter() - t0
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
     return {"seed": cfg.seed, "losses": losses, "miou": float(miou),
             "per_class_iou": [round(float(v), 6) for v in iou],
             "seconds": seconds}

@@ -8,9 +8,10 @@ structure from ``jax.eval_shape`` of the reference init), converted with
 convs) and run through both packages on the same inputs. The reference
 runs its plain paths (``PLAIN_ENV``): no lane folding, no group-major
 FPE blocks, no space-to-depth, scan chains unrolled (their variables lay
-out as a ``Sequential``'s, the port's plain ``nn.Sequential``), and its
-predict takes the argmax of the full logits (no fused subpixel or x2
-head). Its jitted functions stand in for eager calls (5-10x quicker).
+out as a ``Sequential``'s, the port's plain ``nn.Sequential``); its
+predict is its default, the fused subpixel or x2 head where the model has
+one, as the port's. Its jitted functions stand in for eager calls (5-10x
+quicker).
 """
 import contextlib
 from functools import partial
@@ -38,8 +39,7 @@ from esn_tpu_torch.train.step import make_predict_step, make_train_step
 
 CLASSES = 19
 PLAIN_ENV = ("ESN_TPU_FOLD", "ESN_TPU_FPE_FOLDED", "ESN_TPU_FOLD_DW",
-             "ESN_TPU_S2D_CONV", "ESN_TPU_S2D_STEM", "ESN_TPU_SCAN_CHAIN",
-             "ESN_TPU_FUSED_PREDICT")
+             "ESN_TPU_S2D_CONV", "ESN_TPU_S2D_STEM", "ESN_TPU_SCAN_CHAIN")
 # One adam + poly step against the reference's math in f64 (the oracle):
 # the loss within LOSS_REL (f32 and f64 runs of the port); per-leaf
 # gradient rel-L2 of the port's model run in f64 (the loss stays f32)
@@ -278,10 +278,10 @@ def port_logits(model, images, dtype, method=None):
 
 
 def check_predict(jmodel, variables, model, images, tol):
-    """The port's predict against the reference's (argmax of its full
-    logits), f32: mismatch rate <= 1e-4, and only at near-ties, where the
-    reference's f32 logits of the two classes lie within ``tol``
-    (relative to max(1, |logit|)) of each other."""
+    """The port's predict against the reference's (its default: the fused
+    head where the model has one), f32: mismatch rate <= 1e-4, and only
+    at near-ties, where the reference's f32 logits of the two classes lie
+    within ``tol`` (relative to max(1, |logit|)) of each other."""
     want = np.asarray(jax_make_predict_step(jmodel)(variables, nhwc(images)))
     got = make_predict_step(model)(torch.from_numpy(images)).numpy()
     assert got.dtype == np.int32 and got.shape == want.shape

@@ -384,6 +384,26 @@ def test_resize_argmax_kernel_is_deterministic(cuda):
     assert torch.equal(K.resize_argmax(y, 8), K.resize_argmax(y, 8))
 
 
+def test_resize_argmax_kernel_at_r2(cuda):
+    """K1 at r = 2 (FPENet's x2 head), at a batch-2 slice of its config-3
+    shape and at an odd one: the plain version's map but at near-ties,
+    two launches bit for bit."""
+    for shape in ((2, 128, 256, 19), (1, 17, 45, 19)):
+        for dtype in (torch.float32, torch.bfloat16):
+            y = torch.from_numpy(np.random.RandomState(10).randn(*shape)
+                                 .astype(np.float32)).to(cuda, dtype)
+            got, want = K.resize_argmax(y, 2), K.resize_argmax_ref(y, 2)
+            up = torch.nn.functional.interpolate(
+                y.permute(0, 3, 1, 2).float(), scale_factor=2,
+                mode="bilinear", align_corners=False)
+            a = up.gather(1, got.long()[:, None])[:, 0]
+            b = up.gather(1, want.long()[:, None])[:, 0]
+            gap = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            tol = gap * torch.clamp(torch.maximum(a.abs(), b.abs()), min=1.0)
+            assert bool(((a - b).abs() <= tol).all())
+            assert torch.equal(got, K.resize_argmax(y, 2))
+
+
 def test_resize_argmax_first_max(cuda):
     got = K.resize_argmax(torch.zeros((1, 4, 8, 6), device=cuda), 2)
     assert bool((got == 0).all())
@@ -589,7 +609,8 @@ def test_fastscnn_train_step_on_cuda_matches_cpu(cuda):
     assert none == {k: 0 for k in none}
     assert launched == {"dsconv": 0, "resize_argmax": 0,
                         "resize_ce_fwd": 1, "resize_ce_bwd": 1, "cgblock": 0,
-                        "resize_bilinear_bwd": 5, "adaptive_pool_bwd": 4}
+                        "resize_bilinear_bwd": 5, "adaptive_pool_bwd": 4,
+                        "subpixel_argmax": 0}
     assert abs(got - want) <= 1e-5 * abs(want)
     excess = {}
     for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
@@ -737,7 +758,8 @@ def test_cgnet_predict_on_cuda_matches_cpu(cuda):
     launched = {k: K.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"dsconv": 0, "resize_argmax": 1, "resize_ce_fwd": 0,
                         "resize_ce_bwd": 0, "cgblock": 22,
-                        "resize_bilinear_bwd": 0, "adaptive_pool_bwd": 0}
+                        "resize_bilinear_bwd": 0, "adaptive_pool_bwd": 0,
+                        "subpixel_argmax": 0}
     assert got.shape == want.shape and got.dtype == torch.int32
     assert (got.cpu() != want).float().mean() <= 1e-4
 
@@ -807,7 +829,8 @@ def _calibrated(arch="enet", seed=0, hw=(64, 128)):
 
 def test_enet_predict_and_eval_on_cuda_match_cpu(cuda):
     """f32 predict on the card == the CPU's except at near-ties (rate <=
-    1e-4); no kernel of the other models' paths launches; the eval step's
+    1e-4); K7 (its fused head) launches once, no other kernel; the eval
+    step's
     confusion matrix differs by at most two entries a mismatched pixel."""
     import copy
     from esn_tpu_torch.train.step import make_eval_step
@@ -821,7 +844,8 @@ def test_enet_predict_and_eval_on_cuda_match_cpu(cuda):
     want = make_predict_step(cpu)(images)
     before = dict(K.LAUNCHES)
     got = make_predict_step(gpu)(images.to(cuda))
-    assert K.LAUNCHES == before
+    assert K.LAUNCHES == {**before,
+                          "subpixel_argmax": before["subpixel_argmax"] + 1}
     assert got.shape == want.shape and got.dtype == torch.int32
     assert len(torch.unique(want)) > 3
     mismatched = int((got.cpu() != want).sum())
@@ -890,7 +914,7 @@ def test_ce_ohem_train_step_on_cuda_matches_cpu(cuda, arch, hw, grad_rel):
     assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
         "dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
         "resize_ce_bwd": 0, "cgblock": 0, "resize_bilinear_bwd": k5,
-        "adaptive_pool_bwd": k6}
+        "adaptive_pool_bwd": k6, "subpixel_argmax": 0}
     want, got = losses
     assert abs(got - want) <= 1e-5 * abs(want)
     excess = {}
@@ -906,7 +930,8 @@ def test_ce_ohem_train_step_on_cuda_matches_cpu(cuda, arch, hw, grad_rel):
         torch.testing.assert_close(b2.cpu(), b, atol=1e-4, rtol=1e-4)
 
 
-# launches of one predict (K2 dsconv, K1 resize_argmax) and, where the
+# launches of one predict (K2 dsconv, K1 resize_argmax, K7
+# subpixel_argmax) and, where the
 # card's and the CPU's class maps differ, how close the CPU's f32 logits
 # of the two classes lie, relative to max(1, |logit|): twice the f32
 # logit tolerance of the model's CPU parity test against the reference
@@ -917,22 +942,25 @@ def test_ce_ohem_train_step_on_cuda_matches_cpu(cuda, arch, hw, grad_rel):
 # between the devices where two values of a window lie within f32
 # rounding (chip_smoke.py's zoo phases hold it outside those windows'
 # fields).
+_K7 = {"dsconv": 0, "resize_argmax": 0, "subpixel_argmax": 1}
+_K1 = {"dsconv": 0, "resize_argmax": 1, "subpixel_argmax": 0}
+_NONE = {"dsconv": 0, "resize_argmax": 0, "subpixel_argmax": 0}
 ZOO_PREDICT = {
-    "contextnet": ({"dsconv": 5, "resize_argmax": 1}, 2e-4),
-    "edanet": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
-    "erfnet": ({"dsconv": 0, "resize_argmax": 0}, 4e-3),
-    "segnet": ({"dsconv": 0, "resize_argmax": 0}, None),
-    "linknet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
-    "espnetv2": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
-    "dabnet": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
-    "espnet_c": ({"dsconv": 0, "resize_argmax": 1}, 2e-4),
-    "espnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
-    "lednet": ({"dsconv": 0, "resize_argmax": 1}, 4e-3),
-    "esnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-3),
-    "fpenet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
-    "fssnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
-    "sqnet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
-    "unet": ({"dsconv": 0, "resize_argmax": 0}, 2e-4),
+    "contextnet": ({**_K1, "dsconv": 5}, 2e-4),
+    "edanet": (_K1, 2e-4),
+    "erfnet": (_K7, 4e-3),
+    "segnet": (_NONE, None),
+    "linknet": (_K7, 2e-4),
+    "espnetv2": (_K1, 2e-4),
+    "dabnet": (_K1, 2e-4),
+    "espnet_c": (_K1, 2e-4),
+    "espnet": (_K7, 2e-4),
+    "lednet": (_K1, 4e-3),
+    "esnet": (_K7, 2e-3),
+    "fpenet": (_K1, 2e-4),
+    "fssnet": (_K7, 2e-4),
+    "sqnet": (_K7, 2e-4),
+    "unet": (_NONE, 2e-4),
 }
 
 
@@ -940,8 +968,9 @@ ZOO_PREDICT = {
 def test_zoo_predict_on_cuda_matches_cpu(cuda, arch):
     """f32 predict of the port's zoo at 2x3x64x128 on the card == the
     CPU's, except at near-ties (rate <= 1e-3); the kernels a predict
-    launches (ContextNet: K2 x5 and K1; EDANet, ESPNetv2, DABNet, ESPNet-C
-    and LEDNet: K1; the others none)."""
+    launches (ContextNet: K2 x5 and K1; EDANet, ESPNetv2, DABNet, ESPNet-C,
+    LEDNet and FPENet (r = 2): K1; ENet, ERFNet, LinkNet, ESPNet, ESNet,
+    FSSNet and SQNet: K7; SegNet and UNet none)."""
     import copy
     launches, gap = ZOO_PREDICT[arch]
     cpu = _calibrated(arch)
@@ -965,6 +994,130 @@ def test_zoo_predict_on_cuda_matches_cpu(cuda, arch):
         b = logits.gather(1, want[diff].long()[:, None])
         assert bool(((a - b).abs() <= gap * torch.clamp(b.abs(), min=1))
                     .all())
+
+
+# K7, the subpixel class argmax of a final stride-2 transposed conv,
+# against its plain version: where the two maps differ, the exact logits
+# of the two classes lie within the gap rule (SA.gap_rule: f32 sums in
+# other orders; in bf16 the plain version also rounds the phase logit and
+# its sum with the bias). Both head geometries of the zoo (k2s2p0,
+# k3s2p1op1), I in {16, 19, 32} (19: ESPNet's, no 16-byte loads), O in
+# {11, 19}, bias or none, odd H and W (the phase-1 taps of k3s2p1op1 reach
+# past the last row and column).
+SA = importlib.import_module("esn_tpu_torch.ops.kernels.subpixel_argmax")
+K7_GEOMETRIES = {"k2s2p0": (2, 0), "k3s2p1op1": (3, 1)}
+
+
+def _k7_args(seed, shape, cout, k, bias, dtype, device):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
+    cin = shape[-1]
+    return (t(rng.randn(*shape)).to(dtype),
+            t(rng.randn(cin, cout, k, k) / np.sqrt(cin * k)),
+            t(rng.randn(cout) * 0.1) if bias else None)
+
+
+def _k7_check(x, w, b, p, got, want):
+    diff = got != want
+    if bool(diff.any()):
+        gap, mag = SA.argmax_gap(x, w, b, got, want, stride=(2, 2),
+                                 padding=(p, p))
+        rule = SA.gap_rule(x.dtype, w, (2, 2), (p, p))
+        assert bool((gap <= rule * mag)[diff].all())
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", sorted(K7_GEOMETRIES))
+@pytest.mark.parametrize("shape, cout, bias", [
+    ((2, 37, 53, 16), 19, False),     # ENet's head, odd H and W
+    ((2, 37, 53, 16), 11, True),      # ERFNet's, CamVid's classes
+    ((2, 20, 33, 19), 19, False),     # ESPNet's I = 19
+    ((1, 21, 30, 32), 19, True),      # SQNet's and LinkNet's I = 32
+    ((1, 1, 1, 8), 5, True),          # one pixel, 5 classes
+    ((2, 64, 128, 16), 19, True),     # FSSNet's head at 128x256
+])
+def test_subpixel_argmax_kernel_matches_plain(cuda, shape, cout, bias,
+                                              geometry, dtype):
+    k, p = K7_GEOMETRIES[geometry]
+    x, w, b = _k7_args(4, shape, cout, k, bias, dtype, cuda)
+    before = K.LAUNCHES["subpixel_argmax"]
+    got = K.subpixel_argmax(x, w, b, stride=2, padding=p)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["subpixel_argmax"] == before + 1
+    want = K.subpixel_argmax_ref(x, w, b, stride=2, padding=p)
+    n, h, wd, _ = shape
+    assert got.shape == want.shape == (n, 2 * h, 2 * wd)
+    assert got.dtype == torch.int32
+    mismatched = _k7_check(x, w, b, p, got, want)
+    if dtype == torch.float32:
+        assert mismatched <= 1 + 1e-4 * got.numel()
+    assert torch.equal(got, K.subpixel_argmax(x, w, b, stride=2, padding=p))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subpixel_argmax_kernel_takes_misaligned_x(cuda, dtype):
+    """x one element off a 16-byte boundary: the element-by-element loads,
+    equal to an aligned copy's map bit for bit."""
+    x, w, b = _k7_args(5, (2, 11, 17, 16), 19, 3, True, dtype, cuda)
+    es, nbytes = x.element_size(), x.numel() * x.element_size()
+    buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=cuda)
+    shifted = buf[es:es + nbytes].view(dtype).view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    assert torch.equal(K.subpixel_argmax(x, w, b, stride=2, padding=1),
+                       K.subpixel_argmax(shifted, w, b, stride=2, padding=1))
+
+
+def test_subpixel_argmax_first_max(cuda):
+    """Classes 3 and 7 with the same weights and bias (100 above the rest)
+    tie at every pixel; zero features tie every class (no bias): the
+    first class wins, as the plain version's."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, b = _k7_args(6, (2, 9, 13, 16), 11, 3, True, dtype, cuda)
+        w[:, 7] = w[:, 3]
+        b.zero_()
+        b[[3, 7]] = 100.0
+        got = K.subpixel_argmax(x, w, b, stride=2, padding=1)
+        assert bool((got == 3).all())
+        got = K.subpixel_argmax(torch.zeros_like(x), w, None, stride=2,
+                                padding=1)
+        assert bool((got == 0).all())
+
+
+def test_subpixel_argmax_wrapper_raises_on_cuda(cuda):
+    x, w, b = _k7_args(7, (1, 4, 6, 16), 11, 2, True, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.subpixel_argmax(x.transpose(1, 2), w, b, stride=2, padding=0)
+    with pytest.raises(TypeError, match="dtype"):
+        K.subpixel_argmax(x.half(), w, b, stride=2, padding=0)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.subpixel_argmax(x, torch.cat([w] * 4, 1), None, stride=2,
+                          padding=0)                       # 44 classes
+    with pytest.raises(ValueError, match="no kernel"):
+        K.subpixel_argmax(x, w.repeat(1, 1, 2, 2)[:, :, :3, :3], b,
+                          stride=3, padding=0)             # stride 3
+    with pytest.raises(ValueError, match="device"):
+        K.subpixel_argmax(x, w.cpu(), b, stride=2, padding=0)
+
+
+@pytest.mark.parametrize("arch", ["enet", "espnet", "linknet"])
+def test_head_predict_on_cuda_matches_cpu(cuda, arch):
+    """f32 predict through K7 on the card == the CPU's (K7's plain
+    version) but at near-ties (rate <= 1e-3); one K7 launch a predict and
+    no other kernel."""
+    import copy
+    cpu = _calibrated(arch)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    images = torch.from_numpy(np.random.RandomState(3)
+                              .randn(2, 3, 64, 128).astype(np.float32))
+    want = make_predict_step(cpu)(images)
+    before = dict(K.LAUNCHES)
+    got = make_predict_step(gpu)(images.to(cuda)).cpu()
+    launched = {k: v - before[k] for k, v in K.LAUNCHES.items()}
+    assert launched == {**{k: 0 for k in launched}, "subpixel_argmax": 1}
+    assert got.shape == want.shape and len(torch.unique(want)) > 3
+    assert float((got != want).float().mean()) <= 1e-3
 
 
 @pytest.mark.parametrize("shape, kernel, dilation", [
@@ -1179,7 +1332,8 @@ def test_remat_step_on_cuda_matches_the_step_without(cuda, loss_name):
                                       "resize_ce_fwd": k3,
                                       "resize_ce_bwd": k3, "cgblock": 0,
                                       "resize_bilinear_bwd": 6 - k3,
-                                      "adaptive_pool_bwd": 4}
+                                      "adaptive_pool_bwd": 4,
+                                      "subpixel_argmax": 0}
     gap = float((g_r - g).norm() / g.norm())
     noise = float((g_again - g).norm() / g.norm())
     assert gap <= 4 * noise + 1e-6, (gap, noise)

@@ -448,8 +448,8 @@ def test_logits_match_reference(pair, images):
 
 
 def test_predict_step_matches_reference(pair, images):
-    """The port's argmax of the full-resolution logits against the
-    reference's ``method="predict"`` (its fused subpixel head): mismatch
+    """The port's fused subpixel head against the reference's
+    ``method="predict"`` (its fused subpixel head): mismatch
     rate <= 1e-4, and only at near-ties, where the reference's f32 logits
     of the two classes lie within 1e-4 (relative) of each other."""
     jmodel, variables, model = pair

@@ -345,7 +345,7 @@ def test_logits_match_reference(pair, images, dtype):
 
 
 def test_predict_step_matches_reference(pair, images, monkeypatch):
-    """The port's predict (ERFNet: argmax of the full logits; EDANet: the
+    """The port's predict (ERFNet: the fused subpixel head; EDANet: the
     fused upsample + argmax, one ``resize_argmax`` call at r = 8) against
     the reference's (ERFNet's fused subpixel head), f32: mismatch rate <=
     1e-4, and only at near-ties, where the reference's f32 logits of the

@@ -350,7 +350,7 @@ def test_logits_match_reference(pair, images, dtype, hff, monkeypatch):
 
 def test_predict_step_matches_reference(pair, images):
     """The port's predict (ESPNet-C: the fused upsample + argmax; ESPNet:
-    the argmax of its full logits) against the reference's default
+    the fused subpixel head on ``up1``) against the reference's default
     (ESPNet's subpixel head, ``ESN_TPU_FUSED_PREDICT=1``), f32: mismatch
     rate <= 1e-4, and only at near-ties, where the reference's f32 logits
     of the two classes lie within twice FUSED_TOL (relative) of each
@@ -377,25 +377,30 @@ def test_paths_take_the_kernels(arch, images, monkeypatch):
     """The routes the card's launch counts confirm, seen here through the
     wrappers' calls: ESPNet-C's predict calls ``resize_argmax`` once on the
     1/8 logits at r = 8 and its weighted-CE step ``resize_ce_sums`` once
-    on ``logits_lowres``; ESPNet's predict and CE step call no kernel."""
+    on ``logits_lowres``; ESPNet's predict calls ``subpixel_argmax`` once
+    on the 1/2-resolution features under ``up1`` (stride 2), its CE step
+    no kernel."""
     calls = []
 
     def spy(name):
         real = getattr(K, name)
 
         def wrapper(*args, **kw):
-            calls.append((name, tuple(args[0].shape), kw.get("r") or args[1]))
+            calls.append((name, tuple(args[0].shape),
+                          kw.get("r") or kw.get("stride") or args[1]))
             return real(*args, **kw)
         monkeypatch.setattr(K, name, wrapper)
     for name in ("fused_dsconv", "resize_argmax", "resize_ce_sums",
-                 "fused_cgblock_pre"):
+                 "fused_cgblock_pre", "subpixel_argmax"):
         spy(name)
     model = build_model(arch, CLASSES, device="cpu")
     make_predict_step(model)(torch.from_numpy(images))
     h, w = HW
     low = (2, h // 8, w // 8, CLASSES)
     resize = arch == "espnet_c"
-    assert calls == ([("resize_argmax", low, 8)] if resize else [])
+    assert calls == ([("resize_argmax", low, 8)] if resize else
+                     [("subpixel_argmax", (2, h // 2, w // 2, CLASSES),
+                       (2, 2))])
     calls.clear()
     fused, method = L.fused_resize_ce_spec(model, "ce")
     assert method == ("logits_lowres" if resize else None)

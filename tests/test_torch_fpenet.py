@@ -187,22 +187,26 @@ def test_logits_match_reference(pair, images, dtype):
 
 
 def test_predict_step_matches_reference(pair, images):
-    """The port's predict, the argmax of the full logits, against the
-    reference's (its fused x2 head + argmax off)."""
+    """The port's predict (the 1x1 head at 1/2, then the fused x2
+    upsample + argmax) against the reference's (its fused x2 head)."""
     jmodel, variables, model = pair
     check_predict(jmodel, variables, model, images, 2 * LOGIT_TOL)
 
 
 def test_paths_take_no_kernel(images, monkeypatch):
-    """A predict and a weighted-CE train step call none of the kernels'
-    wrappers: the CE runs on the full logits."""
+    """A predict calls one kernel wrapper, ``resize_argmax`` at r = 2 on
+    the 1/2-resolution logits (its fused x2 head); a weighted-CE train
+    step calls none: the CE runs on the full logits."""
     calls = []
     for name in ("fused_dsconv", "resize_argmax", "resize_ce_sums",
-                 "fused_cgblock_pre"):
+                 "fused_cgblock_pre", "subpixel_argmax"):
         monkeypatch.setattr(K, name, partial(
-            lambda name, *a, **k: calls.append(name), name))
+            lambda name, real, *a, **k: calls.append(name) or real(*a, **k),
+            name, getattr(K, name)))
     model = build_model("fpenet", CLASSES, device="cpu")
     make_predict_step(model)(torch.from_numpy(images))
+    assert calls == ["resize_argmax"]
+    calls.clear()
     step = make_train_step(model, partial(L.cross_entropy,
                                           num_classes=CLASSES),
                            O.build_optimizer("adam", model.parameters()))

@@ -221,23 +221,27 @@ def test_logits_match_reference(pair, images, dtype):
 
 
 def test_predict_step_matches_reference(pair, images):
-    """The port's predict, the argmax of the full logits, against the
-    reference's (its fused subpixel head off)."""
+    """The port's predict against the reference's (FSSNet and SQNet: the
+    fused subpixel head; UNet: the argmax of the full logits)."""
     jmodel, variables, model = pair
     check_predict(jmodel, variables, model, images,
                   2 * LOGIT_TOL[type(model).__name__.lower()])
 
 
 def test_paths_take_no_kernel(arch, images, monkeypatch):
-    """A predict and a weighted-CE train step call none of the kernels'
-    wrappers."""
+    """A predict calls ``subpixel_argmax`` once (FSSNet's and SQNet's
+    fused head) or no kernel wrapper (UNet); a weighted-CE train step
+    calls none."""
     calls = []
     for name in ("fused_dsconv", "resize_argmax", "resize_ce_sums",
-                 "fused_cgblock_pre"):
+                 "fused_cgblock_pre", "subpixel_argmax"):
         monkeypatch.setattr(K, name, partial(
-            lambda name, *a, **k: calls.append(name), name))
+            lambda name, real, *a, **k: calls.append(name) or real(*a, **k),
+            name, getattr(K, name)))
     model = build_model(arch, CLASSES, device="cpu", **KW[arch])
     make_predict_step(model)(torch.from_numpy(images))
+    assert calls == ([] if arch == "unet" else ["subpixel_argmax"])
+    calls.clear()
     assert L.fused_resize_ce_spec(model, "ce") == (None, None)
     step = make_train_step(model, partial(L.cross_entropy,
                                           num_classes=CLASSES),

@@ -189,7 +189,7 @@ def test_logits_match_reference(pair, images, dtype):
 
 def test_predict_step_matches_reference(pair, images):
     """The port's predict (LEDNet: the fused upsample + argmax; ESNet: the
-    argmax of the full logits) against the reference's."""
+    fused subpixel head) against the reference's (the same)."""
     jmodel, variables, model = pair
     check_predict(jmodel, variables, model, images,
                   2 * LOGIT_TOL[type(model).__name__.lower()])
@@ -199,24 +199,28 @@ def test_paths_take_the_kernels(arch, images, monkeypatch):
     """The routes the card's launch counts confirm, seen here through the
     wrappers' calls: a LEDNet predict calls ``resize_argmax`` once on the
     1/8 logits at r = 8 and a weighted-CE train step ``resize_ce_sums``
-    once; ESNet calls none."""
+    once; an ESNet predict calls ``subpixel_argmax`` once on the 16
+    channels under its head (stride 2), its train step none."""
     calls = []
 
     def spy(name):
         real = getattr(K, name)
 
         def wrapper(*args, **kw):
-            calls.append((name, tuple(args[0].shape), kw.get("r") or args[1]))
+            calls.append((name, tuple(args[0].shape),
+                          kw.get("r") or kw.get("stride") or args[1]))
             return real(*args, **kw)
         monkeypatch.setattr(K, name, wrapper)
     for name in ("fused_dsconv", "resize_argmax", "resize_ce_sums",
-                 "fused_cgblock_pre"):
+                 "fused_cgblock_pre", "subpixel_argmax"):
         spy(name)
     model = build_model(arch, CLASSES, device="cpu")
     make_predict_step(model)(torch.from_numpy(images))
     low = (2, HW[0] // 8, HW[1] // 8, CLASSES)
     lednet = arch == "lednet"
-    assert calls == ([("resize_argmax", low, 8)] if lednet else [])
+    assert calls == ([("resize_argmax", low, 8)] if lednet else
+                     [("subpixel_argmax", (2, HW[0] // 2, HW[1] // 2, 16),
+                       (2, 2))])
     calls.clear()
     fused, method = L.fused_resize_ce_spec(model, "ce")
     assert method == ("logits_lowres" if lednet else None)

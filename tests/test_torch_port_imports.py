@@ -96,7 +96,7 @@ def test_port_imports_no_jax_and_predicts_on_cpu():
     assert out["launches"] == {"dsconv": 0, "resize_argmax": 0,
                                "resize_ce_fwd": 0, "resize_ce_bwd": 0,
                                "cgblock": 0, "resize_bilinear_bwd": 0,
-                               "adaptive_pool_bwd": 0}
+                               "adaptive_pool_bwd": 0, "subpixel_argmax": 0}
 
 
 _PNG_PROBE = r"""

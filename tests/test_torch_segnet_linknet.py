@@ -293,8 +293,8 @@ def test_logits_match_reference(pair, images, dtype):
 
 
 def test_predict_step_matches_reference(pair, images):
-    """The port's predict (the argmax of the full logits) against the
-    reference's (LinkNet's fused subpixel head, SegNet's argmax), f32:
+    """The port's predict (LinkNet's fused subpixel head, SegNet's argmax
+    of the full logits) against the reference's (the same), f32:
     mismatch rate <= 1e-4, and only at near-ties, where the reference's
     f32 logits of the two classes lie within twice LOGIT_TOL (relative)
     of each other."""
