@@ -12,7 +12,8 @@ shapes (K3 at z (8,128,256,19) r=8, K1 bf16 and f32 at y (8,128,256,19)
 r=8, K2 bf16 at Fast-SCNN's ltd.ds1, ltd.ds2 and head.ds1, K4 bf16 at
 CGNet's stage2 and stage3, K5 and K6 at Fast-SCNN's config-5 train step:
 PPM's four upsamples, the fusion's x4 and the x8 full-resolution tail,
-PPM's four pools) with CUDA events, in turns (all builds, then
+PPM's four pools, K7 bf16 and f32 at ENet's config-5 head and FSSNet's
+config-3 head) with CUDA events, in turns (all builds, then
 all again in reverse order). A phase's cost is read as the full time less
 the time without it; phases that overlap do not add up. The copies
 compute wrong results and are used for nothing else. K4 is also timed
@@ -20,11 +21,11 @@ under other plans than its planner's (``CGBLOCK_PLANS``: strip width, rows
 a step, x buffers, rows a unit), which compute the same result. Each edit
 must occur exactly once in its source (``edit``), so an edit of a kernel
 that moves or repeats a phase makes this script fail rather than time
-something else. K5 and K6 are timed through their Python wrappers with
+something else. K5, K6 and K7 are timed through their Python wrappers with
 each build loaded in turn as the kernel library, and PPM's forward and
 backward at config 5 is read under ``torch.profiler`` (the device time of
 each kernel, K5's and K6's among them). Names given on the command line
-(``resize_bilinear_bwd adaptive_pool_bwd ppm`` ...) run only those
+(``resize_bilinear_bwd adaptive_pool_bwd ppm subpixel_argmax`` ...) run only those
 kernels. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -133,6 +134,28 @@ PHASES = {
         # the channels_last 16-byte stores
         "store": [("        store16(gx + out0 + xl * c + ch, acc);",
                    "        if (acc[0] == (A)123.25) store16(gx + out0 + xl * c + ch, acc);")],
+    }),
+    # K7, the subpixel class argmax (first design: f32 FMAs, x read by tap)
+    "subpixel_argmax": ("subpixel_argmax.cu", {
+        # the x loads of each tap (16-byte route); the values stay live
+        "staging": [("      const uint4 u0 = v0 ? *reinterpret_cast<const uint4*>(r0 + c) : zero;\n"
+                     "      const uint4 u1 = v1 ? *reinterpret_cast<const uint4*>(r1 + c) : zero;",
+                     "      const uint4 u0 = make_uint4(c, v0, 0, 0), u1 = make_uint4(c, v1, 0, 0);\n"
+                     "      (void)zero;")],
+        # the multiply-adds against the weight rows: one a channel kept
+        "products": [("      for (int k = 0; k < V; ++k) fma_row<OMAX>(f0[k], f1[k], wt + (c + k) * OMAX, a0, a1);",
+                      "      for (int k = 0; k < V; ++k) a0[k] = fmaf(f0[k], wt[c + k], a1[k] += f1[k]);")],
+        # the first-max compare chain: a plain sum of the classes instead
+        "argmax": [("        cls[0][rw] = argmax<OMAX>(a0, bs, g.co);\n"
+                    "        cls[1][rw] = argmax<OMAX>(a1, bs, g.co);",
+                    "        float s0 = bs[0], s1 = bs[0];\n"
+                    "#pragma unroll\n"
+                    "        for (int o = 0; o < OMAX; ++o) s0 += a0[o], s1 += a1[o];\n"
+                    "        cls[0][rw] = __float_as_int(s0), cls[1][rw] = __float_as_int(s1);")],
+        # the map's stores: one the compiler cannot rule out
+        "stores": [("      *reinterpret_cast<int2*>(o) = make_int2(cls[0][0], cls[0][1]);\n"
+                    "      if (two) *reinterpret_cast<int2*>(o + 2) = make_int2(cls[1][0], cls[1][1]);",
+                    "      if (cls[0][0] + cls[1][1] == g.w) *o = cls[0][1] + cls[1][0];")],
     }),
 }
 
@@ -249,6 +272,8 @@ def main(argv: list[str]) -> int:
         return {phase: lib for (k, phase), lib in libs.items() if k == kernel}
 
     bwd_phases(torch, libs, names, gen)
+    if "subpixel_argmax" in names:
+        subpixel_phases(torch, libs, gen)
     if "ppm" in names:
         ppm_profile(torch)
     if not names & {"resize_ce_fwd", "resize_ce_bwd", "resize_argmax",
@@ -363,6 +388,55 @@ BWD_SHAPES = (
       for b in (1, 2, 3, 6)))
 
 
+def through_wrapper(libs, kernel, call) -> dict:
+    """{phase: a call of ``call`` (a wrapper's launch) with that build of
+    ``kernel`` loaded as the kernel library}."""
+    from esn_tpu_torch.ops.kernels import _build
+    calls = {}
+    for (k, phase), lib in libs.items():
+        if k != kernel:
+            continue
+        for name, (argtypes, restype) in _build.SIGNATURES.items():
+            if hasattr(lib, name):
+                entry = getattr(lib, name)
+                entry.argtypes, entry.restype = argtypes, restype
+
+        def swapped(lib=lib):
+            _build._LIB = lib
+            call()
+        calls[phase] = swapped
+    return calls
+
+
+# K7's shapes: ENet's config-5 head and FSSNet's config-3 head at batch 8
+# (label, x (N, H, W, I), classes, kernel, padding, bias)
+K7_SHAPES = (("enet config-5 head", (8, 512, 1024, 16), 19, 3, 1, False),
+             ("fssnet config-3 head", (8, 256, 512, 16), 19, 3, 1, True))
+
+
+def subpixel_phases(torch, libs, gen) -> None:
+    """K7 at K7_SHAPES, bf16 and f32, each build of its source loaded in
+    turn as the library the wrapper calls."""
+    import math
+    from esn_tpu_torch.ops import kernels as K
+    from esn_tpu_torch.ops.kernels import _build
+    for label, shape, cout, k, p, bias in K7_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            cin = shape[-1]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randn((cin, cout, k, k), generator=gen,
+                            device="cuda") / math.sqrt(cin * k)
+            b = (torch.randn((cout,), generator=gen, device="cuda") * 0.1
+                 if bias else None)
+            calls = through_wrapper(libs, "subpixel_argmax", lambda: K.subpixel_argmax(
+                x, w, b, stride=(2, 2), padding=(p, p)))
+            report(f"subpixel_argmax {str(dtype).split('.')[-1]} {label} {shape} -> {cout} "
+                   f"k{k}", in_turns(torch, calls))
+            del x
+            torch.cuda.empty_cache()
+    _build._LIB = None
+
+
 def bwd_phases(torch, libs, names, gen) -> None:
     """K5 and K6 at BWD_SHAPES (channels_last), each build of their
     sources loaded in turn as the library the wrappers call."""
@@ -376,19 +450,7 @@ def bwd_phases(torch, libs, names, gen) -> None:
         g = torch.randn(g_shape, generator=gen, device="cuda").to(
             getattr(torch, dtype)).contiguous(memory_format=torch.channels_last)
         fn = getattr(K, kernel)
-        calls = {}
-        for (k, phase), lib in libs.items():
-            if k != kernel:
-                continue
-            for name, (argtypes, restype) in _build.SIGNATURES.items():
-                if hasattr(lib, name):
-                    entry = getattr(lib, name)
-                    entry.argtypes, entry.restype = argtypes, restype
-
-            def call(lib=lib):
-                _build._LIB = lib
-                fn(g, in_hw)
-            calls[phase] = call
+        calls = through_wrapper(libs, kernel, lambda: fn(g, in_hw))
         report(f"{kernel} {dtype} {label} g {g_shape} -> {in_hw}",
                in_turns(torch, calls))
         # the wrapper's own time a call on the host: launches queued
