@@ -14,33 +14,82 @@
 // over the taps of phase (rh, rw) (ops/convolution.py `_subpixel_axis`, in
 // torch's unflipped convention). The host gives each phase its own tap
 // list, so k3s2p1op1's phases run 1, 2, 2 and 4 taps and k2s2p0's one
-// each; a tap past the input's edge (x[H] or x[W] for op = 1) reads zero
-// and is skipped.
+// each; a tap past the input's edge (x[H] or x[W] for op = 1) reads zero.
 //
 // What bounds it on an H100: at ENet's predict (x (8,512,1024,16) bf16 ->
-// (8,1024,2048) int32) it reads 134 MB and writes 67 MB, 0.06 ms at
+// (8,1024,2048) int32) it reads 134 MB and writes 67 MB, 0.060 ms at
 // 3.35 TB/s; its 11.5 G multiply-adds (9 taps x 16 x 19 a low-res pixel)
-// take ~0.34 ms as f32 FMAs outside the tensor cores. So this design is
-// bound by its FMAs: ~0.023 ms at the tensor cores' bf16 rate is the
-// bound a second design (mma.sync over a tile of pixels) would aim at.
+// are 0.023 ms at the tensor cores' bf16 rate, and 0.34 ms as f32 FMAs.
 //
-// Design (simple first): the weights (kh*kw*I*OMAX f32, classes padded
+// bf16 design (the second; the first ran f32 FMAs on the bf16 values at
+// 13x its bytes bound, 76% of its time in the FMAs). Persistent blocks of
+// 256 threads walk tiles of TH x 16 low-res pixels (TH = 16, fewer where
+// shared memory runs out) of one image:
+//   0. once per block: the weights, rounded to bf16 by the wrapper and
+//      packed [slot][n][k] (classes padded to a multiple of 8, K to a
+//      multiple of 16 with zeros, rows ldk = K + 8 apart), and the f32
+//      bias, to shared memory;
+//   1. the tile's x with the taps' halo (rows and columns dy, dx range
+//      over), K channels a pixel, ldk apart (an odd count of 16-byte
+//      units, so ldmatrix's eight row addresses hit distinct banks), by
+//      16-byte cp.async, zero-filled outside the image and from I to K;
+//      double-buffered where shared memory allows, so the next tile's
+//      loads overlap this one's products. Channel counts or an x that are
+//      not 16-byte whole take an element-by-element path into the same
+//      layout;
+//   2. per warp, per 16 pixels of a tile row (two rows a warp at TH = 16,
+//      sharing each B fragment) and per phase: mma.sync m16n8k16, bf16 x
+//      bf16 into f32, over the phase's taps x K/16 steps, A and B by
+//      ldmatrix. The bf16 products are exact in f32;
+//   3. the argmax in the accumulators' layout: each thread adds the bias
+//      to its columns and takes the first max of its own classes (padded
+//      classes masked), then two xor shuffles combine a quad's on (value,
+//      index), greater or equal with a lower index, so ties go to the
+//      first class;
+//   4. a warp's 16 pixels x 2 phases of a full-resolution row are 32
+//      contiguous int32: gathered by shuffles and stored 16 bytes a lane
+//      (4 bytes a lane at a ragged tile or an odd W).
+// Each pixel is summed by one warp in a fixed order whatever the grid,
+// so two launches, and any grid size, give the same bits.
+//
+// f32 design (the first, kept: the tensor cores have no f32 operand, and
+// TF32 would round x and w): the weights (kh*kw*I*OMAX f32, classes padded
 // to OMAX with zeros) and the bias go to shared memory once per block;
 // each thread takes two neighbouring low-res pixels of a row, keeps
 // 2 x OMAX f32 accumulators in registers for one phase at a time, reads
 // each tap's channels with 16-byte loads (element by element where I
-// does not fill whole vectors, e.g. ESPNet's I = 19, or x is not 16-byte
-// aligned), reads each weight row as float4 broadcasts shared by both
-// pixels, and runs the compare chain (a strict `>`: ties go to the first
-// class). The four classes of an output row pair go out as two 8-byte
-// stores. The grid strides over the pixel pairs.
+// does not fill whole vectors or x is not 16-byte aligned), reads each
+// weight row as float4 broadcasts shared by both pixels, and runs the
+// compare chain (a strict `>`: ties go to the first class). The four
+// classes of an output row pair go out as two 8-byte stores. The grid
+// strides over the pixel pairs.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
+using esn::cp_async16;
+using esn::ldmatrix_x2;
+using esn::ldmatrix_x4;
+using esn::mma_bf16;
+
+// d = a b + c for one m16n8k16 tile whose four accumulators' columns
+// carry c (c[0] at even columns, c[1] at odd ones, both rows)
+__device__ __forceinline__ void mma_bf16_c(float* d, const unsigned* a, unsigned b0,
+                                           unsigned b1, const float* c) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%11,%10,%11};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]));
+}
+
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kPhases = 4;   // stride 2 on both axes
 constexpr int kMaxTaps = 16; // taps of one phase (k <= 8 per axis)
+constexpr int kTileW = 16;   // low-res columns a tile: the product's M
 
 // the shape and the phases' tap tables: tap t of phase ph reads x at
 // (q + dy, p + dx) with weight slot uh * kw + uw
@@ -49,6 +98,361 @@ struct Geo {
   int ntaps[kPhases];
   int dy[kPhases][kMaxTaps], dx[kPhases][kMaxTaps], slot[kPhases][kMaxTaps];
 };
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores over a staged tile
+
+// The wrapper's plan (subpixel_argmax.py `plan_bf16`), checked by `check`:
+// byte offsets in shared memory of the bias (0), the tap table (after the
+// bias, kTapBytes), the weights and the x tiles; a staged pixel is ldk
+// bf16, a tile rows x cols pixels whose pixel (0, 0) is low-res
+// (ty*th + y0, tx*16 + x0).
+struct Plan {
+  int kp, np, ldk;       // K padded to 16, classes padded to 8, kp + 8
+  int th, nbuf;          // low-res rows a tile (16, 8, 4, 2 or 1), x buffers (1 or 2)
+  int y0, x0;            // the taps' least dy and dx
+  int rows, cols;        // staged rows th + dy range, columns 16 + dx range
+  int o_w, o_x, tile_bytes, bytes;
+  int max_blocks;        // a cap on the grid (0: as many as fit)
+};
+constexpr int kPlanFields = 14;
+constexpr int kTapBytes = kPhases * kMaxTaps * 8;  // int2 (A offset, B offset) a tap
+
+__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// the plan's fields against what they must be for g and nslots
+inline bool check(const Plan& p, const Geo& g, int nslots) {
+  int ymin = 1 << 20, ymax = -(1 << 20), xmin = 1 << 20, xmax = -(1 << 20);
+  for (int ph = 0; ph < kPhases; ++ph)
+    for (int t = 0; t < g.ntaps[ph]; ++t) {
+      ymin = g.dy[ph][t] < ymin ? g.dy[ph][t] : ymin;
+      ymax = g.dy[ph][t] > ymax ? g.dy[ph][t] : ymax;
+      xmin = g.dx[ph][t] < xmin ? g.dx[ph][t] : xmin;
+      xmax = g.dx[ph][t] > xmax ? g.dx[ph][t] : xmax;
+    }
+  const int o_w = round_up(p.np * 4, 16) + kTapBytes;
+  const int64_t o_x = o_w + (int64_t)nslots * p.np * p.ldk * 2;
+  const int64_t tile = (int64_t)p.rows * p.cols * p.ldk * 2;
+  return p.kp == round_up(g.ci, 16) && p.np == round_up(g.co, 8) && p.np <= 32 &&
+         p.ldk == p.kp + 8 && p.th >= 1 && p.th <= 2 * kWarps && (p.th & (p.th - 1)) == 0 &&
+         (p.nbuf == 1 || p.nbuf == 2) &&
+         p.y0 == ymin && p.x0 == xmin && p.rows == p.th + ymax - ymin &&
+         p.cols == kTileW + xmax - xmin && p.o_w == o_w && p.o_x == o_x &&
+         p.tile_bytes == tile && p.bytes == o_x + p.nbuf * tile &&
+         p.bytes <= esn::kMaxSmem && p.max_blocks >= 0 &&
+         (int64_t)g.h * g.w * g.ci <= INT32_MAX;  // an image's offsets are ints
+}
+
+// A thread's walk over the units (16-byte vectors, or elements) of a
+// staged tile of rows x cols pixels, `units` a pixel: unit tid + k *
+// kThreads at row r, column c, unit u. The same for every tile, so it is
+// set up once a block and steps by kThreads units without a division.
+struct Cursor {
+  int r, c, u, sr, sc, su;
+  __device__ Cursor(int i, int units, int cols) {
+    const int pix = i / units, step = kThreads / units;
+    u = i % units, c = pix % cols, r = pix / cols;
+    su = kThreads % units, sc = step % cols, sr = step / cols;
+  }
+  __device__ __forceinline__ void next(int units, int cols) {
+    u += su;
+    if (u >= units) u -= units, ++c;
+    c += sc;
+    if (c >= cols) c -= cols, ++r;
+    r += sr;
+  }
+};
+
+// A tile's place: image b, tile row ty, tile column tx of tiles_y x tiles_x
+// an image. A block's tiles are blockIdx.x + k gridDim.x: set up once with
+// divisions, then stepped by gridDim.x tiles with carries.
+struct TileAt {
+  int tx, ty, b;
+  __device__ TileAt(int t, int tiles_x, int tiles_y) {
+    const int rest = t / tiles_x;
+    tx = t - rest * tiles_x, ty = rest % tiles_y, b = rest / tiles_y;
+  }
+  __device__ __forceinline__ void advance(const TileAt& s, int tiles_x, int tiles_y) {
+    tx += s.tx;
+    if (tx >= tiles_x) tx -= tiles_x, ++ty;
+    ty += s.ty;
+    if (ty >= tiles_y) ty -= tiles_y, ++b;
+    b += s.b;
+  }
+};
+
+// x of image b, low-res rows from gy0 and columns from gx0, to the tile s,
+// 8 channels (16 bytes) a unit, zero outside the image and from I to kp:
+// 16-byte cp.async copies (VEC: I*2 bytes 16-byte whole, x 16-byte
+// aligned), else 8 element loads in flight and one 16-byte store. The
+// caller commits, waits and syncs.
+template <bool VEC>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* s, const __nv_bfloat16* __restrict__ x,
+                                           const Geo& g, const Plan& p, Cursor k, int b,
+                                           int gy0, int gx0) {
+  // an image's elements fit an int (the wrapper's check)
+  const __nv_bfloat16* xb = x + (int64_t)b * g.h * g.w * g.ci;
+  const int units = p.kp / 8;
+  for (; k.r < p.rows; k.next(units, p.cols)) {
+    const int gy = gy0 + k.r, gx = gx0 + k.c;
+    const bool pix_in = (unsigned)gy < (unsigned)g.h && (unsigned)gx < (unsigned)g.w;
+    __nv_bfloat16* dst = s + (k.r * p.cols + k.c) * p.ldk + 8 * k.u;
+    if constexpr (VEC) {
+      const bool in = pix_in && 8 * k.u < g.ci;
+      cp_async16(dst, in ? xb + (gy * g.w + gx) * g.ci + 8 * k.u : x, in);
+    } else {
+      const __nv_bfloat16* src = xb + (gy * g.w + gx) * g.ci;
+      unsigned short v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = 8 * k.u + e;
+        v[e] = pix_in && c < g.ci ? __ldg(reinterpret_cast<const unsigned short*>(src) + c) : 0;
+      }
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(v[0] | (unsigned)v[1] << 16, v[2] | (unsigned)v[3] << 16,
+                     v[4] | (unsigned)v[5] << 16, v[6] | (unsigned)v[7] << 16);
+    }
+  }
+}
+
+// The first max of a 16-pixel x (8 NT)-class accumulator tile for pixel
+// lane/4 + 8*h (its classes 8j + 2*(lane%4) + e lie across the quad,
+// acc[j][2h + e], the bias in them, padded classes -inf): the largest
+// value m over the quad, then the least class whose value equals m.
+// Exactly the first max (strict `>` in class order); an all-NaN pixel
+// gives 0.
+template <int NT>
+__device__ __forceinline__ int first_max(const float (&acc)[NT][4], int h, int lane) {
+  float m = acc[0][2 * h];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) m = fmaxf(m, fmaxf(acc[j][2 * h], acc[j][2 * h + 1]));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  int idx = 32;
+#pragma unroll
+  for (int j = NT - 1; j >= 0; --j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    idx = acc[j][2 * h + 1] == m ? col + 1 : idx;
+    idx = acc[j][2 * h] == m ? col : idx;
+  }
+  idx = min(idx, __shfl_xor_sync(0xffffffffu, idx, 1));
+  idx = min(idx, __shfl_xor_sync(0xffffffffu, idx, 2));
+  return idx & 31;
+}
+
+// One warp's RPW rows (r0, r0 + 8) of a staged tile whose first low-res
+// pixel is (q0, px0) of image b: for each rh, both rw phases' products
+// (the accumulators start at the bias) and first max, then the 32 classes
+// of the full-resolution row 2q + rh from column 2*px0 on.
+template <int NT, int RPW>
+__device__ __forceinline__ void tile_rows(const __nv_bfloat16* xs, const __nv_bfloat16* ws,
+                                          const int2* taps, const float (&bc)[NT][2],
+                                          const Geo& g, const Plan& p, int* __restrict__ out,
+                                          int b, int q0, int px0, int r0, int lane,
+                                          bool vec_out) {
+  // ldmatrix row addresses: A pixel lane%16 at k + 8*(lane/16); B (two
+  // n-tiles of 8) rows n + lane%8 + 8*(lane/16) at k + 8*((lane/8)%2)
+  const __nv_bfloat16* a_row =
+      xs + (r0 * p.cols + (lane & 15) - p.x0) * p.ldk + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* b_lane4 = ws + ((lane & 7) + ((lane >> 4) << 3)) * p.ldk + b_col;
+  const __nv_bfloat16* b_lane2 = ws + (lane & 7) * p.ldk + b_col;
+  const int row_step = kWarps * p.cols * p.ldk;
+  const int64_t W2 = 2 * (int64_t)g.w;
+#pragma unroll 1
+  for (int rh = 0; rh < 2; ++rh) {
+    unsigned packed[RPW];  // byte 2*rw + half: the class of pixel lane/4 + 8*half
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) packed[i] = 0u;
+#pragma unroll 1
+    for (int rw = 0; rw < 2; ++rw) {
+      const int ph = rh * 2 + rw;
+      float acc[RPW][NT][4];
+      // one K step of a tap: A rows, B columns, the products; the first
+      // (FIRST) adds to the bias instead of to the accumulators
+      auto step = [&](auto first, int2 tap, int k0) {
+        unsigned af[RPW][4];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) ldmatrix_x4(af[i], a_row + tap.x + i * row_step + k0);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          unsigned bf[4];
+          const bool pair = j + 1 < NT;
+          if (pair)
+            ldmatrix_x4(bf, b_lane4 + tap.y + 8 * j * p.ldk + k0);
+          else
+            ldmatrix_x2(bf, b_lane2 + tap.y + 8 * j * p.ldk + k0);
+#pragma unroll
+          for (int i = 0; i < RPW; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              if (jj == 1 && !pair) continue;
+              if constexpr (decltype(first)::value)
+                mma_bf16_c(acc[i][j + jj], af[i], bf[2 * jj], bf[2 * jj + 1], bc[j + jj]);
+              else
+                mma_bf16(acc[i][j + jj], af[i], bf[2 * jj], bf[2 * jj + 1]);
+            }
+        }
+      };
+      step(std::true_type{}, taps[ph * kMaxTaps], 0);
+#pragma unroll 1
+      for (int k0 = 16; k0 < p.kp; k0 += 16) step(std::false_type{}, taps[ph * kMaxTaps], k0);
+#pragma unroll 1
+      for (int t = 1; t < g.ntaps[ph]; ++t) {
+        const int2 tap = taps[ph * kMaxTaps + t];  // A, B offsets
+#pragma unroll 1
+        for (int k0 = 0; k0 < p.kp; k0 += 16) step(std::false_type{}, tap, k0);
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const unsigned lo = first_max<NT>(acc[i], 0, lane), hi = first_max<NT>(acc[i], 1, lane);
+        packed[i] |= (lo | hi << 8) << (16 * rw);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int q = q0 + r0 + i * kWarps;
+      if (q >= g.h) break;
+      int* orow = out + ((int64_t)b * 2 * g.h + 2 * q + rh) * W2 + 2 * px0;
+      if (vec_out && px0 + kTileW <= g.w) {
+        // lane < 8: elements 4 lane .. 4 lane + 3, pixels 2 lane and
+        // 2 lane + 1, each rw 0 and 1
+        const int m = 2 * (lane & 7), sh = 8 * (m >> 3);
+        const unsigned pa = __shfl_sync(0xffffffffu, packed[i], 4 * (m & 7));
+        const unsigned pb = __shfl_sync(0xffffffffu, packed[i], 4 * ((m + 1) & 7));
+        if (lane < 8)
+          *reinterpret_cast<int4*>(orow + 4 * lane) =
+              make_int4((pa >> sh) & 0xff, (pa >> (16 + sh)) & 0xff, (pb >> sh) & 0xff,
+                        (pb >> (16 + sh)) & 0xff);
+      } else {
+        // element lane: pixel lane/2, phase rw = lane%2
+        const int m = lane >> 1;
+        const unsigned v = __shfl_sync(0xffffffffu, packed[i], 4 * (m & 7));
+        if (px0 + m < g.w) orow[lane] = (v >> (16 * (lane & 1) + 8 * (m >> 3))) & 0xff;
+      }
+    }
+  }
+}
+
+// RPW rows a warp: 2 at th = 16, else 1 (warps past th idle); three blocks
+// an SM (<= 80 registers a thread)
+template <int NT, int RPW, bool VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+subpixel_argmax_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wb,
+                    const float* __restrict__ bias, int* __restrict__ out, Geo g, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tap_at = round_up(p.np * 4, 16);
+  const int2* taps = reinterpret_cast<const int2*>(smem + tap_at);
+  const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(smem + p.o_w);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + p.o_x);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile_elems = p.tile_bytes / 2;
+  {
+    float* sb = reinterpret_cast<float*>(smem);
+    for (int i = tid; i < p.np; i += kThreads) sb[i] = bias[i];
+    int2* st = reinterpret_cast<int2*>(smem + tap_at);
+    for (int i = tid; i < kPhases * kMaxTaps; i += kThreads) {
+      const int ph = i / kMaxTaps, t = i % kMaxTaps;
+      st[i] = make_int2(((g.dy[ph][t] - p.y0) * p.cols + g.dx[ph][t]) * p.ldk,
+                        g.slot[ph][t] * p.np * p.ldk);
+    }
+    __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem + p.o_w);
+    const int units = (p.o_x - p.o_w) / 16;
+    for (int i = tid; i < units; i += kThreads) cp_async16(sw + 8 * i, wb + 8 * i);
+  }
+  const int tiles_x = (g.w + kTileW - 1) / kTileW, tiles_y = (g.h + p.th - 1) / p.th;
+  const int tiles = g.n * tiles_y * tiles_x;
+  const bool vec_out = g.w % 2 == 0 && esn::aligned16(out);
+  const Cursor start(tid, p.kp / 8, p.cols);
+  auto stage = [&](__nv_bfloat16* s, const TileAt& at) {
+    stage_tile<VEC>(s, x, g, p, start, at.b, at.ty * p.th + p.y0, at.tx * kTileW + p.x0);
+  };
+  const TileAt step(gridDim.x, tiles_x, tiles_y);
+  TileAt at(blockIdx.x, tiles_x, tiles_y), next = at;
+  next.advance(step, tiles_x, tiles_y);
+  int tile = blockIdx.x;
+  if (p.nbuf == 2 && tile < tiles) stage(xs, at);
+  esn::cp_async_commit();
+  esn::cp_async_wait_all();
+  __syncthreads();
+  // the bias of this thread's columns, padded classes -inf (never a max)
+  float bc[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * (lane & 3) + e;
+      bc[j][e] = col < g.co ? reinterpret_cast<const float*>(smem)[col] : -INFINITY;
+    }
+  for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    const __nv_bfloat16* cur = xs;
+    if (p.nbuf == 2) {
+      cur = xs + (it & 1) * tile_elems;
+      if (it > 0) {
+        esn::cp_async_wait_all();
+        __syncthreads();
+      }
+      if (tile + (int)gridDim.x < tiles) stage(xs + ((it + 1) & 1) * tile_elems, next);
+      esn::cp_async_commit();
+    } else {
+      __syncthreads();  // the last tile's products are done
+      stage(xs, at);
+      esn::cp_async_commit();
+      esn::cp_async_wait_all();
+      __syncthreads();
+    }
+    if (warp < p.th)
+      tile_rows<NT, RPW>(cur, ws, taps, bc, g, p, out, at.b, at.ty * p.th, at.tx * kTileW, warp,
+                         lane, vec_out);
+    at = next;
+    next.advance(step, tiles_x, tiles_y);
+  }
+  esn::cp_async_wait_all();
+}
+
+template <int NT, int RPW, bool VEC>
+int launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* b, int* out,
+               const Geo& g, const Plan& p, cudaStream_t st) {
+  auto kernel = subpixel_argmax_mma<NT, RPW, VEC>;
+  // the SM count, the shared memory granted and the blocks an SM at it,
+  // per card, asked once (a call's host time sets the small heads' time)
+  constexpr int kCards = 64;
+  static int sms[kCards], granted[kCards], per_sm[kCards];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kCards) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if (granted[dev] != p.bytes) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    p.bytes)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], kernel, kThreads,
+                                                             p.bytes)) != cudaSuccess)
+      return err;
+    granted[dev] = p.bytes;
+  }
+  const int64_t tiles = (int64_t)g.n * ((g.h + p.th - 1) / p.th) * ((g.w + kTileW - 1) / kTileW);
+  int64_t blocks = (int64_t)(per_sm[dev] > 0 ? per_sm[dev] : 1) * sms[dev];
+  if (p.max_blocks > 0 && blocks > p.max_blocks) blocks = p.max_blocks;
+  if (blocks > tiles) blocks = tiles;
+  kernel<<<(int)blocks, kThreads, p.bytes, st>>>(x, w, b, out, g, p);
+  return cudaGetLastError();
+}
+
+template <int NT>
+int dispatch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* b, int* out,
+                 const Geo& g, const Plan& p, bool vec, cudaStream_t st) {
+  const bool two = p.th > kWarps;
+  if (two) return vec ? launch_mma<NT, 2, true>(x, w, b, out, g, p, st)
+                      : launch_mma<NT, 2, false>(x, w, b, out, g, p, st);
+  return vec ? launch_mma<NT, 1, true>(x, w, b, out, g, p, st)
+             : launch_mma<NT, 1, false>(x, w, b, out, g, p, st);
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMAs, two pixels a thread
 
 // a[o] += f * w[o] for both pixels, OMAX classes, w a shared row
 template <int OMAX>
@@ -70,25 +474,22 @@ __device__ __forceinline__ void fma_row(float f0, float f1, const float* wr, flo
 
 // one tap: the I channels of the two pixels (rows r0, r1; zero where
 // not v0, v1) against the tap's weights wt (I rows of OMAX)
-template <typename T, int OMAX, bool VEC>
-__device__ __forceinline__ void accumulate(const T* r0, const T* r1, bool v0, bool v1,
+template <int OMAX, bool VEC>
+__device__ __forceinline__ void accumulate(const float* r0, const float* r1, bool v0, bool v1,
                                            const float* wt, int ci, float* a0, float* a1) {
   if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T);
-    for (int c = 0; c < ci; c += V) {
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      const uint4 u0 = v0 ? *reinterpret_cast<const uint4*>(r0 + c) : zero;
-      const uint4 u1 = v1 ? *reinterpret_cast<const uint4*>(r1 + c) : zero;
-      float f0[8], f1[8];
-      esn::unpack(u0, f0, T());
-      esn::unpack(u1, f1, T());
+    for (int c = 0; c < ci; c += 4) {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 u0 = v0 ? *reinterpret_cast<const float4*>(r0 + c) : zero;
+      const float4 u1 = v1 ? *reinterpret_cast<const float4*>(r1 + c) : zero;
+      const float f0[4] = {u0.x, u0.y, u0.z, u0.w}, f1[4] = {u1.x, u1.y, u1.z, u1.w};
 #pragma unroll
-      for (int k = 0; k < V; ++k) fma_row<OMAX>(f0[k], f1[k], wt + (c + k) * OMAX, a0, a1);
+      for (int k = 0; k < 4; ++k) fma_row<OMAX>(f0[k], f1[k], wt + (c + k) * OMAX, a0, a1);
     }
   } else {
     for (int c = 0; c < ci; ++c) {
-      const float f0 = v0 ? esn::to_f32(r0[c]) : 0.f;
-      const float f1 = v1 ? esn::to_f32(r1[c]) : 0.f;
+      const float f0 = v0 ? r0[c] : 0.f;
+      const float f1 = v1 ? r1[c] : 0.f;
       fma_row<OMAX>(f0, f1, wt + c * OMAX, a0, a1);
     }
   }
@@ -112,16 +513,15 @@ __device__ __forceinline__ int argmax(const float* a, const float* bs, int co) {
 
 // two blocks an SM (<= 128 registers a thread) up to 20 classes; 32
 // classes' accumulators take one block's room
-template <typename T, int OMAX, bool VEC>
+template <int OMAX, bool VEC>
 __global__ void __launch_bounds__(kThreads, OMAX > 20 ? 1 : 2)
-subpixel_argmax_kernel(const T* __restrict__ x, const float* __restrict__ wp,
-                       const float* __restrict__ bias, int* __restrict__ out, Geo g,
-                       int nslots) {
-  extern __shared__ __align__(16) float ws[];  // nslots*ci rows of OMAX, then the bias
+subpixel_argmax_f32(const float* __restrict__ x, const float* __restrict__ wp,
+                    const float* __restrict__ bias, int* __restrict__ out, Geo g, int nslots) {
+  extern __shared__ __align__(16) float wsf[];  // nslots*ci rows of OMAX, then the bias
   const int nw = nslots * g.ci * OMAX;
-  for (int i = threadIdx.x; i < nw + OMAX; i += kThreads) ws[i] = i < nw ? wp[i] : bias[i - nw];
+  for (int i = threadIdx.x; i < nw + OMAX; i += kThreads) wsf[i] = i < nw ? wp[i] : bias[i - nw];
   __syncthreads();
-  const float* bs = ws + nw;
+  const float* bs = wsf + nw;
   const int npairs = (g.w + 1) / 2;
   const int64_t items = (int64_t)g.n * g.h * npairs;
   const int64_t W2 = 2 * (int64_t)g.w;
@@ -132,7 +532,7 @@ subpixel_argmax_kernel(const T* __restrict__ x, const float* __restrict__ wp,
     const int q = (int)(rest % g.h), b = (int)(rest / g.h);
     const int p0 = 2 * j;
     const bool two = p0 + 1 < g.w;  // the pair's second pixel exists
-    const T* xb = x + (int64_t)b * g.h * g.w * g.ci;
+    const float* xb = x + (int64_t)b * g.h * g.w * g.ci;
     int* orow = out + ((int64_t)b * 2 * g.h + 2 * q) * W2 + 2 * p0;
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
@@ -148,9 +548,9 @@ subpixel_argmax_kernel(const T* __restrict__ x, const float* __restrict__ wp,
           if (qy < 0 || qy >= g.h) continue;
           const int px0 = p0 + g.dx[ph][t];
           const bool v0 = px0 >= 0 && px0 < g.w, v1 = px0 + 1 >= 0 && px0 + 1 < g.w;
-          const T* r0 = xb + ((int64_t)qy * g.w + px0) * g.ci;
-          accumulate<T, OMAX, VEC>(r0, r0 + g.ci, v0, v1, ws + g.slot[ph][t] * g.ci * OMAX,
-                                   g.ci, a0, a1);
+          const float* r0 = xb + ((int64_t)qy * g.w + px0) * g.ci;
+          accumulate<OMAX, VEC>(r0, r0 + g.ci, v0, v1, wsf + g.slot[ph][t] * g.ci * OMAX, g.ci,
+                                a0, a1);
         }
         cls[0][rw] = argmax<OMAX>(a0, bs, g.co);
         cls[1][rw] = argmax<OMAX>(a1, bs, g.co);
@@ -165,12 +565,12 @@ subpixel_argmax_kernel(const T* __restrict__ x, const float* __restrict__ wp,
 // classes padded to the accumulators' count (the wrapper pads the same)
 inline int pad_classes(int co) { return co <= 12 ? 12 : co <= 20 ? 20 : co <= 32 ? 32 : 0; }
 
-template <typename T, int OMAX, bool VEC>
-int launch(const T* x, const float* w, const float* b, int* out, const Geo& g, int nslots,
-           cudaStream_t st) {
+template <int OMAX, bool VEC>
+int launch_f32(const float* x, const float* w, const float* b, int* out, const Geo& g,
+               int nslots, cudaStream_t st) {
   const size_t bytes = ((size_t)nslots * g.ci + 1) * OMAX * sizeof(float);
   if (bytes > (size_t)esn::kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = subpixel_argmax_kernel<T, OMAX, VEC>;
+  auto kernel = subpixel_argmax_f32<OMAX, VEC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -185,27 +585,27 @@ int launch(const T* x, const float* w, const float* b, int* out, const Geo& g, i
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* x, const float* w, const float* b, int* out, const Geo& g, int co_pad,
-             int nslots, bool vec, cudaStream_t st) {
+int dispatch_f32(const float* x, const float* w, const float* b, int* out, const Geo& g,
+                 int co_pad, int nslots, bool vec, cudaStream_t st) {
   switch (co_pad * 2 + (vec ? 1 : 0)) {
-    case 24: return launch<T, 12, false>(x, w, b, out, g, nslots, st);
-    case 25: return launch<T, 12, true>(x, w, b, out, g, nslots, st);
-    case 40: return launch<T, 20, false>(x, w, b, out, g, nslots, st);
-    case 41: return launch<T, 20, true>(x, w, b, out, g, nslots, st);
-    case 64: return launch<T, 32, false>(x, w, b, out, g, nslots, st);
-    case 65: return launch<T, 32, true>(x, w, b, out, g, nslots, st);
+    case 24: return launch_f32<12, false>(x, w, b, out, g, nslots, st);
+    case 25: return launch_f32<12, true>(x, w, b, out, g, nslots, st);
+    case 40: return launch_f32<20, false>(x, w, b, out, g, nslots, st);
+    case 41: return launch_f32<20, true>(x, w, b, out, g, nslots, st);
+    case 64: return launch_f32<32, false>(x, w, b, out, g, nslots, st);
+    case 65: return launch_f32<32, true>(x, w, b, out, g, nslots, st);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x (n, h, w, ci) of dtype `dtype` contiguous; w (nslots, ci, co_pad) f32,
-// slot uh * kw + uw, classes from co on zero; b (co_pad) f32; out
-// (n, 2h, 2w) int32. desc (int32, host): n, h, w, ci, co, co_pad, nslots,
-// the four phases' tap counts, then per phase kMaxTaps (dy, dx, slot)
-// triples.
+// x (n, h, w, ci) of dtype `dtype` contiguous; out (n, 2h, 2w) int32.
+// f32: w (nslots, ci, co_pad) f32, slot uh * kw + uw, classes from co on
+// zero; b (co_pad) f32. bf16: w (nslots, np, ldk) bf16, [slot][n][k], zero
+// from co and from ci on; b (np) f32. desc (int32, host): n, h, w, ci, co,
+// co_pad, nslots, the four phases' tap counts, per phase kMaxTaps (dy, dx,
+// slot) triples, then the bf16 plan (Plan's fields in order).
 extern "C" int esn_subpixel_argmax(const void* x, const void* w, const void* b, void* out,
                                    int dtype, const int* desc, void* stream) {
   Geo g{};
@@ -226,15 +626,27 @@ extern "C" int esn_subpixel_argmax(const void* x, const void* w, const void* b, 
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(out);
-  const float *wf = static_cast<const float*>(w), *bf = static_cast<const float*>(b);
   if (dtype == esn::kF32) {
     const bool vec = g.ci % 4 == 0 && esn::aligned16(x);
-    return dispatch(static_cast<const float*>(x), wf, bf, o, g, co_pad, nslots, vec, st);
+    return dispatch_f32(static_cast<const float*>(x), static_cast<const float*>(w),
+                        static_cast<const float*>(b), o, g, co_pad, nslots, vec, st);
   }
   if (dtype == esn::kBF16) {
+    const int* f = taps + 3 * kPhases * kMaxTaps;
+    const Plan p{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11], f[12],
+                 f[13]};
+    static_assert(sizeof(Plan) == kPlanFields * sizeof(int), "Plan is the descriptor's tail");
+    if (!check(p, g, nslots) || !esn::aligned16(w)) return cudaErrorInvalidValue;
     const bool vec = g.ci % 8 == 0 && esn::aligned16(x);
-    return dispatch(static_cast<const __nv_bfloat16*>(x), wf, bf, o, g, co_pad, nslots, vec,
-                    st);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    const float* bf = static_cast<const float*>(b);
+    switch (p.np / 8) {
+      case 1: return dispatch_mma<1>(xb, wb, bf, o, g, p, vec, st);
+      case 2: return dispatch_mma<2>(xb, wb, bf, o, g, p, vec, st);
+      case 3: return dispatch_mma<3>(xb, wb, bf, o, g, p, vec, st);
+      case 4: return dispatch_mma<4>(xb, wb, bf, o, g, p, vec, st);
+    }
   }
   return cudaErrorInvalidValue;
 }

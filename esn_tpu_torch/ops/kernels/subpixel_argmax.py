@@ -6,17 +6,19 @@ transposed conv (K7): counterpart of ``esn_tpu/ops/classify.py``
 with the first-max tie rule, for NHWC features x ``(N, H, W, I)`` and the
 layer's weight ``(I, O, kh, kw)`` and bias. On CUDA it is the kernel of
 ``csrc/subpixel_argmax.cu``, which argmaxes the f32 phase logits plus the
-f32 bias; on the CPU the plain :func:`subpixel_argmax_ref`, which follows
-the reference's rounding (the phase logits in x's dtype, the bias added
-in that dtype, then the argmax). The two can differ only where two
-classes' logits lie within :func:`gap_rule` of each other.
+f32 bias (bf16: tensor-core products over tiles of x staged in shared
+memory, :func:`plan_bf16`; f32: FMAs); on the CPU the plain
+:func:`subpixel_argmax_ref`, which follows the reference's rounding (the
+phase logits in x's dtype, the bias added in that dtype, then the
+argmax). The two can differ only where two classes' logits lie within
+:func:`gap_rule` of each other.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,12 +29,21 @@ from . import LAUNCHES, _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # what the kernel takes: stride 2 on both axes, at most MAX_TAPS taps a
-# phase, at most 32 classes (accumulators padded to 12, 20 or 32), and
-# weights that fit its block's shared memory
+# phase, at most 32 classes (f32 accumulators padded to 12, 20 or 32; bf16
+# classes padded to a multiple of 8), and weights that fit its block's
+# shared memory
 STRIDE = (2, 2)
 MAX_TAPS = 16
 CLASS_PADS = (12, 20, 32)
 MAX_SMEM = 232448
+# bf16 tiles: TILE_W low-res columns (the tensor-core product's M) by one
+# of TILE_ROWS rows (16: two rows a warp of the block's eight); a plan
+# whose shared memory fits SMEM_TWO_BLOCKS leaves room for two blocks an SM
+TILE_W = 16
+TILE_ROWS = (16, 8, 4, 2, 1)
+SMEM_TWO_BLOCKS = 115712
+# the phases' tap table in shared memory: (A, B) offsets, int32 each
+TAP_BYTES = 4 * MAX_TAPS * 8
 
 
 def subpixel_argmax_ref(x: torch.Tensor, weight: torch.Tensor,
@@ -81,7 +92,13 @@ def gap_rule(dtype: torch.dtype, weight: torch.Tensor, stride,
     order of the sum lies within g M of L, g = 1.01 n 2^-24: f32 e = g.
     In bf16 the plain version (as the reference) rounds the phase logit to
     bf16 and its sum with the bias once more, each within 2^-8 of what it
-    rounds: e = 2^-7 + 2^-14 + 2g with the second-order terms."""
+    rounds: e = 2^-7 + 2^-14 + 2g with the second-order terms. The
+    kernel's bf16 route sums on the tensor cores: bf16 x bf16 products are
+    exact in f32, and even if the cores truncated each f32 sum instead of
+    rounding it, each of its n additions would be off by at most 2^-23 of
+    a partial sum, so its logits lie within about n 2^-23 M = 2g M of L
+    (ENet's n = 145 terms: 1.7e-5 M), far inside the plain side's
+    2^-7 M; the larger side's bound, and so the rule, stays the same."""
     cin = weight.shape[0]
     taps = max(len(t) for t in phase_taps(*weight.shape[2:], stride,
                                           padding))
@@ -119,10 +136,85 @@ def argmax_gap(x, weight, bias, a, b, *, stride, padding):
     return gap, torch.maximum(mag.gather(-1, ia), mag.gather(-1, ib))[..., 0]
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class Plan(NamedTuple):
+    """The bf16 route's tiles and shared memory (``csrc/subpixel_argmax.cu``
+    ``Plan``, field for field): K and the classes padded (``kp`` to 16,
+    ``np`` to 8), a staged pixel's and a B row's stride ``ldk = kp + 8``
+    bf16 (an odd count of 16-byte units), ``th`` low-res rows a tile,
+    ``nbuf`` x buffers, the taps' least offsets ``y0``, ``x0`` and the
+    staged ``rows`` x ``cols`` (the tile and the taps' halo), byte offsets
+    of the weights and the tiles after the f32 bias and the tap table
+    (``TAP_BYTES``), one tile's bytes and the block's, and a cap on the
+    grid (0: as many blocks as fit)."""
+    kp: int
+    np: int
+    ldk: int
+    th: int
+    nbuf: int
+    y0: int
+    x0: int
+    rows: int
+    cols: int
+    o_w: int
+    o_x: int
+    tile_bytes: int
+    bytes: int
+    max_blocks: int
+
+
+@functools.lru_cache(maxsize=64)
+def plan_bf16(cin: int, cout: int, nslots: int, taps,
+              max_blocks: int = 0) -> Optional[Plan]:
+    """The bf16 plan for ``taps`` (``phase_taps`` as tuples): the first of
+    two buffers, then one, each at 16, 8, 4, 2 and 1 rows, whose shared
+    memory fits two blocks an SM, else the first that fits one; None
+    where none fits (the weights alone are too large)."""
+    kp, npad = _round_up(cin, 16), _round_up(cout, 8)
+    ldk = kp + 8
+    dys = [dy for phase in taps for dy, _, _ in phase]
+    dxs = [dx for phase in taps for _, dx, _ in phase]
+    cols = TILE_W + max(dxs) - min(dxs)
+    o_w = _round_up(npad * 4, 16) + TAP_BYTES
+    o_x = o_w + nslots * npad * ldk * 2
+    for limit in (SMEM_TWO_BLOCKS, MAX_SMEM):
+        for nbuf in (2, 1):
+            for th in TILE_ROWS:
+                rows = th + max(dys) - min(dys)
+                tile = rows * cols * ldk * 2
+                if o_x + nbuf * tile <= limit:
+                    return Plan(kp, npad, ldk, th, nbuf, min(dys), min(dxs),
+                                rows, cols, o_w, o_x, tile, o_x + nbuf * tile,
+                                max_blocks)
+    return None
+
+
+def _pack_weights_bf16(weight, bias, device):
+    """The bf16 route's B operand: the weights rounded to bf16 as
+    ``(kh*kw, np, ldk)``, element ``[slot][n][k]`` at flat index
+    ``(slot * np + n) * ldk + k`` (slot ``uh * kw + uw``; zero from
+    class O and from channel I on), and the bias rounded to bf16, in f32,
+    ``(np,)`` (zeros without one)."""
+    cin, cout, kh, kw = weight.shape
+    npad, ldk = _round_up(cout, 8), _round_up(cin, 16) + 8
+    wb = torch.zeros((kh * kw, npad, ldk), dtype=torch.bfloat16,
+                     device=device)
+    wb[:, :cout, :cin] = weight.detach().to(torch.bfloat16).permute(
+        2, 3, 1, 0).reshape(kh * kw, cout, cin)
+    bb = torch.zeros(npad, dtype=torch.float32, device=device)
+    if bias is not None:
+        bb[:cout] = bias.detach().to(torch.bfloat16).float()
+    return wb, bb
+
+
 def _pack_weights(x, weight, bias):
     """The weights rounded to x's dtype (as the plain version's), in f32,
     as ``(kh*kw, I, pad)`` (slot ``uh * kw + uw``, classes from O on
-    zero), and the bias the same way ``(pad,)`` (zeros without one)."""
+    zero), and the bias the same way ``(pad,)`` (zeros without one): the
+    f32 route's layout (bf16's: :func:`_pack_weights_bf16`)."""
     cin, cout, kh, kw = weight.shape
     pad = class_pad(cout)
     wp = torch.zeros((kh * kw, cin, pad), dtype=torch.float32,
@@ -135,20 +227,30 @@ def _pack_weights(x, weight, bias):
     return wp, bp
 
 
+def _taps(w_shape, stride, padding):
+    return tuple(map(tuple, phase_taps(*w_shape[2:], stride, padding)))
+
+
 @functools.lru_cache(maxsize=64)
-def _descriptor(x_shape, w_shape, stride, padding) -> np.ndarray:
+def _descriptor(x_shape, w_shape, stride, padding,
+                max_blocks: int = 0) -> np.ndarray:
     """The kernel's int32 descriptor: n, h, w, I, O, pad, kh*kw, the four
-    phases' tap counts, then per phase MAX_TAPS ``(dy, dx, slot)``
-    triples (``phase_taps``)."""
+    phases' tap counts, per phase MAX_TAPS ``(dy, dx, slot)`` triples
+    (``phase_taps``), then the bf16 route's :class:`Plan` (zeros where
+    none fits)."""
     n, h, w, cin = x_shape
     cout, kh, kw = w_shape[1:]
-    taps = phase_taps(kh, kw, stride, padding)
-    desc = np.zeros(7 + 4 + 4 * MAX_TAPS * 3, np.int32)
+    taps = _taps(w_shape, stride, padding)
+    table_end = 11 + 4 * MAX_TAPS * 3
+    desc = np.zeros(table_end + len(Plan._fields), np.int32)
     desc[:7] = (n, h, w, cin, cout, class_pad(cout), kh * kw)
     desc[7:11] = [len(t) for t in taps]
-    table = desc[11:].reshape(4, MAX_TAPS, 3)
+    table = desc[11:table_end].reshape(4, MAX_TAPS, 3)
     for i, phase in enumerate(taps):
         table[i, :len(phase)] = phase
+    plan = plan_bf16(cin, cout, kh * kw, taps, max_blocks)
+    if plan is not None:
+        desc[table_end:] = plan
     desc.flags.writeable = False
     return desc
 
@@ -167,8 +269,10 @@ def _versions(*tensors):
 
 
 def _packed_weights(x, weight, bias):
+    """x's route's packed weights and bias, kept between calls."""
     if weight.is_inference() or (bias is not None and bias.is_inference()):
-        return _pack_weights(x, weight, bias)
+        return (_pack_weights_bf16(weight, bias, x.device)
+                if x.dtype == torch.bfloat16 else _pack_weights(x, weight, bias))
     key = (id(weight), id(bias), x.dtype, x.device)
     hit = _PACKED.get(key)
     if (hit is not None and hit[0]() is weight
@@ -177,7 +281,8 @@ def _packed_weights(x, weight, bias):
         return hit[3]
     if len(_PACKED) >= 32:
         _PACKED.clear()
-    packed = _pack_weights(x, weight, bias)
+    packed = (_pack_weights_bf16(weight, bias, x.device)
+              if x.dtype == torch.bfloat16 else _pack_weights(x, weight, bias))
     _PACKED[key] = (weakref.ref(weight),
                     None if bias is None else weakref.ref(bias),
                     _versions(weight, bias), packed)
@@ -191,6 +296,13 @@ def subpixel_argmax(x: torch.Tensor, weight: torch.Tensor,
     ``(N, H, W, I)``, weight ``(I, O, kh, kw)``; the caller has checked
     that the layer's output is ``stride`` times its input
     (``nn.ConvTranspose.subpixel_eligible``)."""
+    return _call(x, weight, bias, stride, padding)
+
+
+def _call(x, weight, bias, stride, padding, max_blocks: int = 0):
+    """:func:`subpixel_argmax`, its bf16 grid capped at ``max_blocks``
+    blocks where that is above 0 (the card tests' check that the grid does
+    not change the map)."""
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     if (x.ndim != 4 or weight.ndim != 4 or weight.shape[0] != x.shape[-1]
             or (bias is not None and tuple(bias.shape) != (weight.shape[1],))):
@@ -208,11 +320,15 @@ def subpixel_argmax(x: torch.Tensor, weight: torch.Tensor,
     n, h, w, cin = x.shape
     cout, kh, kw = weight.shape[1:]
     pad = class_pad(cout)
-    taps = phase_taps(kh, kw, (sh, sw), (ph, pw)) if kh >= sh and kw >= sw \
+    taps = _taps(weight.shape, (sh, sw), (ph, pw)) if kh >= sh and kw >= sw \
         else None
     if ((sh, sw) != STRIDE or not pad or taps is None
             or max(map(len, taps)) > MAX_TAPS
-            or (kh * kw * cin + 1) * pad * 4 > MAX_SMEM):
+            or (x.dtype == torch.float32
+                and (kh * kw * cin + 1) * pad * 4 > MAX_SMEM)
+            or (x.dtype == torch.bfloat16
+                and (plan_bf16(cin, cout, kh * kw, taps) is None
+                     or h * w * cin >= 2 ** 31))):
         raise ValueError(f"subpixel_argmax: no kernel for weight "
                          f"{tuple(weight.shape)} at stride {(sh, sw)} "
                          f"(stride 2, <= {CLASS_PADS[-1]} classes, "
@@ -227,7 +343,7 @@ def subpixel_argmax(x: torch.Tensor, weight: torch.Tensor,
         return out
     wp, bp = _packed_weights(x, weight, bias)
     desc = _descriptor(tuple(x.shape), tuple(weight.shape), (sh, sw),
-                       (ph, pw))
+                       (ph, pw), max_blocks)
     err = _build.library().esn_subpixel_argmax(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wp.data_ptr()),
         ctypes.c_void_p(bp.data_ptr()), ctypes.c_void_p(out.data_ptr()),

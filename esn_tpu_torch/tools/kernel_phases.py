@@ -135,27 +135,34 @@ PHASES = {
         "store": [("        store16(gx + out0 + xl * c + ch, acc);",
                    "        if (acc[0] == (A)123.25) store16(gx + out0 + xl * c + ch, acc);")],
     }),
-    # K7, the subpixel class argmax (first design: f32 FMAs, x read by tap)
+    # K7, the subpixel class argmax (bf16: tensor cores over a staged tile;
+    # the first design's edits, f32 FMAs and x read by tap, are at git eb9a327)
     "subpixel_argmax": ("subpixel_argmax.cu", {
-        # the x loads of each tap (16-byte route); the values stay live
-        "staging": [("      const uint4 u0 = v0 ? *reinterpret_cast<const uint4*>(r0 + c) : zero;\n"
-                     "      const uint4 u1 = v1 ? *reinterpret_cast<const uint4*>(r1 + c) : zero;",
-                     "      const uint4 u0 = make_uint4(c, v0, 0, 0), u1 = make_uint4(c, v1, 0, 0);\n"
-                     "      (void)zero;")],
-        # the multiply-adds against the weight rows: one a channel kept
-        "products": [("      for (int k = 0; k < V; ++k) fma_row<OMAX>(f0[k], f1[k], wt + (c + k) * OMAX, a0, a1);",
-                      "      for (int k = 0; k < V; ++k) a0[k] = fmaf(f0[k], wt[c + k], a1[k] += f1[k]);")],
-        # the first-max compare chain: a plain sum of the classes instead
-        "argmax": [("        cls[0][rw] = argmax<OMAX>(a0, bs, g.co);\n"
-                    "        cls[1][rw] = argmax<OMAX>(a1, bs, g.co);",
-                    "        float s0 = bs[0], s1 = bs[0];\n"
-                    "#pragma unroll\n"
-                    "        for (int o = 0; o < OMAX; ++o) s0 += a0[o], s1 += a1[o];\n"
-                    "        cls[0][rw] = __float_as_int(s0), cls[1][rw] = __float_as_int(s1);")],
-        # the map's stores: one the compiler cannot rule out
-        "stores": [("      *reinterpret_cast<int2*>(o) = make_int2(cls[0][0], cls[0][1]);\n"
-                    "      if (two) *reinterpret_cast<int2*>(o + 2) = make_int2(cls[1][0], cls[1][1]);",
-                    "      if (cls[0][0] + cls[1][1] == g.w) *o = cls[0][1] + cls[1][0];")],
+        # no read of x from device memory; the tiles are still zero-filled
+        "staging": [("      cp_async16(dst, in ? xb + (gy * g.w + gx) * g.ci + 8 * k.u : x, in);",
+                     "      cp_async16(dst, in ? xb + (gy * g.w + gx) * g.ci + 8 * k.u : x, false);")],
+        # every ldmatrix + mma step; the accumulators set to the bias
+        "products": [("      step(std::true_type{}, taps[ph * kMaxTaps], 0);\n"
+                      "#pragma unroll 1\n"
+                      "      for (int k0 = 16; k0 < p.kp; k0 += 16)",
+                      "#pragma unroll\n"
+                      "      for (int i = 0; i < RPW; ++i)\n"
+                      "#pragma unroll\n"
+                      "        for (int j = 0; j < NT; ++j)\n"
+                      "          acc[i][j][0] = acc[i][j][2] = bc[j][0], "
+                      "acc[i][j][1] = acc[i][j][3] = bc[j][1];\n"
+                      "      for (int k0 = 16; k0 < 16; k0 += 16)"),
+                     ("      for (int t = 1; t < g.ntaps[ph]; ++t) {",
+                      "      for (int t = 1; t < g.ntaps[ph] - kMaxTaps; ++t) {")],
+        # the first max: the quad's max, then its least class at the max
+        "argmax": [("        const unsigned lo = first_max<NT>(acc[i], 0, lane), "
+                    "hi = first_max<NT>(acc[i], 1, lane);",
+                    "        const unsigned lo = __float_as_uint(acc[i][0][0] + acc[i][NT - 1][1]) & 31,\n"
+                    "                       hi = __float_as_uint(acc[i][0][2] + acc[i][NT - 1][3]) & 31;")],
+        # the 16-byte stores of the map: one the compiler cannot rule out
+        "stores": [("        if (lane < 8)\n          *reinterpret_cast<int4*>(orow + 4 * lane) =",
+                    "        if (lane < 8 && pa == 0xdeadbeefu)\n"
+                    "          *reinterpret_cast<int4*>(orow + 4 * lane) =")],
     }),
 }
 

@@ -1055,10 +1055,55 @@ def test_subpixel_argmax_kernel_matches_plain(cuda, shape, cout, bias,
     assert torch.equal(got, K.subpixel_argmax(x, w, b, stride=2, padding=p))
 
 
+# the bf16 route's tile edges (16 low-res columns by 16 rows, a halo for
+# k3s2p1op1): H and W off the tile, W odd (4-byte stores) and even
+# (16-byte ones), I in {8, 16, 19, 32, 48} (K padded to 16, 32 or 48; 19
+# staged element by element) and O in {5, 11, 19, 32} (classes padded to
+# 8, 16, 24 or 32); f32 at the same shapes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", sorted(K7_GEOMETRIES))
+@pytest.mark.parametrize("shape, cout", [
+    ((2, 45, 75, 8), 5),
+    ((1, 33, 64, 48), 32),
+    ((2, 17, 31, 16), 32),
+    ((1, 19, 20, 19), 5),
+    ((1, 16, 16, 32), 11),
+    ((3, 7, 49, 48), 19),
+])
+def test_subpixel_argmax_kernel_tile_edges(cuda, shape, cout, geometry,
+                                           dtype):
+    k, p = K7_GEOMETRIES[geometry]
+    x, w, b = _k7_args(8, shape, cout, k, True, dtype, cuda)
+    got = K.subpixel_argmax(x, w, b, stride=2, padding=p)
+    want = K.subpixel_argmax_ref(x, w, b, stride=2, padding=p)
+    torch.cuda.synchronize()
+    n, h, wd, _ = shape
+    assert got.shape == want.shape == (n, 2 * h, 2 * wd)
+    assert int(got.min()) >= 0 and int(got.max()) < cout
+    mismatched = _k7_check(x, w, b, p, got, want)
+    if dtype == torch.float32:
+        assert mismatched <= 1 + 1e-4 * got.numel()
+    else:
+        assert mismatched <= 2e-2 * got.numel()
+
+
+@pytest.mark.parametrize("geometry", sorted(K7_GEOMETRIES))
+def test_subpixel_argmax_grid_does_not_change_the_map(cuda, geometry):
+    """The bf16 route's persistent grid capped at 1, 3 and 7 blocks gives
+    the uncapped grid's map bit for bit: each pixel is summed by one warp
+    in one order, whichever block takes its tile."""
+    k, p = K7_GEOMETRIES[geometry]
+    x, w, b = _k7_args(9, (2, 37, 53, 16), 19, k, True, torch.bfloat16, cuda)
+    want = K.subpixel_argmax(x, w, b, stride=2, padding=p)
+    for cap in (1, 3, 7):
+        assert torch.equal(SA._call(x, w, b, 2, p, max_blocks=cap), want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_subpixel_argmax_kernel_takes_misaligned_x(cuda, dtype):
-    """x one element off a 16-byte boundary: the element-by-element loads,
-    equal to an aligned copy's map bit for bit."""
+    """x one element off a 16-byte boundary: the element-by-element loads
+    (bf16: the element-by-element staging), equal to an aligned copy's map
+    bit for bit."""
     x, w, b = _k7_args(5, (2, 11, 17, 16), 19, 3, True, dtype, cuda)
     es, nbytes = x.element_size(), x.numel() * x.element_size()
     buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=cuda)

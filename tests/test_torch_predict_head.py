@@ -161,11 +161,11 @@ def test_subpixel_argmax_matches_reference(geometry, cin, cout, bias, dtype):
 @pytest.mark.parametrize("cin, cout, bias", [(16, 19, False), (19, 11, True),
                                              (8, 5, True)])
 def test_kernel_tables_give_the_plain_logits(geometry, cin, cout, bias):
-    """A numpy emulation of K7's loop from what the kernel reads (the
+    """A numpy emulation of K7's f32 loop from what the kernel reads (the
     padded f32 weights and bias and the int32 descriptor, read field by
     field as csrc/subpixel_argmax.cu reads them) gives the f64 phase
     logits within 1e-12 and their first-max argmax; padded classes never
-    win."""
+    win. (The bf16 route's tile walk: tests/test_torch_subpixel_pack.py.)"""
     k, p, _ = GEOMETRIES[geometry]
     x, w, _, b = _case(3, cin, cout, k, bias, (2, 5, 7))
     xt = _t(x, torch.float64)
@@ -175,7 +175,7 @@ def test_kernel_tables_give_the_plain_logits(geometry, cin, cout, bias):
     assert (n, h, wd, ci, co, nslots) == (2, 5, 7, cin, cout, k * k)
     assert pad == SA.class_pad(cout) and pad % 4 == 0
     ntaps = desc[7:11]
-    taps = desc[11:].reshape(4, SA.MAX_TAPS, 3)
+    taps = desc[11:11 + 4 * SA.MAX_TAPS * 3].reshape(4, SA.MAX_TAPS, 3)
     wp, bp = wp.double().numpy(), bp.double().numpy()
     assert not wp[..., co:].any() and not bp[co:].any()
     out = np.zeros((n, 2 * h, 2 * wd, pad))
@@ -226,19 +226,21 @@ def test_packed_weights_follow_the_weights():
     def packed():
         return SA._packed_weights(x, layer.weight, layer.bias)
 
-    def want():
-        w = layer.weight.detach().to(torch.bfloat16).float()
-        return w.permute(2, 3, 0, 1).reshape(9, 16, 19)
+    def want():   # the bf16 route's [slot][n][k] layout
+        w = layer.weight.detach().to(torch.bfloat16)
+        return w.permute(2, 3, 1, 0).reshape(9, 19, 16)
     first = packed()
-    assert packed() is first and torch.equal(first[0][..., :19], want())
+    assert packed() is first and torch.equal(first[0][:, :19, :16], want())
     with torch.no_grad():
         layer.weight.mul_(2)
     second = packed()
-    assert second is not first and torch.equal(second[0][..., :19], want())
+    assert second is not first and torch.equal(second[0][:, :19, :16],
+                                               want())
     layer.load_state_dict({"weight": torch.ones_like(layer.weight),
                            "bias": torch.zeros_like(layer.bias)})
     third = packed()
-    assert third is not second and torch.equal(third[0][..., :19], want())
+    assert third is not second and torch.equal(third[0][:, :19, :16],
+                                               want())
     assert not third[1].any()
     other = torch.nn.Parameter(layer.weight.detach().clone())
     assert SA._packed_weights(x, other, layer.bias) is not third
