@@ -12,9 +12,10 @@ config 5 and CamVid's 720x960, in f32 and bf16, also against torch's own
 backward, two launches bit for bit, and K5 the transpose of the
 forward's map bit for bit; K7, the subpixel class argmax, at the heads
 of ENet (config 5), ERFNet, ESNet, ESPNet, FSSNet and SQNet (config 3)
-and LinkNet (config 2) and at an odd size, in bf16 and f32, within its
-gap rule, two launches bit for bit, planted ties to the first class,
-beside the two-call route it replaces; K1 also at r = 2, FPENet's x2
+and LinkNet (config 2), at an odd size and at the bf16 tiles' edges
+(K7_EDGES), in bf16 and f32, within its gap rule, two launches (and in
+bf16 a grid capped at 7 blocks) bit for bit, planted ties to the first
+class, beside the two-call route it replaces; K1 also at r = 2, FPENet's x2
 head at config 3 and 5), then drives these paths through the port's
 entry points, each with the launch counts from zero (every train step
 launches K5 and K6 once for each upsample and adaptive pool it
@@ -948,6 +949,13 @@ K7_HEADS = [("enet", (BATCH, 512, 1024, 16), 19, 3, 1, False),
             ("sqnet", (BATCH, 256, 512, 32), 19, 2, 0, True),
             ("linknet", (BATCH, 176, 240, 32), 11, 2, 0, True),
             ("odd", (2, 37, 53, 19), 11, 3, 1, True)]
+# K7's bf16 tiles (16 x 16 low-res pixels, fewer rows for a wide I) at the
+# edges K7_HEADS do not reach: 16-byte staging of tiles past the last row
+# and column (I 8: half of each pixel's K zero-filled, 5 classes), I 48
+# with 32 classes, and I 128 (4-row tiles, half the warps idle)
+K7_EDGES = [("edge: ragged tiles, I 8, O 5", (2, 45, 75, 8), 5, 3, 1, True),
+            ("edge: I 48, O 32", (2, 33, 47, 48), 32, 2, 0, True),
+            ("edge: I 128, 4-row tiles", (1, 21, 35, 128), 19, 3, 1, True)]
 # K1 at r = 2: FPENet's x2 head at config 3 and config 5
 K1_R2 = [("fpenet config-3 head", (BATCH, 256, 512, CLASSES)),
          ("fpenet config-5 head", (BATCH, 512, 1024, CLASSES))]
@@ -957,7 +965,8 @@ def subpixel_argmax_case(K, torch, F, gen, models, shape, cout, k, p, bias,
                          dtype):
     """K7 against its plain version at one head: where the maps differ,
     the exact logits of the two classes within the gap rule
-    (``gap_rule``); two launches bit for bit; the time of the kernel, of
+    (``gap_rule``); two launches, and in bf16 a grid of 7 blocks, bit for
+    bit; the time of the kernel, of
     the plain version and of the two-call route the port took before
     (``F.conv_transpose2d`` then ``argmax``: no single PyTorch call
     computes the function), and the bound."""
@@ -974,6 +983,9 @@ def subpixel_argmax_case(K, torch, F, gen, models, shape, cout, k, p, bias,
     got = K.subpixel_argmax(x, w, b, **kw)
     again = K.subpixel_argmax(x, w, b, **kw)
     ref = K.subpixel_argmax_ref(x, w, b, **kw)
+    # bf16: the persistent grid capped at 7 blocks gives the same map
+    capped = (SA._call(x, w, b, (2, 2), (p, p), max_blocks=7)
+              if dtype == torch.bfloat16 else got)
     torch.cuda.synchronize()
     n, h, wd, _ = shape
     check(got.shape == (n, 2 * h, 2 * wd) and got.dtype == torch.int32,
@@ -1006,7 +1018,8 @@ def subpixel_argmax_case(K, torch, F, gen, models, shape, cout, k, p, bias,
            "max_gap_rel": float(rel.max()), "gap_rule": rule,
            "max_abs_err": float(gap.max()),
            "within_tol": bool((rel <= rule).all()),
-           "bit_identical": bool(torch.equal(got, again)),
+           "bit_identical": bool(torch.equal(got, again)
+                                 and torch.equal(got, capped)),
            "macs": macs, "bound_ms": bound_ms, "bound_by": bound_by,
            "ms": cuda_ms(lambda: K.subpixel_argmax(x, w, b, **kw)),
            "plain_ms": cuda_ms(lambda: K.subpixel_argmax_ref(x, w, b, **kw)),
@@ -1083,7 +1096,7 @@ def kernel_phase(torch, F, K):
             argmax_rows.append(row)
     subpixel_rows, ties = [], []
     for dtype in (torch.bfloat16, torch.float32):
-        for head in K7_HEADS:
+        for head in K7_HEADS + K7_EDGES:
             subpixel_rows.append(subpixel_argmax_case(K, torch, F, gen, *head,
                                                       dtype))
             torch.cuda.empty_cache()

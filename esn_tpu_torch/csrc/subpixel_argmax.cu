@@ -26,29 +26,34 @@
 // 256 threads walk tiles of TH x 16 low-res pixels (TH = 16, fewer where
 // shared memory runs out) of one image:
 //   0. once per block: the weights, rounded to bf16 by the wrapper and
-//      packed [slot][n][k] (classes padded to a multiple of 8, K to a
-//      multiple of 16 with zeros, rows ldk = K + 8 apart), and the f32
-//      bias, to shared memory;
-//   1. the tile's x with the taps' halo (rows and columns dy, dx range
+//      packed [slot][n][k] (K padded to a multiple of 16 with zeros, rows
+//      ldk = K + 8 apart, classes padded to 8, 12, 20 or 32, then a zero
+//      slot), the f32 bias and the phase pairs' offset tables, to shared
+//      memory;
+//   1. the tile's x with the taps' halo (the rows and columns dy, dx range
 //      over), K channels a pixel, ldk apart (an odd count of 16-byte
 //      units, so ldmatrix's eight row addresses hit distinct banks), by
 //      16-byte cp.async, zero-filled outside the image and from I to K;
 //      double-buffered where shared memory allows, so the next tile's
 //      loads overlap this one's products. Channel counts or an x that are
-//      not 16-byte whole take an element-by-element path into the same
-//      layout;
+//      not 16-byte whole take 8 element loads and one 16-byte store a
+//      unit into the same layout;
 //   2. per warp, per 16 pixels of a tile row (two rows a warp at TH = 16,
-//      sharing each B fragment) and per phase: mma.sync m16n8k16, bf16 x
-//      bf16 into f32, over the phase's taps x K/16 steps, A and B by
-//      ldmatrix. The bf16 products are exact in f32;
-//   3. the argmax in the accumulators' layout: each thread adds the bias
-//      to its columns and takes the first max of its own classes (padded
-//      classes masked), then two xor shuffles combine a quad's on (value,
-//      index), greater or equal with a lower index, so ties go to the
-//      first class;
-//   4. a warp's 16 pixels x 2 phases of a full-resolution row are 32
-//      contiguous int32: gathered by shuffles and stored 16 bytes a lane
-//      (4 bytes a lane at a ragged tile or an odd W).
+//      sharing each B fragment) and per phase pair (rh, 0), (rh, 1): one
+//      mma.sync m16n8k16 product, bf16 x bf16 into f32, over the offsets
+//      either phase reads x K/16 steps, A and B by ldmatrix. n-tile j holds
+//      classes 4j .. 4j + 3 of each phase: its B rows are ldmatrix row
+//      addresses into the two phases' slots (the zero slot where a phase
+//      reads nothing at the offset). The first product adds to the bias;
+//      the bf16 products are exact in f32;
+//   3. the argmax in the accumulators' layout: lane (g, t) holds pixels g
+//      and g + 8 of phase t/2, half its classes, the lane t^1 the other
+//      half (padded classes -inf through the bias): the pair's largest
+//      value by one xor shuffle, then the least class holding it by
+//      another, so ties go to the first class;
+//   4. each lane then holds one of the 32 classes (16 pixels x 2 phases)
+//      of a full-resolution row, and the row segment leaves as one store
+//      of the warp, 128 contiguous bytes.
 // Each pixel is summed by one warp in a fixed order whatever the grid,
 // so two launches, and any grid size, give the same bits.
 //
@@ -91,12 +96,19 @@ constexpr int kPhases = 4;   // stride 2 on both axes
 constexpr int kMaxTaps = 16; // taps of one phase (k <= 8 per axis)
 constexpr int kTileW = 16;   // low-res columns a tile: the product's M
 
+constexpr int kMaxPairs = 2 * kMaxTaps;  // offsets of one phase pair
+
 // the shape and the phases' tap tables: tap t of phase ph reads x at
-// (q + dy, p + dx) with weight slot uh * kw + uw
+// (q + dy, p + dx) with weight slot uh * kw + uw. The bf16 route also
+// reads the phase pairs' tables: entry e of pair rh (phases (rh, 0) and
+// (rh, 1)) is an offset (dy, dx) that either phase reads, with the slot
+// each phase takes there, or the zero slot nslots where it reads none.
 struct Geo {
   int n, h, w, ci, co;
   int ntaps[kPhases];
   int dy[kPhases][kMaxTaps], dx[kPhases][kMaxTaps], slot[kPhases][kMaxTaps];
+  int npairs[2];
+  int pair[2][kMaxPairs][4];  // dy, dx, slot of (rh, 0), slot of (rh, 1)
 };
 
 // ---------------------------------------------------------------------------
@@ -108,7 +120,7 @@ struct Geo {
 // bf16, a tile rows x cols pixels whose pixel (0, 0) is low-res
 // (ty*th + y0, tx*16 + x0).
 struct Plan {
-  int kp, np, ldk;       // K padded to 16, classes padded to 8, kp + 8
+  int kp, np, ldk;       // K padded to 16, classes padded to 4 ntp(O), kp + 8
   int th, nbuf;          // low-res rows a tile (16, 8, 4, 2 or 1), x buffers (1 or 2)
   int y0, x0;            // the taps' least dy and dx
   int rows, cols;        // staged rows th + dy range, columns 16 + dx range
@@ -116,9 +128,13 @@ struct Plan {
   int max_blocks;        // a cap on the grid (0: as many as fit)
 };
 constexpr int kPlanFields = 14;
-constexpr int kTapBytes = kPhases * kMaxTaps * 8;  // int2 (A offset, B offset) a tap
+constexpr int kTapBytes = 2 * kMaxPairs * 16;  // int4 (A offset, B offsets, 0) an entry
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// n-tiles of 8 columns a phase pair's product takes for co classes: each
+// holds 4 classes of each phase (2, 3, 5 or 8: 4 ntp classes a phase)
+inline int pair_tiles(int co) { return co <= 8 ? 2 : co <= 12 ? 3 : co <= 20 ? 5 : co <= 32 ? 8 : 0; }
 
 // the plan's fields against what they must be for g and nslots
 inline bool check(const Plan& p, const Geo& g, int nslots) {
@@ -130,10 +146,30 @@ inline bool check(const Plan& p, const Geo& g, int nslots) {
       xmin = g.dx[ph][t] < xmin ? g.dx[ph][t] : xmin;
       xmax = g.dx[ph][t] > xmax ? g.dx[ph][t] : xmax;
     }
+  // every phase's taps once in its pair's table, nothing else there
+  for (int rh = 0; rh < 2; ++rh) {
+    if (g.npairs[rh] < 1 || g.npairs[rh] > kMaxPairs) return false;
+    int uses[2] = {0, 0};
+    for (int e = 0; e < g.npairs[rh]; ++e) {
+      const int* en = g.pair[rh][e];
+      if (en[0] < ymin || en[0] > ymax || en[1] < xmin || en[1] > xmax) return false;
+      for (int rw = 0; rw < 2; ++rw) {
+        const int s = en[2 + rw], ph = 2 * rh + rw;
+        if (s < 0 || s > nslots) return false;
+        if (s == nslots) continue;
+        bool found = false;
+        for (int t = 0; t < g.ntaps[ph]; ++t)
+          found |= g.dy[ph][t] == en[0] && g.dx[ph][t] == en[1] && g.slot[ph][t] == s;
+        if (!found) return false;
+        ++uses[rw];
+      }
+    }
+    if (uses[0] != g.ntaps[2 * rh] || uses[1] != g.ntaps[2 * rh + 1]) return false;
+  }
   const int o_w = round_up(p.np * 4, 16) + kTapBytes;
-  const int64_t o_x = o_w + (int64_t)nslots * p.np * p.ldk * 2;
+  const int64_t o_x = o_w + (int64_t)(nslots + 1) * p.np * p.ldk * 2;
   const int64_t tile = (int64_t)p.rows * p.cols * p.ldk * 2;
-  return p.kp == round_up(g.ci, 16) && p.np == round_up(g.co, 8) && p.np <= 32 &&
+  return p.kp == round_up(g.ci, 16) && pair_tiles(g.co) > 0 && p.np == 4 * pair_tiles(g.co) &&
          p.ldk == p.kp + 8 && p.th >= 1 && p.th <= 2 * kWarps && (p.th & (p.th - 1)) == 0 &&
          (p.nbuf == 1 || p.nbuf == 2) &&
          p.y0 == ymin && p.x0 == xmin && p.rows == p.th + ymax - ymin &&
@@ -215,134 +251,113 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* s, const __nv_bfloat16
   }
 }
 
-// The first max of a 16-pixel x (8 NT)-class accumulator tile for pixel
-// lane/4 + 8*h (its classes 8j + 2*(lane%4) + e lie across the quad,
-// acc[j][2h + e], the bias in them, padded classes -inf): the largest
-// value m over the quad, then the least class whose value equals m.
-// Exactly the first max (strict `>` in class order); an all-NaN pixel
-// gives 0.
-template <int NT>
-__device__ __forceinline__ int first_max(const float (&acc)[NT][4], int h, int lane) {
+// The first max of one half of a phase pair's accumulators: pixel
+// lane/4 + 8h, phase (lane%4)/2, its classes 4j + 2(lane%2) + e at
+// acc[j][2h + e] (the bias in them, padded classes -inf) and the rest on
+// lane ^ 1: the largest value m over the two lanes, then the least class
+// whose value equals m. Exactly the first max (strict `>` in class
+// order); an all-NaN pixel gives 0.
+template <int NTP>
+__device__ __forceinline__ int first_max(const float (&acc)[NTP][4], int h, int lane) {
   float m = acc[0][2 * h];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) m = fmaxf(m, fmaxf(acc[j][2 * h], acc[j][2 * h + 1]));
+  for (int j = 0; j < NTP; ++j) m = fmaxf(m, fmaxf(acc[j][2 * h], acc[j][2 * h + 1]));
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
   int idx = 32;
 #pragma unroll
-  for (int j = NT - 1; j >= 0; --j) {
-    const int col = 8 * j + 2 * (lane & 3);
+  for (int j = NTP - 1; j >= 0; --j) {
+    const int col = 4 * j + 2 * (lane & 1);
     idx = acc[j][2 * h + 1] == m ? col + 1 : idx;
     idx = acc[j][2 * h] == m ? col : idx;
   }
   idx = min(idx, __shfl_xor_sync(0xffffffffu, idx, 1));
-  idx = min(idx, __shfl_xor_sync(0xffffffffu, idx, 2));
   return idx & 31;
 }
 
 // One warp's RPW rows (r0, r0 + 8) of a staged tile whose first low-res
-// pixel is (q0, px0) of image b: for each rh, both rw phases' products
-// (the accumulators start at the bias) and first max, then the 32 classes
-// of the full-resolution row 2q + rh from column 2*px0 on.
-template <int NT, int RPW>
+// pixel is (q0, px0) of image b. For each phase pair rh, one product over
+// the pair's offsets: n-tile j holds classes 4j .. 4j + 3 of phase (rh, 0)
+// in its columns 0-3 and of (rh, 1) in 4-7 (each B row an ldmatrix row
+// address into its phase's slot, or into the zero slot), the accumulators
+// starting at the bias. Lane (g, t) then holds pixels g and g + 8 of phase
+// t/2, the lane pair t, t^1 all of its classes: the first max, and the
+// 32 classes of the full-resolution row 2q + rh from column 2*px0 on go
+// out as one store of the warp, 4 bytes a lane.
+template <int NTP, int RPW>
 __device__ __forceinline__ void tile_rows(const __nv_bfloat16* xs, const __nv_bfloat16* ws,
-                                          const int2* taps, const float (&bc)[NT][2],
+                                          const int4* pairs, const float (&bc)[NTP][2],
                                           const Geo& g, const Plan& p, int* __restrict__ out,
-                                          int b, int q0, int px0, int r0, int lane,
-                                          bool vec_out) {
-  // ldmatrix row addresses: A pixel lane%16 at k + 8*(lane/16); B (two
-  // n-tiles of 8) rows n + lane%8 + 8*(lane/16) at k + 8*((lane/8)%2)
+                                          int b, int q0, int px0, int r0, int lane) {
+  // ldmatrix row addresses: A pixel lane%16 at k + 8*(lane/16); B row
+  // lane%8 of n-tile j + lane/16 at k + 8*((lane/8)%2): phase (lane/4)%2,
+  // class 4 (j + lane/16) + lane%4
   const __nv_bfloat16* a_row =
       xs + (r0 * p.cols + (lane & 15) - p.x0) * p.ldk + (lane >> 4) * 8;
-  const int b_col = ((lane >> 3) & 1) * 8;
-  const __nv_bfloat16* b_lane4 = ws + ((lane & 7) + ((lane >> 4) << 3)) * p.ldk + b_col;
-  const __nv_bfloat16* b_lane2 = ws + (lane & 7) * p.ldk + b_col;
+  const __nv_bfloat16* b_lane =
+      ws + (((lane >> 4) << 2) + (lane & 3)) * p.ldk + ((lane >> 3) & 1) * 8;
+  const bool second = (lane & 4) != 0;
   const int row_step = kWarps * p.cols * p.ldk;
   const int64_t W2 = 2 * (int64_t)g.w;
-#pragma unroll 1
-  for (int rh = 0; rh < 2; ++rh) {
-    unsigned packed[RPW];  // byte 2*rw + half: the class of pixel lane/4 + 8*half
+  // this lane's store: half (lane%2), its pixel, its phase's column
+  const int m = (lane >> 2) + 8 * (lane & 1), col = 2 * (px0 + m) + ((lane >> 1) & 1);
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) packed[i] = 0u;
-#pragma unroll 1
-    for (int rw = 0; rw < 2; ++rw) {
-      const int ph = rh * 2 + rw;
-      float acc[RPW][NT][4];
-      // one K step of a tap: A rows, B columns, the products; the first
-      // (FIRST) adds to the bias instead of to the accumulators
-      auto step = [&](auto first, int2 tap, int k0) {
-        unsigned af[RPW][4];
+  for (int rh = 0; rh < 2; ++rh) {  // unrolled: one pair's first max beside the next's products
+    float acc[RPW][NTP][4];
+    // one K step of an entry (A offset, B offsets of the two phases): A
+    // rows, B columns, the products; the first (FIRST) adds to the bias
+    auto step = [&](auto first, const int4& en, int k0) {
+      unsigned af[RPW][4];
 #pragma unroll
-        for (int i = 0; i < RPW; ++i) ldmatrix_x4(af[i], a_row + tap.x + i * row_step + k0);
+      for (int i = 0; i < RPW; ++i) ldmatrix_x4(af[i], a_row + en.x + i * row_step + k0);
+      const __nv_bfloat16* bp = b_lane + (second ? en.z : en.y) + k0;
 #pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          unsigned bf[4];
-          const bool pair = j + 1 < NT;
-          if (pair)
-            ldmatrix_x4(bf, b_lane4 + tap.y + 8 * j * p.ldk + k0);
-          else
-            ldmatrix_x2(bf, b_lane2 + tap.y + 8 * j * p.ldk + k0);
+      for (int j = 0; j < NTP; j += 2) {
+        unsigned bf[4];
+        const bool two = j + 1 < NTP;
+        if (two)
+          ldmatrix_x4(bf, bp + 4 * j * p.ldk);
+        else
+          ldmatrix_x2(bf, bp + 4 * j * p.ldk);
 #pragma unroll
-          for (int i = 0; i < RPW; ++i)
+        for (int i = 0; i < RPW; ++i)
 #pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-              if (jj == 1 && !pair) continue;
-              if constexpr (decltype(first)::value)
-                mma_bf16_c(acc[i][j + jj], af[i], bf[2 * jj], bf[2 * jj + 1], bc[j + jj]);
-              else
-                mma_bf16(acc[i][j + jj], af[i], bf[2 * jj], bf[2 * jj + 1]);
-            }
-        }
-      };
-      step(std::true_type{}, taps[ph * kMaxTaps], 0);
-#pragma unroll 1
-      for (int k0 = 16; k0 < p.kp; k0 += 16) step(std::false_type{}, taps[ph * kMaxTaps], k0);
-#pragma unroll 1
-      for (int t = 1; t < g.ntaps[ph]; ++t) {
-        const int2 tap = taps[ph * kMaxTaps + t];  // A, B offsets
-#pragma unroll 1
-        for (int k0 = 0; k0 < p.kp; k0 += 16) step(std::false_type{}, tap, k0);
+          for (int jj = 0; jj < 2; ++jj) {
+            if (jj == 1 && !two) continue;
+            if constexpr (decltype(first)::value)
+              mma_bf16_c(acc[i][j + jj], af[i], bf[2 * jj], bf[2 * jj + 1], bc[j + jj]);
+            else
+              mma_bf16(acc[i][j + jj], af[i], bf[2 * jj], bf[2 * jj + 1]);
+          }
       }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const unsigned lo = first_max<NT>(acc[i], 0, lane), hi = first_max<NT>(acc[i], 1, lane);
-        packed[i] |= (lo | hi << 8) << (16 * rw);
-      }
+    };
+    const int4* en = pairs + rh * kMaxPairs;
+    step(std::true_type{}, en[0], 0);
+#pragma unroll 1
+    for (int k0 = 16; k0 < p.kp; k0 += 16) step(std::false_type{}, en[0], k0);
+#pragma unroll 1
+    for (int e = 1; e < g.npairs[rh]; ++e) {
+#pragma unroll 1
+      for (int k0 = 0; k0 < p.kp; k0 += 16) step(std::false_type{}, en[e], k0);
     }
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
+      const int cls0 = first_max<NTP>(acc[i], 0, lane), cls1 = first_max<NTP>(acc[i], 1, lane);
       const int q = q0 + r0 + i * kWarps;
-      if (q >= g.h) break;
-      int* orow = out + ((int64_t)b * 2 * g.h + 2 * q + rh) * W2 + 2 * px0;
-      if (vec_out && px0 + kTileW <= g.w) {
-        // lane < 8: elements 4 lane .. 4 lane + 3, pixels 2 lane and
-        // 2 lane + 1, each rw 0 and 1
-        const int m = 2 * (lane & 7), sh = 8 * (m >> 3);
-        const unsigned pa = __shfl_sync(0xffffffffu, packed[i], 4 * (m & 7));
-        const unsigned pb = __shfl_sync(0xffffffffu, packed[i], 4 * ((m + 1) & 7));
-        if (lane < 8)
-          *reinterpret_cast<int4*>(orow + 4 * lane) =
-              make_int4((pa >> sh) & 0xff, (pa >> (16 + sh)) & 0xff, (pb >> sh) & 0xff,
-                        (pb >> (16 + sh)) & 0xff);
-      } else {
-        // element lane: pixel lane/2, phase rw = lane%2
-        const int m = lane >> 1;
-        const unsigned v = __shfl_sync(0xffffffffu, packed[i], 4 * (m & 7));
-        if (px0 + m < g.w) orow[lane] = (v >> (16 * (lane & 1) + 8 * (m >> 3))) & 0xff;
-      }
+      if (q < g.h && px0 + m < g.w)
+        out[((int64_t)b * 2 * g.h + 2 * q + rh) * W2 + col] = lane & 1 ? cls1 : cls0;
     }
   }
 }
 
-// RPW rows a warp: 2 at th = 16, else 1 (warps past th idle); three blocks
-// an SM (<= 80 registers a thread)
-template <int NT, int RPW, bool VEC>
-__global__ void __launch_bounds__(kThreads, 3)
+// RPW rows a warp: 2 at th = 16, else 1 (warps past th idle); two blocks
+// an SM (<= 128 registers a thread; 32 classes spill a little at 2 rows)
+template <int NTP, int RPW, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 subpixel_argmax_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wb,
                     const float* __restrict__ bias, int* __restrict__ out, Geo g, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tap_at = round_up(p.np * 4, 16);
-  const int2* taps = reinterpret_cast<const int2*>(smem + tap_at);
+  const int4* pairs = reinterpret_cast<const int4*>(smem + tap_at);
   const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(smem + p.o_w);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + p.o_x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -350,11 +365,11 @@ subpixel_argmax_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   {
     float* sb = reinterpret_cast<float*>(smem);
     for (int i = tid; i < p.np; i += kThreads) sb[i] = bias[i];
-    int2* st = reinterpret_cast<int2*>(smem + tap_at);
-    for (int i = tid; i < kPhases * kMaxTaps; i += kThreads) {
-      const int ph = i / kMaxTaps, t = i % kMaxTaps;
-      st[i] = make_int2(((g.dy[ph][t] - p.y0) * p.cols + g.dx[ph][t]) * p.ldk,
-                        g.slot[ph][t] * p.np * p.ldk);
+    int4* st = reinterpret_cast<int4*>(smem + tap_at);
+    for (int i = tid; i < 2 * kMaxPairs; i += kThreads) {
+      const int* en = g.pair[i / kMaxPairs][i % kMaxPairs];
+      st[i] = make_int4(((en[0] - p.y0) * p.cols + en[1]) * p.ldk, en[2] * p.np * p.ldk,
+                        en[3] * p.np * p.ldk, 0);
     }
     __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem + p.o_w);
     const int units = (p.o_x - p.o_w) / 16;
@@ -362,7 +377,6 @@ subpixel_argmax_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   }
   const int tiles_x = (g.w + kTileW - 1) / kTileW, tiles_y = (g.h + p.th - 1) / p.th;
   const int tiles = g.n * tiles_y * tiles_x;
-  const bool vec_out = g.w % 2 == 0 && esn::aligned16(out);
   const Cursor start(tid, p.kp / 8, p.cols);
   auto stage = [&](__nv_bfloat16* s, const TileAt& at) {
     stage_tile<VEC>(s, x, g, p, start, at.b, at.ty * p.th + p.y0, at.tx * kTileW + p.x0);
@@ -375,14 +389,14 @@ subpixel_argmax_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   esn::cp_async_commit();
   esn::cp_async_wait_all();
   __syncthreads();
-  // the bias of this thread's columns, padded classes -inf (never a max)
-  float bc[NT][2];
+  // the bias of this thread's classes, padded classes -inf (never a max)
+  float bc[NTP][2];
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NTP; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = 8 * j + 2 * (lane & 3) + e;
-      bc[j][e] = col < g.co ? reinterpret_cast<const float*>(smem)[col] : -INFINITY;
+      const int c = 4 * j + 2 * (lane & 1) + e;
+      bc[j][e] = c < g.co ? reinterpret_cast<const float*>(smem)[c] : -INFINITY;
     }
   for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
     const __nv_bfloat16* cur = xs;
@@ -402,18 +416,18 @@ subpixel_argmax_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       __syncthreads();
     }
     if (warp < p.th)
-      tile_rows<NT, RPW>(cur, ws, taps, bc, g, p, out, at.b, at.ty * p.th, at.tx * kTileW, warp,
-                         lane, vec_out);
+      tile_rows<NTP, RPW>(cur, ws, pairs, bc, g, p, out, at.b, at.ty * p.th, at.tx * kTileW,
+                          warp, lane);
     at = next;
     next.advance(step, tiles_x, tiles_y);
   }
   esn::cp_async_wait_all();
 }
 
-template <int NT, int RPW, bool VEC>
+template <int NTP, int RPW, bool VEC>
 int launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* b, int* out,
                const Geo& g, const Plan& p, cudaStream_t st) {
-  auto kernel = subpixel_argmax_mma<NT, RPW, VEC>;
+  auto kernel = subpixel_argmax_mma<NTP, RPW, VEC>;
   // the SM count, the shared memory granted and the blocks an SM at it,
   // per card, asked once (a call's host time sets the small heads' time)
   constexpr int kCards = 64;
@@ -441,14 +455,14 @@ int launch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* b, i
   return cudaGetLastError();
 }
 
-template <int NT>
+template <int NTP>
 int dispatch_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* b, int* out,
                  const Geo& g, const Plan& p, bool vec, cudaStream_t st) {
   const bool two = p.th > kWarps;
-  if (two) return vec ? launch_mma<NT, 2, true>(x, w, b, out, g, p, st)
-                      : launch_mma<NT, 2, false>(x, w, b, out, g, p, st);
-  return vec ? launch_mma<NT, 1, true>(x, w, b, out, g, p, st)
-             : launch_mma<NT, 1, false>(x, w, b, out, g, p, st);
+  if (two) return vec ? launch_mma<NTP, 2, true>(x, w, b, out, g, p, st)
+                      : launch_mma<NTP, 2, false>(x, w, b, out, g, p, st);
+  return vec ? launch_mma<NTP, 1, true>(x, w, b, out, g, p, st)
+             : launch_mma<NTP, 1, false>(x, w, b, out, g, p, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -602,10 +616,12 @@ int dispatch_f32(const float* x, const float* w, const float* b, int* out, const
 
 // x (n, h, w, ci) of dtype `dtype` contiguous; out (n, 2h, 2w) int32.
 // f32: w (nslots, ci, co_pad) f32, slot uh * kw + uw, classes from co on
-// zero; b (co_pad) f32. bf16: w (nslots, np, ldk) bf16, [slot][n][k], zero
-// from co and from ci on; b (np) f32. desc (int32, host): n, h, w, ci, co,
-// co_pad, nslots, the four phases' tap counts, per phase kMaxTaps (dy, dx,
-// slot) triples, then the bf16 plan (Plan's fields in order).
+// zero; b (co_pad) f32. bf16: w (nslots + 1, np, ldk) bf16, [slot][n][k],
+// zero from co and from ci on, slot nslots all zero; b (np) f32. desc
+// (int32, host): n, h, w, ci, co, co_pad, nslots, the four phases' tap
+// counts, per phase kMaxTaps (dy, dx, slot) triples, the bf16 plan (Plan's
+// fields in order), the two pairs' entry counts, then per pair kMaxPairs
+// (dy, dx, slot of (rh, 0), slot of (rh, 1)) entries.
 extern "C" int esn_subpixel_argmax(const void* x, const void* w, const void* b, void* out,
                                    int dtype, const int* desc, void* stream) {
   Geo g{};
@@ -635,17 +651,23 @@ extern "C" int esn_subpixel_argmax(const void* x, const void* w, const void* b, 
     const int* f = taps + 3 * kPhases * kMaxTaps;
     const Plan p{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11], f[12],
                  f[13]};
-    static_assert(sizeof(Plan) == kPlanFields * sizeof(int), "Plan is the descriptor's tail");
+    static_assert(sizeof(Plan) == kPlanFields * sizeof(int), "Plan follows the tap tables");
+    const int* pr = f + kPlanFields;
+    for (int rh = 0; rh < 2; ++rh) {
+      g.npairs[rh] = pr[rh];
+      for (int e = 0; e < kMaxPairs; ++e)
+        for (int k = 0; k < 4; ++k) g.pair[rh][e][k] = pr[2 + (rh * kMaxPairs + e) * 4 + k];
+    }
     if (!check(p, g, nslots) || !esn::aligned16(w)) return cudaErrorInvalidValue;
     const bool vec = g.ci % 8 == 0 && esn::aligned16(x);
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     const auto* wb = static_cast<const __nv_bfloat16*>(w);
     const float* bf = static_cast<const float*>(b);
-    switch (p.np / 8) {
-      case 1: return dispatch_mma<1>(xb, wb, bf, o, g, p, vec, st);
+    switch (p.np / 4) {
       case 2: return dispatch_mma<2>(xb, wb, bf, o, g, p, vec, st);
       case 3: return dispatch_mma<3>(xb, wb, bf, o, g, p, vec, st);
-      case 4: return dispatch_mma<4>(xb, wb, bf, o, g, p, vec, st);
+      case 5: return dispatch_mma<5>(xb, wb, bf, o, g, p, vec, st);
+      case 8: return dispatch_mma<8>(xb, wb, bf, o, g, p, vec, st);
     }
   }
   return cudaErrorInvalidValue;

@@ -30,8 +30,8 @@ from . import LAUNCHES, _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # what the kernel takes: stride 2 on both axes, at most MAX_TAPS taps a
 # phase, at most 32 classes (f32 accumulators padded to 12, 20 or 32; bf16
-# classes padded to a multiple of 8), and weights that fit its block's
-# shared memory
+# classes padded to 8, 12, 20 or 32, 4 a phase in each n-tile of a phase
+# pair's product), and weights that fit its block's shared memory
 STRIDE = (2, 2)
 MAX_TAPS = 16
 CLASS_PADS = (12, 20, 32)
@@ -42,8 +42,10 @@ MAX_SMEM = 232448
 TILE_W = 16
 TILE_ROWS = (16, 8, 4, 2, 1)
 SMEM_TWO_BLOCKS = 115712
-# the phases' tap table in shared memory: (A, B) offsets, int32 each
-TAP_BYTES = 4 * MAX_TAPS * 8
+# the phase pairs' tables: at most MAX_PAIRS offsets a pair, in shared
+# memory an int4 (A offset, the two phases' B offsets, 0) each
+MAX_PAIRS = 2 * MAX_TAPS
+TAP_BYTES = 2 * MAX_PAIRS * 16
 
 
 def subpixel_argmax_ref(x: torch.Tensor, weight: torch.Tensor,
@@ -143,13 +145,14 @@ def _round_up(v: int, m: int) -> int:
 class Plan(NamedTuple):
     """The bf16 route's tiles and shared memory (``csrc/subpixel_argmax.cu``
     ``Plan``, field for field): K and the classes padded (``kp`` to 16,
-    ``np`` to 8), a staged pixel's and a B row's stride ``ldk = kp + 8``
+    ``np`` to :func:`pair_classes`), a staged pixel's and a B row's stride
+    ``ldk = kp + 8``
     bf16 (an odd count of 16-byte units), ``th`` low-res rows a tile,
     ``nbuf`` x buffers, the taps' least offsets ``y0``, ``x0`` and the
     staged ``rows`` x ``cols`` (the tile and the taps' halo), byte offsets
-    of the weights and the tiles after the f32 bias and the tap table
-    (``TAP_BYTES``), one tile's bytes and the block's, and a cap on the
-    grid (0: as many blocks as fit)."""
+    of the weights (their slots and a zero slot) and the tiles after the
+    f32 bias and the pair tables (``TAP_BYTES``), one tile's bytes and the
+    block's, and a cap on the grid (0: as many blocks as fit)."""
     kp: int
     np: int
     ldk: int
@@ -166,6 +169,27 @@ class Plan(NamedTuple):
     max_blocks: int
 
 
+def pair_classes(classes: int) -> int:
+    """Classes a phase, padded, in the bf16 route's phase-pair products: 4
+    times its n-tiles (2, 3, 5 or 8; 0: too many classes)."""
+    return 4 * next((n for n in (2, 3, 5, 8) if classes <= 4 * n), 0)
+
+
+def pair_taps(taps, nslots: int):
+    """Each phase pair's offsets (pair rh: phases (rh, 0), (rh, 1)), as
+    ``(dy, dx, slot of (rh, 0), slot of (rh, 1))``: (rh, 0)'s taps in
+    order, then those of (rh, 1) at other offsets; ``nslots`` (the zero
+    slot) where a phase reads nothing at the offset."""
+    pairs = []
+    for rh in range(2):
+        first = {(dy, dx): s for dy, dx, s in taps[2 * rh]}
+        second = {(dy, dx): s for dy, dx, s in taps[2 * rh + 1]}
+        offsets = list(first) + [o for o in second if o not in first]
+        pairs.append([(dy, dx, first.get((dy, dx), nslots),
+                       second.get((dy, dx), nslots)) for dy, dx in offsets])
+    return pairs
+
+
 @functools.lru_cache(maxsize=64)
 def plan_bf16(cin: int, cout: int, nslots: int, taps,
               max_blocks: int = 0) -> Optional[Plan]:
@@ -173,13 +197,13 @@ def plan_bf16(cin: int, cout: int, nslots: int, taps,
     two buffers, then one, each at 16, 8, 4, 2 and 1 rows, whose shared
     memory fits two blocks an SM, else the first that fits one; None
     where none fits (the weights alone are too large)."""
-    kp, npad = _round_up(cin, 16), _round_up(cout, 8)
+    kp, npad = _round_up(cin, 16), pair_classes(cout)
     ldk = kp + 8
     dys = [dy for phase in taps for dy, _, _ in phase]
     dxs = [dx for phase in taps for _, dx, _ in phase]
     cols = TILE_W + max(dxs) - min(dxs)
     o_w = _round_up(npad * 4, 16) + TAP_BYTES
-    o_x = o_w + nslots * npad * ldk * 2
+    o_x = o_w + (nslots + 1) * npad * ldk * 2
     for limit in (SMEM_TWO_BLOCKS, MAX_SMEM):
         for nbuf in (2, 1):
             for th in TILE_ROWS:
@@ -194,15 +218,15 @@ def plan_bf16(cin: int, cout: int, nslots: int, taps,
 
 def _pack_weights_bf16(weight, bias, device):
     """The bf16 route's B operand: the weights rounded to bf16 as
-    ``(kh*kw, np, ldk)``, element ``[slot][n][k]`` at flat index
+    ``(kh*kw + 1, np, ldk)``, element ``[slot][n][k]`` at flat index
     ``(slot * np + n) * ldk + k`` (slot ``uh * kw + uw``; zero from
-    class O and from channel I on), and the bias rounded to bf16, in f32,
-    ``(np,)`` (zeros without one)."""
+    class O and from channel I on; slot kh*kw, the zero slot, all zero),
+    and the bias rounded to bf16, in f32, ``(np,)`` (zeros without one)."""
     cin, cout, kh, kw = weight.shape
-    npad, ldk = _round_up(cout, 8), _round_up(cin, 16) + 8
-    wb = torch.zeros((kh * kw, npad, ldk), dtype=torch.bfloat16,
+    npad, ldk = pair_classes(cout), _round_up(cin, 16) + 8
+    wb = torch.zeros((kh * kw + 1, npad, ldk), dtype=torch.bfloat16,
                      device=device)
-    wb[:, :cout, :cin] = weight.detach().to(torch.bfloat16).permute(
+    wb[:-1, :cout, :cin] = weight.detach().to(torch.bfloat16).permute(
         2, 3, 1, 0).reshape(kh * kw, cout, cin)
     bb = torch.zeros(npad, dtype=torch.float32, device=device)
     if bias is not None:
@@ -227,7 +251,10 @@ def _pack_weights(x, weight, bias):
     return wp, bp
 
 
+@functools.lru_cache(maxsize=64)
 def _taps(w_shape, stride, padding):
+    """``phase_taps`` of a weight shape, as tuples, once a shape (the
+    wrapper's host time a call sets the small heads' time)."""
     return tuple(map(tuple, phase_taps(*w_shape[2:], stride, padding)))
 
 
@@ -236,13 +263,15 @@ def _descriptor(x_shape, w_shape, stride, padding,
                 max_blocks: int = 0) -> np.ndarray:
     """The kernel's int32 descriptor: n, h, w, I, O, pad, kh*kw, the four
     phases' tap counts, per phase MAX_TAPS ``(dy, dx, slot)`` triples
-    (``phase_taps``), then the bf16 route's :class:`Plan` (zeros where
-    none fits)."""
+    (``phase_taps``), the bf16 route's :class:`Plan` (zeros where none
+    fits), the two phase pairs' entry counts, then per pair MAX_PAIRS
+    entries (:func:`pair_taps`)."""
     n, h, w, cin = x_shape
     cout, kh, kw = w_shape[1:]
     taps = _taps(w_shape, stride, padding)
     table_end = 11 + 4 * MAX_TAPS * 3
-    desc = np.zeros(table_end + len(Plan._fields), np.int32)
+    plan_end = table_end + len(Plan._fields)
+    desc = np.zeros(plan_end + 2 + 2 * MAX_PAIRS * 4, np.int32)
     desc[:7] = (n, h, w, cin, cout, class_pad(cout), kh * kw)
     desc[7:11] = [len(t) for t in taps]
     table = desc[11:table_end].reshape(4, MAX_TAPS, 3)
@@ -250,7 +279,12 @@ def _descriptor(x_shape, w_shape, stride, padding,
         table[i, :len(phase)] = phase
     plan = plan_bf16(cin, cout, kh * kw, taps, max_blocks)
     if plan is not None:
-        desc[table_end:] = plan
+        desc[table_end:plan_end] = plan
+    pairs = pair_taps(taps, kh * kw)
+    desc[plan_end:plan_end + 2] = [len(pr) for pr in pairs]
+    entries = desc[plan_end + 2:].reshape(2, MAX_PAIRS, 4)
+    for rh, pr in enumerate(pairs):
+        entries[rh, :len(pr)] = pr
     desc.flags.writeable = False
     return desc
 
@@ -320,8 +354,8 @@ def _call(x, weight, bias, stride, padding, max_blocks: int = 0):
     n, h, w, cin = x.shape
     cout, kh, kw = weight.shape[1:]
     pad = class_pad(cout)
-    taps = _taps(weight.shape, (sh, sw), (ph, pw)) if kh >= sh and kw >= sw \
-        else None
+    taps = _taps(tuple(weight.shape), (sh, sw), (ph, pw)) \
+        if kh >= sh and kw >= sw else None
     if ((sh, sw) != STRIDE or not pad or taps is None
             or max(map(len, taps)) > MAX_TAPS
             or (x.dtype == torch.float32

@@ -135,34 +135,34 @@ PHASES = {
         "store": [("        store16(gx + out0 + xl * c + ch, acc);",
                    "        if (acc[0] == (A)123.25) store16(gx + out0 + xl * c + ch, acc);")],
     }),
-    # K7, the subpixel class argmax (bf16: tensor cores over a staged tile;
-    # the first design's edits, f32 FMAs and x read by tap, are at git eb9a327)
+    # K7, the subpixel class argmax (bf16: tensor cores over a staged tile,
+    # a phase pair a product; the first design's edits, f32 FMAs and x read
+    # by tap, are at git eb9a327)
     "subpixel_argmax": ("subpixel_argmax.cu", {
         # no read of x from device memory; the tiles are still zero-filled
         "staging": [("      cp_async16(dst, in ? xb + (gy * g.w + gx) * g.ci + 8 * k.u : x, in);",
                      "      cp_async16(dst, in ? xb + (gy * g.w + gx) * g.ci + 8 * k.u : x, false);")],
         # every ldmatrix + mma step; the accumulators set to the bias
-        "products": [("      step(std::true_type{}, taps[ph * kMaxTaps], 0);\n"
+        "products": [("    step(std::true_type{}, en[0], 0);\n"
                       "#pragma unroll 1\n"
-                      "      for (int k0 = 16; k0 < p.kp; k0 += 16)",
+                      "    for (int k0 = 16; k0 < p.kp; k0 += 16)",
                       "#pragma unroll\n"
-                      "      for (int i = 0; i < RPW; ++i)\n"
+                      "    for (int i = 0; i < RPW; ++i)\n"
                       "#pragma unroll\n"
-                      "        for (int j = 0; j < NT; ++j)\n"
-                      "          acc[i][j][0] = acc[i][j][2] = bc[j][0], "
+                      "      for (int j = 0; j < NTP; ++j)\n"
+                      "        acc[i][j][0] = acc[i][j][2] = bc[j][0], "
                       "acc[i][j][1] = acc[i][j][3] = bc[j][1];\n"
-                      "      for (int k0 = 16; k0 < 16; k0 += 16)"),
-                     ("      for (int t = 1; t < g.ntaps[ph]; ++t) {",
-                      "      for (int t = 1; t < g.ntaps[ph] - kMaxTaps; ++t) {")],
-        # the first max: the quad's max, then its least class at the max
-        "argmax": [("        const unsigned lo = first_max<NT>(acc[i], 0, lane), "
-                    "hi = first_max<NT>(acc[i], 1, lane);",
-                    "        const unsigned lo = __float_as_uint(acc[i][0][0] + acc[i][NT - 1][1]) & 31,\n"
-                    "                       hi = __float_as_uint(acc[i][0][2] + acc[i][NT - 1][3]) & 31;")],
-        # the 16-byte stores of the map: one the compiler cannot rule out
-        "stores": [("        if (lane < 8)\n          *reinterpret_cast<int4*>(orow + 4 * lane) =",
-                    "        if (lane < 8 && pa == 0xdeadbeefu)\n"
-                    "          *reinterpret_cast<int4*>(orow + 4 * lane) =")],
+                      "    for (int k0 = 16; k0 < 16; k0 += 16)"),
+                     ("    for (int e = 1; e < g.npairs[rh]; ++e) {",
+                      "    for (int e = 1; e < g.npairs[rh] - kMaxPairs; ++e) {")],
+        # the first max: the lane pair's max, then its least class at it
+        "argmax": [("      const int cls0 = first_max<NTP>(acc[i], 0, lane), "
+                    "cls1 = first_max<NTP>(acc[i], 1, lane);",
+                    "      const int cls0 = __float_as_int(acc[i][0][0] + acc[i][NTP - 1][1]) & 31,\n"
+                    "                cls1 = __float_as_int(acc[i][0][2] + acc[i][NTP - 1][3]) & 31;")],
+        # the map's stores: one the compiler cannot rule out
+        "stores": [("      if (q < g.h && px0 + m < g.w)\n",
+                    "      if (q < g.h && px0 + m < g.w && cls0 + cls1 == g.w)\n")],
     }),
 }
 
@@ -416,25 +416,37 @@ def through_wrapper(libs, kernel, call) -> dict:
 
 
 # K7's shapes: ENet's config-5 head and FSSNet's config-3 head at batch 8
-# (label, x (N, H, W, I), classes, kernel, padding, bias)
+# (label, x (N, H, W, I), classes, kernel, padding, bias); K7_PROFILED adds
+# the other heads, read under torch.profiler with the built library
 K7_SHAPES = (("enet config-5 head", (8, 512, 1024, 16), 19, 3, 1, False),
              ("fssnet config-3 head", (8, 256, 512, 16), 19, 3, 1, True))
+K7_PROFILED = K7_SHAPES + (
+    ("erfnet/esnet config-3 head", (8, 256, 512, 16), 19, 2, 0, True),
+    ("espnet config-3 head", (8, 256, 512, 19), 19, 2, 0, False),
+    ("sqnet config-3 head", (8, 256, 512, 32), 19, 2, 0, True),
+    ("linknet config-2 head", (8, 176, 240, 32), 11, 2, 0, True))
 
 
 def subpixel_phases(torch, libs, gen) -> None:
     """K7 at K7_SHAPES, bf16 and f32, each build of its source loaded in
-    turn as the library the wrapper calls."""
+    turn as the library the wrapper calls; then, with the built library,
+    at K7_PROFILED: CUDA events a call, the kernel's device time a call
+    under torch.profiler and the wrapper's host time a call (a loop of
+    launches runs at the larger of the last two)."""
     import math
+    from torch.profiler import ProfilerActivity, profile
     from esn_tpu_torch.ops import kernels as K
     from esn_tpu_torch.ops.kernels import _build
+
+    def args(shape, cout, k, bias, dtype):
+        cin = shape[-1]
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = torch.randn((cin, cout, k, k), generator=gen, device="cuda") / math.sqrt(cin * k)
+        b = torch.randn((cout,), generator=gen, device="cuda") * 0.1 if bias else None
+        return x, w, b
     for label, shape, cout, k, p, bias in K7_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            cin = shape[-1]
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            w = torch.randn((cin, cout, k, k), generator=gen,
-                            device="cuda") / math.sqrt(cin * k)
-            b = (torch.randn((cout,), generator=gen, device="cuda") * 0.1
-                 if bias else None)
+            x, w, b = args(shape, cout, k, bias, dtype)
             calls = through_wrapper(libs, "subpixel_argmax", lambda: K.subpixel_argmax(
                 x, w, b, stride=(2, 2), padding=(p, p)))
             report(f"subpixel_argmax {str(dtype).split('.')[-1]} {label} {shape} -> {cout} "
@@ -442,6 +454,34 @@ def subpixel_phases(torch, libs, gen) -> None:
             del x
             torch.cuda.empty_cache()
     _build._LIB = None
+    for label, shape, cout, k, p, bias in K7_PROFILED:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = args(shape, cout, k, bias, dtype)
+
+            def call():
+                K.subpixel_argmax(x, w, b, stride=(2, 2), padding=(p, p))
+            events = in_turns(torch, {"full": call})["full"]
+            calls = 20
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+            device = sum(getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0))
+                         for ev in prof.key_averages()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA
+                         and "subpixel_argmax" in ev.key) / calls / 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                call()
+            host = (time.perf_counter() - t0) / 100 * 1e3
+            torch.cuda.synchronize()
+            print(f"subpixel_argmax {str(dtype).split('.')[-1]} {label} {shape} -> {cout} k{k}: "
+                  f"events {events:.4f} ms, device (profiler) {device:.4f} ms, "
+                  f"host a call {host:.4f} ms")
+            del x
+            torch.cuda.empty_cache()
 
 
 def bwd_phases(torch, libs, names, gen) -> None:

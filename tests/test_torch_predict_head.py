@@ -230,16 +230,16 @@ def test_packed_weights_follow_the_weights():
         w = layer.weight.detach().to(torch.bfloat16)
         return w.permute(2, 3, 1, 0).reshape(9, 19, 16)
     first = packed()
-    assert packed() is first and torch.equal(first[0][:, :19, :16], want())
+    assert packed() is first and torch.equal(first[0][:9, :19, :16], want())
     with torch.no_grad():
         layer.weight.mul_(2)
     second = packed()
-    assert second is not first and torch.equal(second[0][:, :19, :16],
+    assert second is not first and torch.equal(second[0][:9, :19, :16],
                                                want())
     layer.load_state_dict({"weight": torch.ones_like(layer.weight),
                            "bias": torch.zeros_like(layer.bias)})
     third = packed()
-    assert third is not second and torch.equal(third[0][:, :19, :16],
+    assert third is not second and torch.equal(third[0][:9, :19, :16],
                                                want())
     assert not third[1].any()
     other = torch.nn.Parameter(layer.weight.detach().clone())

@@ -2,13 +2,15 @@
 and a numpy emulation of the kernel's tile walk.
 
 ``csrc/subpixel_argmax.cu`` runs only on the card. What it reads is made
-here: the bf16 weights packed ``[slot][n][k]`` (``_pack_weights_bf16``)
-and the int32 descriptor whose tail is the planner's ``Plan``
-(``plan_bf16``). The emulation reads those field by field and walks the
+here: the bf16 weights packed ``[slot][n][k]`` with a zero slot
+(``_pack_weights_bf16``) and the int32 descriptor that carries the
+planner's ``Plan`` (``plan_bf16``) and the phase pairs' offset tables
+(``pair_taps``). The emulation reads those field by field and walks the
 tiles as the kernel does (flat shared-memory indices, the staged tile with
-its halo and zero fill, every phase's taps and K steps, tiles past the
-image's last row and column), in f64: it must give ``phase_logits``, and
-its walk must cover every low-res pixel exactly once. The shapes are the
+its halo and zero fill, each pair's offsets and K steps, each n-tile's B
+rows from its two phases' slots, tiles past the image's last row and
+column), in f64: it must give ``phase_logits``, and its walk must cover
+every low-res pixel exactly once. The shapes are the
 heads of the zoo (ENet; ERFNet and ESNet; ESPNet's I = 19; FSSNet; SQNet's
 and LinkNet's I = 32), chip_smoke's odd head and a one-pixel input, at
 small H and W.
@@ -34,6 +36,7 @@ HEADS = [("enet", 16, 19, 3, 1, False),
 SPATIAL = {"odd": (2, 37, 53), "one_pixel": (1, 1, 1)}
 SPATIAL_DEFAULT = (2, 21, 37)
 TABLE_END = 11 + 4 * SA.MAX_TAPS * 3
+PLAN_END = TABLE_END + len(SA.Plan._fields)
 WARPS = 8
 
 
@@ -53,29 +56,33 @@ def _fields(desc):
     n, h, w, ci, co, _, nslots = (int(v) for v in desc[:7])
     ntaps = [int(v) for v in desc[7:11]]
     taps = desc[11:TABLE_END].reshape(4, SA.MAX_TAPS, 3)
-    plan = SA.Plan(*(int(v) for v in desc[TABLE_END:]))
-    return (n, h, w, ci, co, nslots), ntaps, taps, plan
+    plan = SA.Plan(*(int(v) for v in desc[TABLE_END:PLAN_END]))
+    npairs = [int(v) for v in desc[PLAN_END:PLAN_END + 2]]
+    pairs = desc[PLAN_END + 2:].reshape(2, SA.MAX_PAIRS, 4)
+    pairs = [[tuple(int(v) for v in pairs[rh, e]) for e in range(npairs[rh])]
+             for rh in range(2)]
+    return (n, h, w, ci, co, nslots), ntaps, taps, plan, pairs
 
 
 def _walk(desc, x=None, wflat=None, bias=None):
     """The kernel's tile walk (``subpixel_argmax_mma``): every tile, its
-    staging (``stage_tile``) and each warp's rows, phases, taps (through
-    the block's tap table of A and B offsets) and K steps, the
-    accumulators starting at the bias, padded classes at -inf
-    (``tile_rows``). With x, the packed weights (flat) and bias it returns
-    the (N, 2H, 2W, np) f64 logits; always the count of times each low-res
-    pixel is stored. Every A read is checked to lie in the staged tile and
-    every B read in the packed weights."""
-    (n, h, w, ci, co, nslots), ntaps, taps, p = _fields(desc)
-    table = [[(((int(dy) - p.y0) * p.cols + int(dx)) * p.ldk,
-               int(slot) * p.np * p.ldk) for dy, dx, slot in taps[ph]]
-             for ph in range(4)]
-    if bias is not None:
-        bias = np.where(np.arange(p.np) < co, bias, -np.inf)
+    staging (``stage_tile``) and each warp's rows and phase pairs
+    (``tile_rows``): per pair offset (its A offset into the staged tile)
+    and K step, the product of A with the n-tiles' B rows (row r of n-tile
+    j: class 4j + r%4 of phase r/4's slot, or of the zero slot), the
+    accumulators starting at the bias, padded classes at -inf. With x, the
+    packed weights (flat) and bias it returns the (N, 2H, 2W, np) f64
+    logits; always the count of times each low-res pixel is stored. Every
+    A read is checked to lie in the staged tile and every B read in the
+    packed weights."""
+    (n, h, w, ci, co, nslots), _, _, p, pairs = _fields(desc)
+    ntp = p.np // 4
     tiles_x, tiles_y = -(-w // SA.TILE_W), -(-h // p.th)
     rpw = 2 if p.th > WARPS else 1
     stored = np.zeros((n, h, w), np.int64)
     out = None if x is None else np.full((n, 2 * h, 2 * w, p.np), np.nan)
+    if bias is not None:
+        bias = np.where(np.arange(p.np) < co, bias, -np.inf)
     for tile in range(n * tiles_y * tiles_x):
         tx, rest = tile % tiles_x, tile // tiles_x
         ty, b = rest % tiles_y, rest // tiles_y
@@ -94,29 +101,33 @@ def _walk(desc, x=None, wflat=None, bias=None):
             for i in range(rpw):
                 r0 = warp + i * WARPS
                 q = ty * p.th + r0
-                for ph in range(4):
-                    rh, rw = divmod(ph, 2)
-                    acc = np.tile(bias, (SA.TILE_W, 1)) if x is not None \
-                        else None
-                    for t in range(ntaps[ph]):
-                        a_tap, b_tap = table[ph][t]
-                        a_row = (r0 * p.cols - p.x0) * p.ldk + a_tap
+                for rh in range(2):
+                    # merged columns 8j + r: (phase r // 4, class 4j + r % 4)
+                    acc = None
+                    if x is not None:
+                        acc = np.array([bias[4 * (c // 8) + c % 4]
+                                        for c in range(8 * ntp)])
+                        acc = np.tile(acc, (SA.TILE_W, 1))
+                    for dy, dx, s0, s1 in pairs[rh]:
+                        a_row = (r0 * p.cols - p.x0) * p.ldk + \
+                            ((dy - p.y0) * p.cols + dx) * p.ldk
                         assert 0 <= a_row and (a_row + (SA.TILE_W - 1) * p.ldk
                                                + p.kp <= p.rows * p.cols * p.ldk)
-                        dy, dx, _ = (int(v) for v in taps[ph, t])
                         assert 0 <= r0 + dy - p.y0 < p.rows
                         assert 0 <= dx - p.x0 and SA.TILE_W - 1 + dx - p.x0 < p.cols
-                        assert 0 <= b_tap and b_tap + (p.np - 1) * p.ldk + p.kp \
-                            <= nslots * p.np * p.ldk
+                        assert 0 <= min(s0, s1) and max(s0, s1) <= nslots
+                        rows = [((s0, s1)[(c % 8) // 4] * p.np + 4 * (c // 8)
+                                 + c % 4) * p.ldk for c in range(8 * ntp)]
+                        assert max(rows) + p.kp <= (nslots + 1) * p.np * p.ldk
                         if x is None:
                             continue
                         for k0 in range(0, p.kp, 16):
                             a = np.array([[s[a_row + m * p.ldk + k0 + kk]
                                            for kk in range(16)]
                                           for m in range(SA.TILE_W)])
-                            bm = np.array([[wflat[b_tap + nn * p.ldk + k0 + kk]
+                            bm = np.array([[wflat[row + k0 + kk]
                                             for kk in range(16)]
-                                           for nn in range(p.np)])
+                                           for row in rows])
                             acc += a @ bm.T
                     if q >= h:
                         continue
@@ -124,10 +135,14 @@ def _walk(desc, x=None, wflat=None, bias=None):
                         px = tx * SA.TILE_W + m
                         if px >= w:
                             continue
-                        if ph == 0:
+                        if rh == 0:
                             stored[b, q, px] += 1
-                        if x is not None:
-                            out[b, 2 * q + rh, 2 * px + rw] = acc[m]
+                        if x is None:
+                            continue
+                        for rw in range(2):
+                            cols = [8 * j + 4 * rw + r for j in range(ntp)
+                                    for r in range(4)]
+                            out[b, 2 * q + rh, 2 * px + rw] = acc[m, cols]
     return out, stored
 
 
@@ -140,13 +155,14 @@ def _packed(w, b):
 def test_bf16_operand_reads_back_the_weights(name, cin, cout, k, p, bias):
     """``[slot][n][k]`` at ``(slot * np + n) * ldk + k``: the weight in
     bf16 in slot order (``uh * kw + uw``), zeros in the padded classes and
-    K; the bias in bf16 then f32, zeros past O."""
+    K, then the zero slot; the bias in bf16 then f32, zeros past O."""
     _, w, b = _case(1, cin, cout, k, bias, (1, 2, 2))
     wb, bb = _packed(w, b)
     plan = SA.plan_bf16(cin, cout, k * k, SA._taps(w.shape, (2, 2), (p, p)))
     assert wb.dtype == torch.bfloat16 and bb.dtype == torch.float32
-    assert tuple(wb.shape) == (k * k, plan.np, plan.ldk)
-    assert plan.np % 8 == 0 and plan.np - 8 < cout <= plan.np
+    assert tuple(wb.shape) == (k * k + 1, plan.np, plan.ldk)
+    assert plan.np == SA.pair_classes(cout) and plan.np % 4 == 0
+    assert cout <= plan.np and plan.np // 4 in (2, 3, 5, 8)
     assert plan.kp % 16 == 0 and plan.kp - 16 < cin <= plan.kp
     assert plan.ldk == plan.kp + 8 and (plan.ldk * 2 // 16) % 2 == 1
     flat = wb.reshape(-1)
@@ -160,6 +176,7 @@ def test_bf16_operand_reads_back_the_weights(name, cin, cout, k, p, bias):
                 if n < cout:
                     assert torch.equal(got[:cin], want[:, n, uh, uw])
                 assert not got[cin if n < cout else 0:].float().any()
+    assert not wb[k * k].float().any()      # the zero slot
     assert tuple(bb.shape) == (plan.np,) and not bb[cout:].any()
     if bias:
         assert torch.equal(bb[:cout], b.to(torch.bfloat16).float())
@@ -192,7 +209,7 @@ def test_tile_walk_gives_the_phase_logits(name, cin, cout, k, p, bias):
 
 PLANS = [(16, 19, 3, 1), (16, 19, 2, 0), (19, 19, 2, 0), (32, 11, 2, 0),
          (8, 5, 3, 1), (48, 32, 3, 1), (64, 19, 3, 1), (128, 19, 3, 1),
-         (256, 19, 3, 1), (320, 32, 3, 1), (512, 19, 2, 0), (16, 19, 4, 1),
+         (256, 19, 3, 1), (288, 32, 3, 1), (300, 32, 3, 1), (512, 19, 2, 0), (16, 19, 4, 1),
          (16, 32, 8, 3)]
 
 
@@ -212,13 +229,13 @@ def test_plan_fits_and_walk_covers_each_pixel_once(cin, cout, k, p, nhw):
     assert plan.th in SA.TILE_ROWS and plan.nbuf in (1, 2)
     assert plan.o_w == -(-plan.np * 4 // 16) * 16 + SA.TAP_BYTES
     assert plan.o_w % 16 == 0 and plan.o_x % 16 == 0 and plan.tile_bytes % 16 == 0
-    assert plan.o_x == plan.o_w + k * k * plan.np * plan.ldk * 2
+    assert plan.o_x == plan.o_w + (k * k + 1) * plan.np * plan.ldk * 2
     assert plan.bytes == plan.o_x + plan.nbuf * plan.tile_bytes
     assert plan.tile_bytes == plan.rows * plan.cols * plan.ldk * 2
     if (plan.th, plan.nbuf) == (16, 2):
         assert plan.bytes <= SA.SMEM_TWO_BLOCKS
     desc = SA._descriptor((*nhw, cin), (cin, cout, k, k), (2, 2), (p, p))
-    assert tuple(desc[TABLE_END:]) == tuple(plan)
+    assert tuple(desc[TABLE_END:PLAN_END]) == tuple(plan)
     _, stored = _walk(desc)
     assert (stored == 1).all()
 
@@ -230,7 +247,7 @@ def test_plan_refuses_weights_that_do_not_fit():
     taps = SA._taps((1024, 32, 2, 2), (2, 2), (0, 0))
     assert SA.plan_bf16(1024, 32, 4, taps) is None
     desc = SA._descriptor((1, 4, 4, 1024), (1024, 32, 2, 2), (2, 2), (0, 0))
-    assert not desc[TABLE_END:].any()
+    assert not desc[TABLE_END:PLAN_END].any()
 
 
 def test_descriptor_carries_the_grid_cap():
@@ -239,6 +256,24 @@ def test_descriptor_carries_the_grid_cap():
     shape, wshape = (2, 9, 11, 16), (16, 19, 3, 3)
     free = SA._descriptor(shape, wshape, (2, 2), (1, 1))
     capped = SA._descriptor(shape, wshape, (2, 2), (1, 1), 3)
-    assert free[-1] == 0 and capped[-1] == 3
-    assert np.array_equal(free[:-1], capped[:-1])
+    cap = PLAN_END - 1
+    assert free[cap] == 0 and capped[cap] == 3
+    assert np.array_equal(np.delete(free, cap), np.delete(capped, cap))
     assert len(SA.Plan._fields) == 14 and SA.Plan._fields[-1] == "max_blocks"
+
+
+@pytest.mark.parametrize("k, p", [(2, 0), (3, 1), (4, 1), (8, 3)])
+def test_pair_tables_hold_each_tap_once(k, p):
+    """Each phase pair's table lists distinct offsets; every tap of its two
+    phases sits at its offset with its slot exactly once, and the zero
+    slot fills the rest (the kernel checks the same)."""
+    taps = SA._taps((16, 19, k, k), (2, 2), (p, p))
+    pairs = SA.pair_taps(taps, k * k)
+    for rh in range(2):
+        offsets = [(dy, dx) for dy, dx, _, _ in pairs[rh]]
+        assert len(set(offsets)) == len(offsets) <= SA.MAX_PAIRS
+        for rw in range(2):
+            used = sorted((dy, dx, e[2 + rw]) for e in pairs[rh]
+                          for dy, dx in [e[:2]] if e[2 + rw] != k * k)
+            assert used == sorted(taps[2 * rh + rw])
+        assert all(e[2] != k * k or e[3] != k * k for e in pairs[rh])
