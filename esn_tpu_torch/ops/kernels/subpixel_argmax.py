@@ -146,9 +146,8 @@ class Plan(NamedTuple):
     """The bf16 route's tiles and shared memory (``csrc/subpixel_argmax.cu``
     ``Plan``, field for field): K and the classes padded (``kp`` to 16,
     ``np`` to :func:`pair_classes`), a staged pixel's and a B row's stride
-    ``ldk = kp + 8``
-    bf16 (an odd count of 16-byte units), ``th`` low-res rows a tile,
-    ``nbuf`` x buffers, the taps' least offsets ``y0``, ``x0`` and the
+    ``ldk = kp + 8`` bf16 (an odd count of 16-byte units), ``th`` low-res
+    rows a tile, ``nbuf`` x buffers, the taps' least offsets ``y0``, ``x0`` and the
     staged ``rows`` x ``cols`` (the tile and the taps' halo), byte offsets
     of the weights (their slots and a zero slot) and the tiles after the
     f32 bias and the pair tables (``TAP_BYTES``), one tile's bytes and the
@@ -211,8 +210,8 @@ def plan_bf16(cin: int, cout: int, nslots: int, taps,
                 tile = rows * cols * ldk * 2
                 if o_x + nbuf * tile <= limit:
                     return Plan(kp, npad, ldk, th, nbuf, min(dys), min(dxs),
-                                rows, cols, o_w, o_x, tile, o_x + nbuf * tile,
-                                max_blocks)
+                                rows, cols, o_w, o_x, tile,
+                                o_x + nbuf * tile, max_blocks)
     return None
 
 
@@ -302,11 +301,17 @@ def _versions(*tensors):
     return tuple(None if t is None else t._version for t in tensors)
 
 
+def _pack(x, weight, bias):
+    """x's route's packed weights and bias."""
+    if x.dtype == torch.bfloat16:
+        return _pack_weights_bf16(weight, bias, x.device)
+    return _pack_weights(x, weight, bias)
+
+
 def _packed_weights(x, weight, bias):
-    """x's route's packed weights and bias, kept between calls."""
+    """:func:`_pack`, kept between calls."""
     if weight.is_inference() or (bias is not None and bias.is_inference()):
-        return (_pack_weights_bf16(weight, bias, x.device)
-                if x.dtype == torch.bfloat16 else _pack_weights(x, weight, bias))
+        return _pack(x, weight, bias)
     key = (id(weight), id(bias), x.dtype, x.device)
     hit = _PACKED.get(key)
     if (hit is not None and hit[0]() is weight
@@ -315,8 +320,7 @@ def _packed_weights(x, weight, bias):
         return hit[3]
     if len(_PACKED) >= 32:
         _PACKED.clear()
-    packed = (_pack_weights_bf16(weight, bias, x.device)
-              if x.dtype == torch.bfloat16 else _pack_weights(x, weight, bias))
+    packed = _pack(x, weight, bias)
     _PACKED[key] = (weakref.ref(weight),
                     None if bias is None else weakref.ref(bias),
                     _versions(weight, bias), packed)

@@ -24,9 +24,11 @@ that moves or repeats a phase makes this script fail rather than time
 something else. K5, K6 and K7 are timed through their Python wrappers with
 each build loaded in turn as the kernel library, and PPM's forward and
 backward at config 5 is read under ``torch.profiler`` (the device time of
-each kernel, K5's and K6's among them). Names given on the command line
-(``resize_bilinear_bwd adaptive_pool_bwd ppm subpixel_argmax`` ...) run only those
-kernels. Exits non-zero without a CUDA device.
+each kernel, K5's and K6's among them), as is K7 at each model's head
+(``K7_PROFILED``: its device time a call beside its CUDA-event time and
+the wrapper's host time a call). Names given on the command line
+(``resize_bilinear_bwd adaptive_pool_bwd ppm subpixel_argmax`` ...) run
+only those kernels. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
