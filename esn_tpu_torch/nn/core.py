@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import profiling
+
 
 class SegModel(nn.Module):
     """Base of the segmentation models.
@@ -50,10 +52,17 @@ class SegModel(nn.Module):
         ``models.blocks.subpixel_predict_tail`` (the class argmax per
         subpixel phase) and FPENet with
         ``ops.classify.resize2x_head_argmax``. The rest take the argmax of
-        the full logits here.
+        the full logits here. The logits and the tail are the spans
+        ``predict.forward`` and ``predict.tail`` (``utils.profiling``).
         """
         from ..ops.classify import argmax_lastdim, resize_tail_argmax
         if self.LOGITS_TAIL == "resize" and hasattr(self, "logits_lowres"):
-            y = self.logits_lowres(x)
-            return resize_tail_argmax(y.permute(0, 2, 3, 1), tuple(x.shape[2:]))
-        return argmax_lastdim(self(x).permute(0, 2, 3, 1))
+            with profiling.span("predict.forward"):
+                y = self.logits_lowres(x)
+            with profiling.span("predict.tail"):
+                return resize_tail_argmax(y.permute(0, 2, 3, 1),
+                                          tuple(x.shape[2:]))
+        with profiling.span("predict.forward"):
+            y = self(x)
+        with profiling.span("predict.tail"):
+            return argmax_lastdim(y.permute(0, 2, 3, 1))

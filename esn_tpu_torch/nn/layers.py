@@ -17,6 +17,7 @@ from torch import nn
 from . import initializers as init
 from ..ops import convolution as C
 from ..parallel import mesh, spatial
+from ..utils import profiling
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -233,6 +234,10 @@ class BatchNorm(_Recomputable):
         return self._affine(self.running_mean, self.running_var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with profiling.span("bn"):
+            return self._normalise(x)
+
+    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             tape = self._tape
             rm = self.running_mean if tape is None \

@@ -18,6 +18,7 @@ from ..nn import Recompute, SegModel, set_dropout_generator
 from ..ops.classify import argmax_lastdim
 from ..ops.resize import resize_bilinear
 from ..parallel import mesh, spatial
+from ..utils import profiling
 from .metrics import confusion_matrix
 
 _MASK63 = (1 << 63) - 1
@@ -60,71 +61,89 @@ class TrainStep:
         self.device = next(model.parameters()).device
         self.count = 0
 
-    def _loss(self, images: torch.Tensor, labels: torch.Tensor,
-              *rng_data: int) -> torch.Tensor:
-        if self.seed is not None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(fold_in(self.seed, self.count, *rng_data))
-            set_dropout_generator(self.model, gen)
-        x = images.to(device=self.device, dtype=self.compute_dtype,
-                      memory_format=torch.channels_last)
-        if self.recompute is None:
-            logits = self.model.run(x, self.fwd_method)
-        else:
-            logits = checkpoint(self.model.run, x, self.fwd_method,
-                                use_reentrant=False,
-                                context_fn=self.recompute.contexts)
-        logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
-        return self.loss_fn(logits.permute(0, 2, 3, 1), labels)
-
-    def _forward_backward(self, images: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-        """The loss and its gradients (``grad_accum`` microbatches in
-        order, averaged), before the sums over the ranks."""
+    def _microbatches(self, images: torch.Tensor, labels: torch.Tensor):
+        """``(images, labels, rng data)`` of each microbatch, in order."""
         ga = self.grad_accum
         if ga == 1:
-            loss = self._loss(images, labels)
-            loss.backward()
-            return loss.detach()
+            return [(images, labels, ())]
         b = images.shape[0]
         if b % ga:
             raise ValueError(f"batch {b} not divisible by grad_accum={ga}")
         mb = b // ga
-        loss = torch.zeros((), device=self.device)
-        # microbatches in order: each BN update sees the last one's running
-        # stats, as the reference's scan threads them
-        for i in range(ga):
-            sl = slice(i * mb, (i + 1) * mb)
-            li = self._loss(images[sl], labels[sl], i)
-            li.backward()
-            loss = loss + li.detach()
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is not None:
-                    p.grad.div_(ga)
-        return loss / ga
+        return [(images[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb],
+                 (i,)) for i in range(ga)]
+
+    def _input(self, images: torch.Tensor, rng_data) -> torch.Tensor:
+        """A microbatch's model input; sets its dropout generator."""
+        if self.seed is not None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(fold_in(self.seed, self.count, *rng_data))
+            set_dropout_generator(self.model, gen)
+        return images.to(device=self.device, dtype=self.compute_dtype,
+                         memory_format=torch.channels_last)
+
+    def _loss(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        with profiling.span("train.forward"):
+            if self.recompute is None:
+                logits = self.model.run(x, self.fwd_method)
+            else:
+                logits = checkpoint(self.model.run, x, self.fwd_method,
+                                    use_reentrant=False,
+                                    context_fn=self.recompute.contexts)
+            logits = logits.to(torch.promote_types(logits.dtype,
+                                                   torch.float32))
+        with profiling.span("train.loss"):
+            return self.loss_fn(logits.permute(0, 2, 3, 1), labels)
+
+    def _forward_backward(self, x: torch.Tensor, parts) -> torch.Tensor:
+        """The loss and its gradients, summed over the microbatches
+        ``parts`` in order (``x`` is the first one's input), before the
+        sums over the ranks. Each BN update sees the last microbatch's
+        running stats, as the reference's scan threads them."""
+        loss = None
+        for i, (images, labels, rng_data) in enumerate(parts):
+            if i:
+                with profiling.span("train.prepare"):
+                    x = self._input(images, rng_data)
+            li = self._loss(x, labels)
+            with profiling.span("train.backward"):
+                li.backward()
+            loss = li.detach() if loss is None else loss + li.detach()
+        return loss
 
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor | float]:
-        self.model.train()
-        images = batch["image"]
-        labels = batch["label"].to(device=self.device, dtype=torch.int32)
-        self.optimizer.zero_grad(set_to_none=True)
-        with spatial.sharded():
-            loss = self._forward_backward(images, labels)
-        # the ranks' parts of the global loss and gradient, summed
-        loss, = mesh.all_reduce_grads(
-            (p for g in self.optimizer.param_groups for p in g["params"]),
-            loss)
-        metrics: Dict[str, torch.Tensor | float] = {"loss": loss}
-        if self.schedule is not None:
-            lr = float(self.schedule(self.count))
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            metrics["lr"] = lr
-        self.optimizer.step()
-        self.count += 1
-        return metrics
+        with profiling.span("train.step"):
+            with profiling.span("train.prepare"):
+                self.model.train()
+                labels = batch["label"].to(device=self.device,
+                                           dtype=torch.int32)
+                self.optimizer.zero_grad(set_to_none=True)
+                parts = self._microbatches(batch["image"], labels)
+                x = self._input(parts[0][0], parts[0][2])
+            with spatial.sharded():
+                loss = self._forward_backward(x, parts)
+            with profiling.span("train.optimizer"):
+                ga = self.grad_accum
+                if ga > 1:      # the microbatches' mean
+                    loss = loss / ga
+                    for group in self.optimizer.param_groups:
+                        for p in group["params"]:
+                            if p.grad is not None:
+                                p.grad.div_(ga)
+                # the ranks' parts of the global loss and gradient, summed
+                loss, = mesh.all_reduce_grads(
+                    (p for g in self.optimizer.param_groups
+                     for p in g["params"]), loss)
+                metrics: Dict[str, torch.Tensor | float] = {"loss": loss}
+                if self.schedule is not None:
+                    lr = float(self.schedule(self.count))
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = lr
+                    metrics["lr"] = lr
+                self.optimizer.step()
+            self.count += 1
+            return metrics
 
 
 def make_train_step(model: SegModel, loss_fn: Callable,
@@ -210,13 +229,19 @@ def make_predict_step(model: SegModel, *,
 
     @torch.inference_mode()
     def predict(images: torch.Tensor) -> torch.Tensor:
-        if any(m.training for m in modules):
-            model.eval()
-        x = images.to(dtype=compute_dtype, memory_format=torch.channels_last)
-        if output_size is not None:
-            logits = resize_bilinear(model(x).float(), output_size)
-            return argmax_lastdim(logits.permute(0, 2, 3, 1))
-        return model.predict(x)
+        with profiling.span("predict.step"):
+            with profiling.span("predict.prepare"):
+                if any(m.training for m in modules):
+                    model.eval()
+                x = images.to(dtype=compute_dtype,
+                              memory_format=torch.channels_last)
+            if output_size is None:
+                return model.predict(x)
+            with profiling.span("predict.forward"):
+                logits = model(x).float()
+            with profiling.span("predict.tail"):
+                logits = resize_bilinear(logits, output_size)
+                return argmax_lastdim(logits.permute(0, 2, 3, 1))
 
     return predict
 

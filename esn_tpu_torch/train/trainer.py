@@ -314,7 +314,7 @@ class Trainer:
                     images, labels = batch["image"], batch["label"]
                     gen = torch.Generator().manual_seed(
                         fold_in(cfg.seed, epoch, i))
-                    with profiling.annotate("augment"):
+                    with profiling.span("train.augment"):
                         # drawn for the global batch; this rank's rows
                         draws = self.augment.draw(
                             gen, images.shape[0] * self.world.n_data)
@@ -328,8 +328,7 @@ class Trainer:
                                                    w.model_index, 2)
                             y = spatial.shard_rows(y, w.spatial,
                                                    w.model_index, 1)
-                    with profiling.annotate("train_step"):
-                        metrics = self.train_step({"image": x, "label": y})
+                    metrics = self.train_step({"image": x, "label": y})
                     losses.append(metrics["loss"])
                     lr = metrics.get("lr", cfg.lr)
         with self.step_timer.step("sync"):

@@ -5,7 +5,9 @@
   one, the card; writes a Chrome trace (``trace.json``, for
   ``chrome://tracing`` or ui.perfetto.dev) with no tensorboard
   dependency.
-- :func:`annotate`: a named region in that trace.
+- :func:`span`: a named span of the program (the train and predict
+  entries, their phases, BatchNorm), recorded only while a
+  ``torch.profiler`` session is open; :func:`spans` returns them.
 - :func:`nan_guard`: autograd's anomaly mode with its NaN check: a
   backward that makes a NaN raises where it did.
 - :class:`StepTimer`: host wall time per step, by part. The card runs
@@ -16,12 +18,18 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_graph_task_id = torch._C._current_graph_task_id
 
 
 @contextlib.contextmanager
@@ -40,9 +48,120 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named trace region: ``with annotate("augment"): ...``."""
-    return torch.profiler.record_function(name)
+class Span(NamedTuple):
+    """A span as :func:`spans` returns it. ``start_ns``/``end_ns`` are
+    ``time.time_ns()`` (the clock ``torch.profiler`` gives its device
+    timestamps in), stamped just after the opening edge's event and just
+    after the closing one's. ``parent`` is the id of the span that was open on the
+    same thread when this one opened (None for none), ``call`` the id of
+    the outermost span open on that thread: the entry call
+    (``train.step``, ``predict.step``) that the span belongs to.
+    ``device_ms`` is the card's time between CUDA events recorded at the
+    span's edges on the stream current when it opened: the work launched
+    inside the span, in stream order, with any time the card idled in
+    between (a reader of the device's trace takes that idle off); None
+    where no CUDA context was initialised."""
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    parent: Optional[int]
+    call: int
+    device_ms: Optional[float]
+
+
+# spans kept, the newest; older ones are dropped and counted
+SPAN_CAPACITY = 1 << 16
+_records: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
+_dropped = 0
+_records_lock = threading.Lock()
+_span_ids = itertools.count(1)
+_open = threading.local()           # .stack: (id, call) of each open span
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("train.forward"): ...``: a span of the program while a
+    ``torch.profiler`` session is open (on this thread, or anywhere in
+    the process: the profiler's own fast flag), else nothing at all: no
+    record, no CUDA event, no ``record_function``. When on, it enters a
+    ``record_function`` of the same name (the span shows in the
+    profiler's trace) and keeps a :class:`Span`. A span opened while
+    autograd runs a backward (a checkpoint's recompute of the forward,
+    :class:`~esn_tpu_torch.nn.Recompute`) is off too: the forward's spans
+    are counted once, in the forward."""
+    if not (_profiler_enabled() or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    if _graph_task_id() != -1:
+        return _OFF
+    return _OpenSpan(name)
+
+
+class _OpenSpan:
+    __slots__ = ("name", "id", "parent", "call", "start", "record",
+                 "stream", "events")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_OpenSpan":
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_span_ids)
+        self.parent, self.call = stack[-1] if stack else (None, self.id)
+        stack.append((self.id, self.call))
+        self.record = torch.profiler.record_function(self.name)
+        self.record.__enter__()
+        self.events = None
+        if torch.cuda.is_initialized():
+            # both edges on the stream current at the opening: one lookup,
+            # about 6 us of an H100 machine's host under the profiler
+            self.stream = torch.cuda.current_stream()
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(self.stream)
+        # the host's edges are stamped beside the events' records: the
+        # span's own bookkeeping (tens of us under the profiler) lies
+        # outside it, as it lies outside the events
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _dropped
+        if self.events is not None:
+            self.events[1].record(self.stream)
+        end = time.time_ns()
+        self.record.__exit__(*exc)
+        _open.stack.pop()
+        row = (self.id, self.name, self.start, end, threading.get_ident(),
+               self.parent, self.call, self.events)
+        with _records_lock:
+            if len(_records) == _records.maxlen:
+                _dropped += 1
+            _records.append(row)
+        return False
+
+
+def spans() -> List[Span]:
+    """The spans kept, in the order they closed, with their device times
+    (this waits for the card to reach each span's closing event)."""
+    with _records_lock:
+        rows = list(_records)
+    out = []
+    for *head, events in rows:
+        ms = None
+        if events is not None:
+            events[1].synchronize()
+            ms = events[0].elapsed_time(events[1])
+        out.append(Span(*head, ms))
+    return out
+
+
+def spans_dropped() -> int:
+    """How many spans the bounded buffer has dropped, oldest first."""
+    return _dropped
 
 
 @contextlib.contextmanager

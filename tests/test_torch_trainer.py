@@ -1,5 +1,6 @@
 """The port's Trainer on ENet-CamVid at the reference end-to-end test's
-TINY size, f32, on the CPU: what it writes, and an exact resume (two
+TINY size, f32, on the CPU: what it writes (the first epoch's Chrome
+trace with the program's spans among it), and an exact resume (two
 straight epochs against one epoch, a resume from its checkpoint and a
 second epoch: parameters, BN statistics, adam state and logged losses
 bit for bit)."""
@@ -44,7 +45,8 @@ def _events(cfg):
 
 @pytest.fixture(scope="module")
 def straight(tmp_path_factory):
-    cfg = make_cfg(tmp_path_factory.mktemp("straight"), "ck")
+    tmp = tmp_path_factory.mktemp("straight")
+    cfg = make_cfg(tmp, "ck", profile_dir=str(tmp / "profile"))
     trainer = Trainer(cfg)
     miou = trainer.fit()
     return cfg, trainer, miou
@@ -69,6 +71,11 @@ def test_trainer_end_to_end(straight):
     assert log.startswith("Model: ENet  dataset: camvid")
     assert log.count(" IoU: ") == 2 * 11
     assert trainer.train_step.count == 2 * len(trainer.train_loader) == 6
+    # the first epoch's Chrome trace, with the program's spans in it
+    with open(os.path.join(cfg.profile_dir, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"train.augment", "train.step", "train.prepare", "train.forward",
+            "train.loss", "train.backward", "train.optimizer", "bn"} <= names
 
 
 def test_trainer_logs_host_times_and_resolves_its_dtype(straight):
