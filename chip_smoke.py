@@ -16,10 +16,13 @@ and LinkNet (config 2), at an odd size and at the bf16 tiles' edges
 (K7_EDGES), in bf16 and f32, within its gap rule, two launches (and in
 bf16 a grid capped at 7 blocks) bit for bit, planted ties to the first
 class, beside the two-call route it replaces; K1 also at r = 2, FPENet's x2
-head at config 3 and 5), then drives these paths through the port's
-entry points, each with the launch counts from zero (every train step
+head at config 3 and 5; K8, BatchNorm's moments, apply and backward, at the
+cells' BN shapes (BN_MAIN) against their plain versions, two launches bit
+for bit, beside torch's batch_norm, timed only), then drives these paths
+through the port's entry points, each with the launch counts from zero (every train step
 launches K5 and K6 once for each upsample and adaptive pool it
-back-propagates through, BWD_STEP):
+back-propagates through, BWD_STEP; the predict and train phases hold K8's
+launches to the model's BatchNorm calls, ``counting_bn``):
 
 - predict: Fast-SCNN-19 at batch 8, 3x1024x2048, bf16
   (``build_model`` + ``make_predict_step``): output, launch counts,
@@ -573,6 +576,7 @@ BWD_STEP = {"fastscnn": {"lowres": (5, 4), "full": (6, 4)},
             "cgnet": {"lowres": (0, 0), "full": (1, 0)},
             "espnet_c": {"lowres": (0, 0), "full": (1, 0)},
             "fpenet": {"lowres": (3, 0), "full": (3, 0)}}
+K8_KERNELS = ("bn_moments", "bn_apply", "bn_bwd")
 TPU_KERNELS = ("dsconv", "resize_argmax", "resize_ce_fwd", "resize_ce_bwd",
                "cgblock")
 # K5/K6 against their plain versions on the card: f32 within BWD_F32_REL
@@ -823,9 +827,36 @@ def check(ok: bool, what: str) -> None:
 
 
 def launches_equal(got, want) -> bool:
-    """``got`` (every kernel's count) equal to ``want``, in which a kernel
-    left out counts 0."""
-    return got == {k: want.get(k, 0) for k in got}
+    """``got`` (every kernel's count but K8's) equal to ``want``, in which
+    a kernel left out counts 0. K8 runs at every BatchNorm of a CUDA
+    tensor: the predict and train phases hold its counts to the model's
+    BatchNorm calls (``counting_bn``)."""
+    return all(got[k] == want.get(k, 0) for k in got if k not in K8_KERNELS)
+
+
+@contextlib.contextmanager
+def counting_bn(model, BatchNorm):
+    """K8's launches that ``model``'s BatchNorm calls should make, counted
+    by forward hooks: an apply a call, the moments a training call, a
+    backward a call whose output needs a gradient."""
+    counts = {"bn_moments": 0, "bn_apply": 0, "bn_bwd": 0}
+
+    def count(m, _, y):
+        counts["bn_apply"] += 1
+        counts["bn_moments"] += int(m.training)
+        counts["bn_bwd"] += int(y.requires_grad)
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        yield counts
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def k8_launches(launches):
+    return {k: launches[k] for k in K8_KERNELS}
 
 
 def bwd_launches(arch, steps, full=False):
@@ -1131,6 +1162,113 @@ DW_BF16_CASES = [((2, 32, 24, 48), (3, 3), (2, 2)),
                  ((2, 16, 48, 96), (3, 3), (8, 8)),
                  ((2, 64, 96, 192), (3, 1), (4, 1))]
 DW_BF16_REL = 1e-2
+
+
+# K8 at the cells' BatchNorm shapes (Fast-SCNN's at the train cell's b16,
+# CGNet's at b8), bf16 channels_last as the cells run them; the largest
+# also in NCHW and in f32
+BN_MAIN = [("fastscnn ltd.conv", (16, 32, 512, 1024)),
+           ("fastscnn ltd.ds1", (16, 48, 256, 512)),
+           ("fastscnn ltd.ds2", (16, 64, 128, 256)),
+           ("fastscnn gfe.s1 expand", (16, 384, 128, 256)),
+           ("cgnet 35", (8, 35, 512, 1024)),
+           ("cgnet 131", (8, 131, 256, 512))]
+
+
+def bn_case(K, torch, F, gen, layer, shape, dtype, channels_last):
+    """K8's three wrappers at ``shape`` against their plain versions (the
+    statistics and running statistics, y within a bf16 step of the plain
+    version's rounding, dx, dweight, dbias), their repeats bit for bit,
+    and their ms beside their bytes bound (moments: x read once; apply:
+    x read, y written; backward: dy and x read twice, dx written), the
+    plain versions' ms and torch's ``batch_norm`` forward and backward
+    (timed only; the port never calls it)."""
+    c = shape[1]
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(
+        dtype).contiguous(memory_format=fmt)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(
+        memory_format=fmt)
+    w = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    rm = torch.randn(c, generator=gen, device="cuda") * 0.3
+    rv = torch.rand(c, generator=gen, device="cuda") + 0.5
+    count = x.numel() // c
+    kw = dict(n=count, unbias=count / (count - 1), momentum=0.1, update=False)
+    stats = K.bn_moments(x, rm, rm, rv, **kw)
+    want = K.bn_moments_ref(x, rm, rm, rv, **kw)
+    stats_err = float(((stats - want).abs() / want.abs().max(
+        dim=1, keepdim=True).values).max())
+    y = K.bn_apply(x, stats[0], stats[1], w, b, 1e-5)
+    y_want = K.bn_apply_ref(x, stats[0], stats[1], w, b, 1e-5)
+    got = K.bn_backward(dy, x, stats[0], stats[1], w, 1e-5, n=count,
+                        batch_stats=True)
+    ref = K.bn_backward_ref(dy, x, stats[0], stats[1], w, 1e-5, n=count,
+                            batch_stats=True)
+    if dtype == torch.bfloat16:
+        y_far = K.bf16_step_gap(y, y_want)[1]
+        dx_far = K.bf16_step_gap(got[0], ref[0])[1]
+    else:
+        y_far = int(((y - y_want).abs() > 1e-5 * y_want.abs().max()).sum())
+        dx_far = int(((got[0] - ref[0]).abs()
+                      > 1e-5 * ref[0].abs().max()).sum())
+    affine_err = max(float((g - r).abs().max() / r.abs().max())
+                     for g, r in zip(got[1:], ref[1:]))
+    dx_err = float((got[0].float() - ref[0].float()).abs().max())
+    repeats = (torch.equal(stats, K.bn_moments(x, rm, rm, rv, **kw))
+               and all(torch.equal(g, a) for g, a in zip(got, K.bn_backward(
+                   dy, x, stats[0], stats[1], w, 1e-5, n=count,
+                   batch_stats=True))))
+    del y_want, ref
+    check(stats_err <= 1e-4 and y_far == 0 and dx_far == 0
+          and affine_err <= 1e-4 and repeats,
+          f"K8 {layer} {dtype}: statistics {stats_err}, y {y_far}, dx "
+          f"{dx_far}, affine {affine_err}, repeats {repeats}")
+
+    ms = {"moments": cuda_ms(lambda: K.bn_moments(x, rm, rm, rv, **kw)),
+          "apply": cuda_ms(lambda: K.bn_apply(x, stats[0], stats[1], w, b,
+                                              1e-5)),
+          "backward": cuda_ms(lambda: K.bn_backward(
+              dy, x, stats[0], stats[1], w, 1e-5, n=count,
+              batch_stats=True))}
+    nbytes = x.numel() * x.element_size()
+    bounds = {"moments": bound(nbytes, 0)[0], "apply": bound(2 * nbytes, 0)[0],
+              "backward": bound(5 * nbytes, 0)[0]}
+    plain = cuda_ms(lambda: K.bn_backward_ref(
+        dy, x, stats[0], stats[1], w, 1e-5, n=count, batch_stats=True),
+        iters=3, warmup=1) + cuda_ms(lambda: K.bn_apply_ref(
+            x, K.bn_moments_ref(x, rm, rm, rv, **kw)[0], stats[1], w, b,
+            1e-5), iters=3, warmup=1)
+    xl = x.detach().requires_grad_()
+    lib_fwd = cuda_ms(lambda: F.batch_norm(
+        xl.detach(), rm.clone(), rv.clone(), w, b, training=True))
+    yl = F.batch_norm(xl, rm.clone(), rv.clone(), w, b, training=True)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(yl, (xl,), dy,
+                                                  retain_graph=True))
+    lib_eval = cuda_ms(lambda: F.batch_norm(x, rm, rv, w, b, training=False))
+    row = {"layer": layer, "shape": list(shape),
+           "dtype": str(dtype).split(".")[-1],
+           "channels_last": channels_last, "ms": ms, "bound_ms": bounds,
+           "share": {k: bounds[k] / ms[k] for k in ms},
+           "plain_ms": plain, "library_ms": {"train_forward": lib_fwd,
+                                             "eval": lib_eval,
+                                             "backward": lib_bwd},
+           "stats_rel_err": stats_err, "affine_rel_err": affine_err,
+           "max_abs_err": dx_err}
+    print("batchnorm", json.dumps(row))
+    return row
+
+
+def bn_phase(torch, F, K):
+    """K8 at BN_MAIN's shapes (bf16, channels_last), the largest also in
+    NCHW and f32."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = [bn_case(K, torch, F, gen, layer, shape, torch.bfloat16, True)
+            for layer, shape in BN_MAIN]
+    layer, shape = BN_MAIN[0]
+    rows.append(bn_case(K, torch, F, gen, layer, shape, torch.bfloat16, False))
+    rows.append(bn_case(K, torch, F, gen, layer, shape, torch.float32, True))
+    return rows
 
 
 def depthwise_bf16_phase(torch):
@@ -1666,7 +1804,9 @@ def seeded_model(torch, F, build_model, BatchNorm, seed: int,
 def plain_versions(K):
     """Route the model's and the loss's kernel calls to the kernels' plain
     versions (both look them up in ``esn_tpu_torch.ops.kernels`` at call
-    time)."""
+    time). K8 stays on its kernels in both runs: the f32 step's gradients
+    move by ~1e-2 with a last-bit change of a BatchNorm over a few values,
+    so K8 is held against its plain versions in its own phase."""
     names = {"fused_dsconv": K.dsconv_ref, "resize_argmax": K.resize_argmax_ref,
              "resize_ce_sums": K.resize_ce_sums_ref,
              "fused_cgblock_pre": K.cgblock_pre_ref,
@@ -1750,12 +1890,15 @@ def predict_phase(torch, F, K, build_model, BatchNorm, make_predict_step,
 
     # the main path, once, with the launch counts from zero
     K.reset_launches()
-    pred = predict(images)
+    with counting_bn(model, BatchNorm) as bn_calls:
+        pred = predict(images)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     print(f"{arch} predict launches", json.dumps(launches))
-    check(launches_equal(launches, want_launches),
-          f"{arch}: launch counts per predict {launches}")
+    check(launches_equal(launches, want_launches)
+          and k8_launches(launches) == bn_calls and bn_calls["bn_apply"]
+          and not bn_calls["bn_moments"],
+          f"{arch}: launch counts per predict {launches}, BN {bn_calls}")
     check(tuple(pred.shape) == (BATCH, *hw) and pred.dtype == torch.int32,
           f"predict output {tuple(pred.shape)} {pred.dtype}")
     lo, hi = int(pred.min()), int(pred.max())
@@ -1956,15 +2099,19 @@ def train_phase(torch, F, K, BatchNorm, arch="fastscnn", hw=IMAGE_HW):
     stats0 = [m.running_mean.clone() for m in bns]
     # the main path, five steps, with the launch counts from zero
     K.reset_launches()
-    losses = [float(step(batch)["loss"]) for _ in range(TRAIN_STEPS)]
+    with counting_bn(model, BatchNorm) as bn_calls:
+        losses = [float(step(batch)["loss"]) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     print(f"{arch} train launches", json.dumps(launches))
     print(f"{arch} train losses", json.dumps(losses))
     check(launches_equal(launches, {"resize_ce_fwd": TRAIN_STEPS,
                                     "resize_ce_bwd": TRAIN_STEPS,
-                                    **bwd_launches(arch, TRAIN_STEPS)}),
-          f"launch counts over {TRAIN_STEPS} train steps {launches}")
+                                    **bwd_launches(arch, TRAIN_STEPS)})
+          and k8_launches(launches) == bn_calls
+          and bn_calls["bn_moments"] == bn_calls["bn_apply"] > 0,
+          f"launch counts over {TRAIN_STEPS} train steps {launches}, BN "
+          f"{bn_calls}")
     check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
     moved = sum(not torch.equal(m.running_mean, m0)
@@ -5040,6 +5187,7 @@ def main() -> int:
     cg_rows = phase("cgblock", cgblock_phase, torch, K)
     bwd = phase("resize_pool_bwd", bwd_phase, torch, F, K)
     dw_rows = phase("depthwise_bf16", depthwise_bf16_phase, torch)
+    bn_rows = phase("batchnorm", bn_phase, torch, F, K)
     none = {"dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
             "resize_ce_bwd": 0, "cgblock": 0}
     result = phase("fastscnn_predict", predict_phase, torch, F, K,
@@ -5292,6 +5440,20 @@ def main() -> int:
          "max_abs_err": k7["max_abs_err"], "ms": k7["ms"],
          "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"],
          "bound_by": k7["bound_by"], "library_ms": k7["library_ms"]},
+        # K8 at the train cell's first BN (bf16, channels_last): each
+        # wrapper's launches as its own row
+        *({"name": f"bn_{part}", "route": "cuda",
+           "source": "esn_tpu_torch/csrc/batchnorm.cu",
+           "replaces": "none (BatchNorm's eager passes; XLA fused BN on the "
+                       "TPU)",
+           "launches": total[key], "max_abs_err": bn_rows[0]["max_abs_err"],
+           "ms": bn_rows[0]["ms"][part],
+           "plain_ms": bn_rows[0]["plain_ms"],
+           "bound_ms": bn_rows[0]["bound_ms"][part], "bound_by": "bytes",
+           "library_ms": bn_rows[0]["library_ms"][lib]}
+          for part, key, lib in (("moments", "bn_moments", "train_forward"),
+                                 ("apply", "bn_apply", "eval"),
+                                 ("backward", "bn_bwd", "backward"))),
     ]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -5302,7 +5464,7 @@ def main() -> int:
          "subpixel_argmax": subpixel_rows, "subpixel_argmax_ties": ties,
          "resize_ce_sums": ce_rows, "fused_cgblock_pre": cg_rows,
          "resize_pool_bwd": bwd,
-         "depthwise_bf16": dw_rows,
+         "depthwise_bf16": dw_rows, "batchnorm": bn_rows,
          "predict": result, "train": trained, "cgnet_predict": cgnet,
          "predict_after_train": interleaved, "pool_unpool": pool_rows,
          "enet_predict": enet_predict, "enet_eval": enet_eval,

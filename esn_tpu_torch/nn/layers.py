@@ -16,6 +16,7 @@ from torch import nn
 
 from . import initializers as init
 from ..ops import convolution as C
+from ..ops import kernels as K
 from ..parallel import mesh, spatial
 from ..utils import profiling
 
@@ -201,6 +202,12 @@ class BatchNorm(_Recomputable):
     model group (``spatial.replicated``) each element is summed ``S``
     times: the moments' ratio is unchanged, and the unbiased factor counts
     each element once.
+
+    A CUDA tensor takes K8 (``ops.kernels.batchnorm``): the same
+    statistics (summed in f64), counts and world sums from hand-written
+    kernels, the scale and offset applied as here in f32 and rounded once
+    to x's dtype, and a backward that keeps x alone. A CPU tensor takes
+    the composite :meth:`_normalise`.
     """
 
     def __init__(self, num_features: int, *, momentum: float = 0.1,
@@ -235,23 +242,62 @@ class BatchNorm(_Recomputable):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with profiling.span("bn"):
+            if x.is_cuda:
+                return self._kernels(x)
             return self._normalise(x)
+
+    def _centre(self) -> Tuple[torch.Tensor, bool]:
+        """The running mean a training forward centres on (in a recompute
+        the first run's) and whether it moves the running statistics."""
+        tape = self._tape
+        if tape is None:
+            return self.running_mean, True
+        return tape.keep(self.running_mean.clone), not tape.replaying
+
+    def _count(self, x: torch.Tensor) -> int:
+        """The elements a channel the moments sum over: the global
+        tensor's under a group (a shard's rows are not T/S)."""
+        if not mesh.active():
+            return x.shape[0] * x.shape[2] * x.shape[3]
+        w, ax = mesh.world(), spatial.axis()
+        rows = x.shape[2] * w.spatial if ax is None \
+            else spatial.global_rows(ax, x.shape[2])[0]
+        return x.shape[0] * w.n_data * rows * x.shape[3]
+
+    def _unbias(self, n: int) -> float:
+        """The running variance's unbiased factor: a replicated tensor's
+        elements counted once."""
+        rep = spatial.replicated_axis()
+        if rep is not None:
+            n //= rep.size
+        return n / max(n - 1, 1)
+
+    def _kernels(self, x: torch.Tensor) -> torch.Tensor:
+        """A CUDA tensor's BN: K8's moments, apply and backward."""
+        if not self.training:
+            if not (torch.is_grad_enabled() and (x.requires_grad or (
+                    self.affine and self.weight.requires_grad))):
+                return K.bn_apply(x, self.running_mean, self.running_var,
+                                  self.weight, self.bias, self.eps)
+            return K.BatchNormFn.apply(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, None, self.eps, self.momentum, (1, 1.0),
+                False, None)
+        centre, update = self._centre()
+        n = self._count(x)
+        return K.BatchNormFn.apply(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            centre, self.eps, self.momentum, (n, self._unbias(n)), update,
+            mesh.all_sum if mesh.active() else None)
 
     def _normalise(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            tape = self._tape
-            rm = self.running_mean if tape is None \
-                else tape.keep(self.running_mean.clone)
+            rm, update = self._centre()
             xf = x.to(_at_least_f32(x.dtype)) - rm[:, None, None]
-            n = x.shape[0] * x.shape[2] * x.shape[3]
+            n = self._count(x)
             if mesh.active():
                 # the moments over the global batch: one all-reduce of the
-                # 2C sums, whose backward sums the ranks' gradients; the
-                # count is the global tensor's (a shard's rows are not T/S)
-                w, ax = mesh.world(), spatial.axis()
-                rows = x.shape[2] * w.spatial if ax is None \
-                    else spatial.global_rows(ax, x.shape[2])[0]
-                n = x.shape[0] * w.n_data * rows * x.shape[3]
+                # 2C sums, whose backward sums the ranks' gradients
                 d, m2 = (mesh.global_sum(torch.cat([
                     xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
                     / n).chunk(2)
@@ -260,11 +306,8 @@ class BatchNorm(_Recomputable):
                 m2 = xf.square().mean(dim=(0, 2, 3))
             mean = rm + d
             var = torch.clamp(m2 - d.square(), min=0.0)
-            if tape is None or not tape.replaying:
-                rep = spatial.replicated_axis()
-                if rep is not None:
-                    n //= rep.size
-                unbiased = var * (n / max(n - 1, 1))
+            if update:
+                unbiased = var * self._unbias(n)
                 m = self.momentum
                 with torch.no_grad():
                     self.running_mean.copy_((1 - m) * rm + m * mean.detach())

@@ -8,7 +8,9 @@ kernels; K5 and K6 are the port's own, the backward of the bilinear
 resize and of the adaptive pool in a fixed order (torch's CUDA backward
 adds with atomics), so that a step on the card repeats bit for bit. K7
 is the class argmax of a final transposed conv by subpixel phases (the
-prediction head of seven models), which XLA computed on the TPU.
+prediction head of seven models), which XLA computed on the TPU. K8 is
+BatchNorm's moments, apply and backward (every BN of a CUDA tensor, in
+training and eval), which XLA fused into its neighbours on the TPU.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made in this
 process: a run can show that its path went through the kernels.
@@ -19,7 +21,8 @@ import torch
 
 LAUNCHES = {"dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
             "resize_ce_bwd": 0, "cgblock": 0, "resize_bilinear_bwd": 0,
-            "adaptive_pool_bwd": 0, "subpixel_argmax": 0}
+            "adaptive_pool_bwd": 0, "subpixel_argmax": 0, "bn_moments": 0,
+            "bn_apply": 0, "bn_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -49,6 +52,9 @@ def bf16_step_gap(got: torch.Tensor, want: torch.Tensor):
 
 from .adaptive_pool_bwd import (AdaptiveAvgPool,  # noqa: E402,F401
                                 adaptive_pool_bwd, adaptive_pool_bwd_ref)
+from .batchnorm import (BatchNormFn, bn_apply,  # noqa: E402,F401
+                        bn_apply_ref, bn_backward, bn_backward_ref,
+                        bn_moments, bn_moments_ref, bn_plan)
 from .cgblock import (bf16_rounding_gap,  # noqa: E402,F401
                       cgblock_pre_kernel_rounding, cgblock_pre_ref,
                       fused_cgblock_pre)

@@ -99,6 +99,9 @@ def build() -> BuildInfo:
 
 
 _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64, _F64 = ctypes.c_int64, ctypes.c_double
+# a K8 entry's shape and plan: dtype, a, c, b, then the plan's five ints
+_BN_SHAPE = [_I32, _I64, _I32, _I64] + [_I32] * 5
 # (argtypes, restype) of each C entry point of the library
 SIGNATURES = {
     "esn_cuda_error_string": ([_I32], ctypes.c_char_p),
@@ -114,6 +117,12 @@ SIGNATURES = {
     "esn_resize_bilinear_bwd": ([_VP] * 4, _I32),
     "esn_adaptive_pool_bwd": ([_VP] * 4, _I32),
     "esn_subpixel_argmax": ([_VP] * 4 + [_I32, _VP, _VP], _I32),
+    "esn_bn_sums": ([_VP] * 8 + _BN_SHAPE + [_I32] + [_F64] * 4
+                    + [_I32, _VP], _I32),
+    "esn_bn_finish": ([_VP, _I64, _I32, _I32] + [_VP] * 5 + [_I32]
+                      + [_F64] * 4 + [_I32, _VP], _I32),
+    "esn_bn_apply": ([_VP] * 6 + [_F64] + _BN_SHAPE + [_VP], _I32),
+    "esn_bn_dx": ([_VP] * 7 + [_F64, _F64] + _BN_SHAPE + [_VP], _I32),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -66,18 +66,23 @@ def helpers_case(seed: int):
 
 
 @_numpy
-def bn_case(x, cot, params, dtype="float64"):
+def bn_case(x, cot, params, dtype="float64", route="forward", device="cpu"):
     """One training BatchNorm forward and backward on this rank's rows of
-    ``x``; the gradients of the affine summed over the ranks."""
+    ``x``; the gradients of the affine summed over the ranks. ``route``
+    "kernels" takes K8's route (``BatchNorm._kernels``: the kernels on
+    the card, their plain versions on the CPU) whatever the device;
+    ``device`` "cuda": this rank's card."""
     dt = getattr(torch, dtype)
-    bn = BatchNorm(x.shape[1]).to(dt)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device("cpu"))
+    bn = BatchNorm(x.shape[1]).to(device=dev, dtype=dt)
     with torch.no_grad():
         for name, v in params.items():
             getattr(bn, name).copy_(_t(v))
     mine = mesh.shard_batch({"x": x, "c": cot})
-    xr = _t(mine["x"]).to(dt).requires_grad_()
-    y = bn(xr)
-    (y * _t(mine["c"]).to(dt)).sum().backward()
+    xr = _t(mine["x"]).to(device=dev, dtype=dt).requires_grad_()
+    y = bn._kernels(xr) if route == "kernels" else bn(xr)
+    (y * _t(mine["c"]).to(device=dev, dtype=dt)).sum().backward()
     mesh.all_reduce_grads(bn.parameters())
     return dict(y=y, dx=xr.grad, dweight=bn.weight.grad, dbias=bn.bias.grad,
                 running_mean=bn.running_mean, running_var=bn.running_var)

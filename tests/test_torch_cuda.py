@@ -9,6 +9,7 @@ there:
 
 The same checks at the main path's full shapes are ``chip_smoke.py``.
 """
+import contextlib
 import importlib
 
 import numpy as np
@@ -32,6 +33,29 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     yield torch.device("cuda")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@contextlib.contextmanager
+def _counting_bn(model):
+    """K8's launches that ``model``'s BatchNorm calls make on the card,
+    counted by forward hooks on any device: an apply a call, the moments
+    a training call, a backward a call whose output needs a gradient (a
+    train step back-propagates through every BN)."""
+    from esn_tpu_torch.nn import BatchNorm
+    counts = {"bn_moments": 0, "bn_apply": 0, "bn_bwd": 0}
+
+    def count(m, _, y):
+        counts["bn_apply"] += 1
+        counts["bn_moments"] += int(m.training)
+        counts["bn_bwd"] += int(y.requires_grad)
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        yield counts
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def _dsconv_args(seed, n, h, w, ci, co, dtype, device):
@@ -601,8 +625,9 @@ def test_fastscnn_train_step_on_cuda_matches_cpu(cuda):
             model, partial(fused, num_classes=19, class_weights=cw.to(dev)),
             opt, schedule=build_schedule("poly", lr, 100), fwd_method=method)
         before = dict(K.LAUNCHES)
-        loss = float(step({"image": images.to(dev),
-                           "label": labels.to(dev)})["loss"])
+        with _counting_bn(model) as bn:
+            loss = float(step({"image": images.to(dev),
+                               "label": labels.to(dev)})["loss"])
         launched = {k: K.LAUNCHES[k] - before[k] for k in before}
         runs.append((model, loss, launched))
     (_, want, none), (_, got, launched) = runs
@@ -610,7 +635,7 @@ def test_fastscnn_train_step_on_cuda_matches_cpu(cuda):
     assert launched == {"dsconv": 0, "resize_argmax": 0,
                         "resize_ce_fwd": 1, "resize_ce_bwd": 1, "cgblock": 0,
                         "resize_bilinear_bwd": 5, "adaptive_pool_bwd": 4,
-                        "subpixel_argmax": 0}
+                        "subpixel_argmax": 0, **bn}
     assert abs(got - want) <= 1e-5 * abs(want)
     excess = {}
     for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
@@ -753,13 +778,15 @@ def test_cgnet_predict_on_cuda_matches_cpu(cuda):
                               .randn(2, 3, 128, 256).astype(np.float32))
     want = make_predict_step(model)(images)
     before = dict(K.LAUNCHES)
-    got = make_predict_step(model.to(cuda))(images.to(cuda))
+    with _counting_bn(model) as bn:
+        got = make_predict_step(model.to(cuda))(images.to(cuda))
     torch.cuda.synchronize()
     launched = {k: K.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"dsconv": 0, "resize_argmax": 1, "resize_ce_fwd": 0,
                         "resize_ce_bwd": 0, "cgblock": 22,
                         "resize_bilinear_bwd": 0, "adaptive_pool_bwd": 0,
-                        "subpixel_argmax": 0}
+                        "subpixel_argmax": 0, **bn}
+    assert bn["bn_apply"] > 0 == bn["bn_moments"] == bn["bn_bwd"]
     assert got.shape == want.shape and got.dtype == torch.int32
     assert (got.cpu() != want).float().mean() <= 1e-4
 
@@ -843,9 +870,12 @@ def test_enet_predict_and_eval_on_cuda_match_cpu(cuda):
     labels[:, 30:34] = 255
     want = make_predict_step(cpu)(images)
     before = dict(K.LAUNCHES)
-    got = make_predict_step(gpu)(images.to(cuda))
+    with _counting_bn(gpu) as bn:
+        got = make_predict_step(gpu)(images.to(cuda))
     assert K.LAUNCHES == {**before,
-                          "subpixel_argmax": before["subpixel_argmax"] + 1}
+                          "subpixel_argmax": before["subpixel_argmax"] + 1,
+                          "bn_apply": before["bn_apply"] + bn["bn_apply"]}
+    assert bn["bn_apply"] > 0 == bn["bn_moments"] == bn["bn_bwd"]
     assert got.shape == want.shape and got.dtype == torch.int32
     assert len(torch.unique(want)) > 3
     mismatched = int((got.cpu() != want).sum())
@@ -906,15 +936,16 @@ def test_ce_ohem_train_step_on_cuda_matches_cpu(cuda, arch, hw, grad_rel):
         step = make_train_step(
             model, loss_on(dev), build_optimizer("adam", model.parameters()),
             schedule=build_schedule("poly", lr, 100), fwd_method=None)
-        losses.append(float(step({"image": images.to(dev),
-                                  "label": labels.to(dev)})["loss"]))
+        with _counting_bn(model) as bn:
+            losses.append(float(step({"image": images.to(dev),
+                                      "label": labels.to(dev)})["loss"]))
     # no K1-K4 (the loss takes the full logits); K5 and K6 for each
     # upsample and adaptive pool back-propagated through on the card
     k5, k6 = {"enet": (0, 0), "fastscnn": (6, 4)}[arch]
     assert {k: K.LAUNCHES[k] - before[k] for k in before} == {
         "dsconv": 0, "resize_argmax": 0, "resize_ce_fwd": 0,
         "resize_ce_bwd": 0, "cgblock": 0, "resize_bilinear_bwd": k5,
-        "adaptive_pool_bwd": k6, "subpixel_argmax": 0}
+        "adaptive_pool_bwd": k6, "subpixel_argmax": 0, **bn}
     want, got = losses
     assert abs(got - want) <= 1e-5 * abs(want)
     excess = {}
@@ -1150,7 +1181,7 @@ def test_subpixel_argmax_wrapper_raises_on_cuda(cuda):
 def test_head_predict_on_cuda_matches_cpu(cuda, arch):
     """f32 predict through K7 on the card == the CPU's (K7's plain
     version) but at near-ties (rate <= 1e-3); one K7 launch a predict and
-    no other kernel."""
+    no other kernel but K8's apply, once a BatchNorm."""
     import copy
     cpu = _calibrated(arch)
     gpu = copy.deepcopy(cpu).to(cuda)
@@ -1158,9 +1189,12 @@ def test_head_predict_on_cuda_matches_cpu(cuda, arch):
                               .randn(2, 3, 64, 128).astype(np.float32))
     want = make_predict_step(cpu)(images)
     before = dict(K.LAUNCHES)
-    got = make_predict_step(gpu)(images.to(cuda)).cpu()
+    with _counting_bn(gpu) as bn:
+        got = make_predict_step(gpu)(images.to(cuda)).cpu()
     launched = {k: v - before[k] for k, v in K.LAUNCHES.items()}
-    assert launched == {**{k: 0 for k in launched}, "subpixel_argmax": 1}
+    assert launched == {**{k: 0 for k in launched}, "subpixel_argmax": 1,
+                        **bn}
+    assert bn["bn_apply"] > 0 == bn["bn_moments"] == bn["bn_bwd"]
     assert got.shape == want.shape and len(torch.unique(want)) > 3
     assert float((got != want).float().mean()) <= 1e-3
 
@@ -1338,7 +1372,8 @@ def test_remat_step_on_cuda_matches_the_step_without(cuda, loss_name):
     upsamples' and pools' backward in one order, but cuDNN's f32 weight
     gradients differ run to run with its deterministic flag off); K3 once
     forward and once backward with the weighted-CE loss either way, K5 5
-    (6 on the full logits) and K6 4 times."""
+    (6 on the full logits) and K6 4 times; K8 once a BatchNorm each way,
+    and under remat its forward (moments, apply) again in the recompute."""
     import copy
     from functools import partial
     from esn_tpu_torch.train import losses as L
@@ -1373,12 +1408,20 @@ def test_remat_step_on_cuda_matches_the_step_without(cuda, loss_name):
     assert loss_r == loss
     assert all(torch.equal(a, b) for a, b in zip(stats, stats_r))
     k3 = 1 if loss_name == "ce" else 0
-    assert launched_r == launched == {"dsconv": 0, "resize_argmax": 0,
+    bn_keys = ("bn_moments", "bn_apply", "bn_bwd")
+    others = [{k: v for k, v in d.items() if k not in bn_keys}
+              for d in (launched_r, launched)]
+    assert others[0] == others[1] == {"dsconv": 0, "resize_argmax": 0,
                                       "resize_ce_fwd": k3,
                                       "resize_ce_bwd": k3, "cgblock": 0,
                                       "resize_bilinear_bwd": 6 - k3,
                                       "adaptive_pool_bwd": 4,
                                       "subpixel_argmax": 0}
+    # K8: a BatchNorm a forward each way, and the recompute's forward again
+    from esn_tpu_torch.nn import BatchNorm
+    n_bn = sum(isinstance(m, BatchNorm) for m in model0.modules())
+    assert [launched[k] for k in bn_keys] == [n_bn] * 3
+    assert [launched_r[k] for k in bn_keys] == [2 * n_bn, 2 * n_bn, n_bn]
     gap = float((g_r - g).norm() / g.norm())
     noise = float((g_again - g).norm() / g.norm())
     assert gap <= 4 * noise + 1e-6, (gap, noise)
@@ -1409,3 +1452,225 @@ def test_two_rank_step_on_cuda_matches_one_process(cuda):
         np.testing.assert_allclose(r["stats"], one["stats"], rtol=1e-5,
                                    atol=1e-5)
     launch.assert_ranks_equal([r["stats"] for r in ranks])
+
+
+# ------------------------------------------------------------ K8: BatchNorm
+# The BNs of the cells (C, H, W): Fast-SCNN's from the learning-to-
+# downsample stem to its first bottleneck's expansion, CGNet's 35- and
+# 131-channel inputs of stages 2 and 3, at b8
+BN_SHAPES = [(32, 512, 1024), (48, 256, 512), (64, 128, 256),
+             (384, 128, 256), (35, 512, 1024), (131, 256, 512)]
+
+
+def _bn_inputs(seed, shape, dtype, channels_last, device):
+    """x and dy (8, *shape) in ``dtype`` and the layout; weight, bias and
+    running statistics in the accumulation type."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    c = shape[0]
+
+    def draw(*s):
+        return torch.randn(s, generator=gen, device=device, dtype=acc)
+
+    x = (draw(8, *shape) * 2 + 0.5).to(dtype).contiguous(memory_format=fmt)
+    dy = draw(8, *shape).to(dtype).contiguous(memory_format=fmt)
+    return (x, dy, draw(c).abs() + 0.5, draw(c) * 0.1, draw(c) * 0.3,
+            draw(c).abs() + 0.5)
+
+
+def _bn_close(got, want, dtype):
+    """Two f32 (f64) per-channel results summed in other orders."""
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(
+        want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_batchnorm_kernels_match_plain(cuda, shape, channels_last, dtype):
+    """K8's three wrappers against their plain versions at the cells'
+    shapes: the statistics and the running statistics they move, the
+    apply (bf16: at most one bf16 step from the plain version, which
+    rounds where the kernel does; f32, f64: within an ulp or two), the
+    backward's dx, dweight and dbias; each launch counted once, and the
+    reductions twice on the same inputs give the same bits."""
+    x, dy, w, b, rm, rv = _bn_inputs(0, shape, dtype, channels_last, cuda)
+    n = x.numel() // shape[0]
+    kw = dict(n=n, unbias=n / (n - 1), momentum=0.1, update=True)
+    before = dict(K.LAUNCHES)
+    rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    stats = K.bn_moments(x, rm, rm_k, rv_k, **kw)
+    want = K.bn_moments_ref(x, rm, rm_p, rv_p, **kw)
+    for got_t, want_t in ((stats, want), (rm_k, rm_p), (rv_k, rv_p)):
+        _bn_close(got_t, want_t, dtype)
+    again = K.bn_moments(x, rm, rm.clone(), rv.clone(), **kw)
+    assert torch.equal(stats, again)
+
+    y = K.bn_apply(x, want[0], want[1], w, b, 1e-5)
+    y_want = K.bn_apply_ref(x, want[0], want[1], w, b, 1e-5)
+    assert y.dtype == dtype and y.stride() == x.stride()
+    if dtype == torch.bfloat16:
+        differ, far = K.bf16_step_gap(y, y_want)
+        assert far == 0 and differ <= 1e-4 * y.numel(), (differ, far)
+    else:
+        _bn_close(y, y_want, dtype)
+
+    got = K.bn_backward(dy, x, want[0], want[1], w, 1e-5, n=n,
+                        batch_stats=True)
+    ref = K.bn_backward_ref(dy, x, want[0], want[1], w, 1e-5, n=n,
+                            batch_stats=True)
+    assert got[0].stride() == x.stride()
+    if dtype == torch.bfloat16:
+        assert K.bf16_step_gap(got[0], ref[0])[1] == 0
+    else:
+        _bn_close(got[0], ref[0], dtype)
+    for g, r in zip(got[1:], ref[1:]):
+        _bn_close(g, r, dtype)
+    again = K.bn_backward(dy, x, want[0], want[1], w, 1e-5, n=n,
+                          batch_stats=True)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert {k: K.LAUNCHES[k] - before[k] for k in
+            ("bn_moments", "bn_apply", "bn_bwd")} == {
+        "bn_moments": 2, "bn_apply": 1, "bn_bwd": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 35, 7, 5), (3, 131, 3, 1),
+                                   (2, 19, 9, 11), (5, 8, 1, 1),
+                                   (2, 3, 17, 13), (2, 16, 0, 8)])
+def test_batchnorm_kernels_at_ragged_shapes(cuda, shape, dtype):
+    """Tensors whose element count leaves a ragged last tile, a single
+    pixel, odd planes (one element a load), an empty shard; misaligned,
+    channel-sliced and NCHW inputs: the Function forward and backward
+    against the plain route."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n, c, h, w = shape
+    base = torch.randn((n, c + 1, h, w), generator=gen, device=cuda)
+    base = base.to(dtype).contiguous(memory_format=torch.channels_last)
+    params = [torch.rand(c, generator=gen, device=cuda) + 0.5,
+              torch.randn(c, generator=gen, device=cuda) * 0.1]
+    views = {"sliced": base[:, 1:],
+             "nchw": base[:, 1:].contiguous(),
+             "misaligned": torch.empty(base[:, 1:].numel() + 1, dtype=dtype,
+                                       device=cuda)[1:].view(n, h, w, c)
+             .permute(0, 3, 1, 2)}
+    views["misaligned"].copy_(base[:, 1:])
+    count = max(n * h * w, 2)
+    for name, x in views.items():
+        outs = []
+        for route in ("kernels", "plain"):
+            t = x.detach().clone().requires_grad_()
+            wt, bt = (p.clone().requires_grad_() for p in params)
+            rm, rv = torch.zeros(c, device=cuda), torch.ones(c, device=cuda)
+            fn = K.BatchNormFn.apply
+            if route == "plain":
+                t = t.cpu().detach().requires_grad_()
+                wt, bt = (p.cpu().requires_grad_() for p in params)
+                rm, rv = rm.cpu(), rv.cpu()
+            y = fn(t, wt, bt, rm, rv, rm.clone(), 1e-5, 0.1,
+                   (count, count / (count - 1)), True, None)
+            y.float().square().sum().backward()
+            outs.append([v.detach().float().cpu() for v in
+                         (y, t.grad, wt.grad, bt.grad, rm, rv)])
+        for got, want in zip(*outs):
+            torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2,
+                                       msg=name)
+
+
+def test_batchnorm_module_routes_every_cuda_tensor(cuda):
+    """A CUDA tensor takes K8 in training (moments, apply, backward) and in
+    eval (apply; under a gradient the Function); the composite path is
+    not entered."""
+    from esn_tpu_torch.nn import BatchNorm
+    bn = BatchNorm(24).to(cuda)
+    x = torch.randn(2, 24, 16, 16, device=cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+
+    def no_composite(*a):
+        raise AssertionError("the composite path ran on a CUDA tensor")
+
+    bn._normalise = no_composite
+    before = dict(K.LAUNCHES)
+    bn(x).sum().backward()
+    bn.eval()
+    with torch.no_grad():
+        bn(x)
+    bn(x).sum().backward()
+    assert {k: K.LAUNCHES[k] - before[k] for k in
+            ("bn_moments", "bn_apply", "bn_bwd")} == {
+        "bn_moments": 1, "bn_apply": 3, "bn_bwd": 2}
+
+
+def test_batchnorm_train_step_repeats_bit_for_bit(cuda):
+    """One bf16 Fast-SCNN train step, twice from the same state on the same
+    batch (cuDNN deterministic): every gradient and running statistic
+    equal bit for bit; K8 launched once a BatchNorm each way."""
+    import copy
+    from functools import partial
+    from esn_tpu_torch.nn import BatchNorm
+    from esn_tpu_torch.train import losses as L
+    from esn_tpu_torch.train.optimizers import build_optimizer
+    from esn_tpu_torch.train.step import make_train_step
+    rng = np.random.RandomState(5)
+    images = torch.from_numpy(rng.randn(2, 3, 128, 256).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 19, (2, 128, 256))
+                              .astype(np.int32)).to(cuda)
+    model0 = build_model("fastscnn", 19, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    n_bn = sum(isinstance(m, BatchNorm) for m in model0.modules())
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for _ in range(2):
+            model = copy.deepcopy(model0)
+            fused, method = L.fused_resize_ce_spec(model, "ce")
+            step = make_train_step(
+                model, partial(fused, num_classes=19),
+                build_optimizer("adam", model.parameters()),
+                fwd_method=method, compute_dtype=torch.bfloat16,
+                generator=torch.Generator(device=cuda).manual_seed(3))
+            before = dict(K.LAUNCHES)
+            step({"image": images.to(cuda), "label": labels})
+            torch.cuda.synchronize()
+            runs.append(([p.grad.clone() for p in model.parameters()],
+                         [b.clone() for b in model.buffers()],
+                         {k: K.LAUNCHES[k] - before[k] for k in
+                          ("bn_moments", "bn_apply", "bn_bwd")}))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (g1, s1, l1), (g2, s2, l2) = runs
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+    assert l1 == l2 == {"bn_moments": n_bn, "bn_apply": n_bn, "bn_bwd": n_bn}
+
+
+def test_batchnorm_two_ranks_on_cuda_keep_equal_statistics(cuda):
+    """Two ranks on the card under gloo through K8 (the world sums of the
+    moments and of the backward's sums): the running statistics and the
+    all-reduced affine gradients equal on both ranks, and each rank's y
+    and dx within f32 rounding of one process on the whole batch."""
+    import _torch_parallel as TP
+    from esn_tpu_torch.parallel import launch
+    rng = np.random.RandomState(3)
+    x = (rng.randn(4, 35, 24, 40) * 2 + 1).astype(np.float32)
+    cot = rng.randn(4, 35, 24, 40).astype(np.float32)
+    params = {"weight": rng.uniform(0.5, 1.5, 35).astype(np.float32),
+              "bias": (rng.randn(35) * 0.1).astype(np.float32),
+              "running_mean": (rng.randn(35) * 0.5).astype(np.float32),
+              "running_var": rng.uniform(0.5, 1.5, 35).astype(np.float32)}
+    one = TP.bn_case(x, cot, params, "float32", "kernels", "cuda")
+    ranks = launch.run_ranks(TP.bn_case, 2, x, cot, params, "float32",
+                             "kernels", "cuda", device="cuda", timeout=300.0,
+                             threads=None)
+    keys = ("dweight", "dbias", "running_mean", "running_var")
+    launch.assert_ranks_equal([{k: r[k] for k in keys} for r in ranks])
+    for i, r in enumerate(ranks):
+        for k in ("y", "dx"):
+            np.testing.assert_allclose(r[k], one[k][2 * i:2 * i + 2],
+                                       rtol=1e-4, atol=1e-4)
+        for k in keys:
+            np.testing.assert_allclose(r[k], one[k], rtol=1e-4, atol=1e-5)

@@ -246,7 +246,8 @@ def test_ctypes_signatures_match_the_c_sources():
     import ctypes
     import re
     from esn_tpu_torch.ops.kernels import _build
-    c_types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    c_types = {"int": ctypes.c_int, "float": ctypes.c_float,
+               "int64_t": ctypes.c_int64, "double": ctypes.c_double}
     found = {}
     for src in _build.SRC_DIR.glob("*.cu"):
         text = src.read_text()
